@@ -23,6 +23,20 @@ for bit except where the kernel's box tests round a grazing hit away.
 In any-hit mode `valid` is the occlusion predicate and `tri` is some
 occluder: the kernel stops at the first hit it finds, the plain version
 reports the nearest.
+
+Alpha micro-mask modes (tables built with tri_mask; scene/alphamask.py):
+every Moller-Trumbore hit looks up its triangle's 8x8 tri-state cell at
+the hit's barycentrics.
+  amask=1  closest hit in which a definitely-transparent hit is a miss;
+  amask=2  the shadow walk.  With t_opq the nearest hit on a definitely-
+           opaque cell and (t_mix, slot) the nearest hit on a mixed cell
+           (ties to the least slot), both in [SHADOW_EPS, t_max):
+             t_opq < t_mix  ->  `solid`: occluded outright, no candidate
+                                (valid False, tri -1, t BIG_F32);
+             else a mixed hit ->  that hit is the candidate (valid);
+             else             ->  a miss.
+           Transparent hits are skipped.  The result does not depend on
+           visit order, so kernel and plain version agree exactly.
 """
 from __future__ import annotations
 
@@ -58,7 +72,7 @@ BUILD_LOG = ""       # nvcc's output of the last build (registers, spills)
 # ---------------------------------------------------------------------------
 
 def build_tri_blocks2(tri_v: np.ndarray, k2: int | None = None,
-                      g: int = G_DEFAULT):
+                      g: int = G_DEFAULT, tri_mask: np.ndarray | None = None):
     """Two-level block tables for a static world triangle set.  Returns
     (arrays, k2) with numpy arrays:
       pk_tri      [M2*K2, 12] f32  per slot: v0 xyz, e1 xyz, e2 xyz, 0 0 0
@@ -73,6 +87,10 @@ def build_tri_blocks2(tri_v: np.ndarray, k2: int | None = None,
       pk_l1_base  [M1] i32         first child block of each L1
       pk_slot2tri [M2*K2] i32      slot -> triangle id, -1 on padding
       pk_sblk_lo/hi                coarse unions of 8 L1s
+      pk_mask     [M2*K2, 8] i32   only with tri_mask ([T, 7] int32 alpha
+                                    micro-mask words per triangle): the 7
+                                    words + 1 pad per slot (two 16-byte
+                                    loads), zero on padded slots
     The SAH order, the block cut and the L1 grouping are those of the
     reference package's build_tri_blocks2 (same builder, same triangles
     => same tables)."""
@@ -134,9 +152,17 @@ def build_tri_blocks2(tri_v: np.ndarray, k2: int | None = None,
     slot2tri = ord_pad.astype(np.int32)
     if pad:
         slot2tri[n:] = -1
-    return dict(pk_tri=tri, pk_l2box=l2box, pk_blk_lo=l1lo, pk_blk_hi=l1hi,
-                pk_l1box=l1box, pk_l1_base=l1_base, pk_slot2tri=slot2tri,
-                **sort_key_coarse(l1lo, l1hi)), k2
+    out = dict(pk_tri=tri, pk_l2box=l2box, pk_blk_lo=l1lo, pk_blk_hi=l1hi,
+               pk_l1box=l1box, pk_l1_base=l1_base, pk_slot2tri=slot2tri,
+               **sort_key_coarse(l1lo, l1hi))
+    if tri_mask is not None:
+        tri_mask = np.asarray(tri_mask)
+        if tri_mask.dtype != np.int32 or tri_mask.shape != (len(tri_v), 7):
+            raise ValueError("tri_mask must be int32 [T, 7] mask words")
+        mask = np.zeros((m2 * k2, 8), np.int32)
+        mask[:n, :7] = tri_mask[order]
+        out["pk_mask"] = mask
+    return out, k2
 
 
 # ---------------------------------------------------------------------------
@@ -144,8 +170,9 @@ def build_tri_blocks2(tri_v: np.ndarray, k2: int | None = None,
 # ---------------------------------------------------------------------------
 
 def _moller_trumbore(o, d, tri, t_max):
-    """t of each (ray, slot) pair, BIG_F32 on a miss: o, d [P, 3], tri
-    [P, K, 12] table rows, t_max [P]; the kernel's arithmetic."""
+    """(t, ok, u, v) of each (ray, slot) pair, t = BIG_F32 on a miss: o, d
+    [P, 3], tri [P, K, 12] table rows, t_max [P]; the kernel's
+    arithmetic.  u, v are the barycentrics (garbage where not ok)."""
     ox, oy, oz = (o[:, i:i + 1] for i in range(3))
     dx, dy, dz = (d[:, i:i + 1] for i in range(3))
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri[..., :9].unbind(-1)
@@ -166,7 +193,32 @@ def _moller_trumbore(o, d, tri, t_max):
     t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     ok = (~near0 & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1)
           & (t >= SHADOW_EPS) & (t < t_max[:, None]))
-    return torch.where(ok, t, BIG_F32)
+    return torch.where(ok, t, BIG_F32), ok, u, v
+
+
+def _alpha_cell_bits(mask, u, v):
+    """(opaque, mixed) bits of each hit's alpha-mask cell: mask [P, K, 8]
+    int32 words (scene/alphamask.py), u, v [P, K] barycentrics; the
+    kernel's arithmetic on integer tensors."""
+    w = mask.to(torch.int64) & 0xFFFFFFFF
+    b = [_bits_to_f32((w[..., i] << 16) & 0xFFFFFFFF) for i in range(3)]
+    c = [_bits_to_f32(w[..., i] & 0xFFFF0000) for i in range(3)]
+    gx = b[0] + b[1] * u + b[2] * v
+    gy = c[0] + c[1] * u + c[2] * v
+    cu = torch.clamp(torch.floor(gx), 0.0, 7.0).to(torch.int64)
+    cv = torch.clamp(torch.floor(gy), 0.0, 7.0).to(torch.int64)
+    cell = cv * 8 + cu
+    sh = cell & 31
+    lo_half = cell < 32
+    opq = (torch.where(lo_half, w[..., 3], w[..., 4]) >> sh) & 1
+    mix = (torch.where(lo_half, w[..., 5], w[..., 6]) >> sh) & 1
+    return opq > 0, mix > 0
+
+
+def _bits_to_f32(bits):
+    """int64 tensor holding uint32 bit patterns -> the float32 they spell."""
+    signed = torch.where(bits >= (1 << 31), bits - (1 << 32), bits)
+    return signed.to(torch.int32).view(torch.float32)
 
 
 def _entered_children(scene, o, d, t_max):
@@ -186,18 +238,22 @@ def _entered_children(scene, o, d, t_max):
     return torch.nonzero(tn <= tf).unbind(1)
 
 
-def _plain_slots(scene, origin, direction, t_max, prune=True):
+def _plain_slots(scene, origin, direction, t_max, prune=True, amask=0):
     """Nearest (t, slot) per ray, by Moller-Trumbore over every triangle of
     every child block the ray enters (every child block when prune is
-    False); no ordering, no early exit; ties in t go to the least slot."""
+    False); no ordering, no early exit; ties in t go to the least slot.
+    amask 1 / 2: the alpha micro-mask modes of the module docstring; a
+    `solid` lane of mode 2 is reported as slot -2."""
     tri = scene["pk_tri"]
     m2 = scene["pk_l2box"].shape[0]
     k2 = tri.shape[0] // m2
     tri = tri.view(m2, k2, 12)
+    mask = scene["pk_mask"].view(m2, k2, 8) if amask else None
     n = origin.shape[0]
     dev = origin.device
     best_t = torch.full((n,), BIG_F32, dtype=torch.float32, device=dev)
     best_s = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    t_opq = torch.full((n,), BIG_F32, dtype=torch.float32, device=dev)
     # temporaries of ~2^20 (CPU) / 2^26 (card) elements per chunk
     budget = 1 << (26 if origin.is_cuda else 20)
     rchunk = max(1, budget // max(1, m2))
@@ -214,7 +270,17 @@ def _plain_slots(scene, origin, direction, t_max, prune=True):
         ray = ray + r0
         for p0 in range(0, ray.shape[0], pchunk):
             r, c = ray[p0:p0 + pchunk], child[p0:p0 + pchunk]
-            t = _moller_trumbore(origin[r], direction[r], tri[c], t_max[r])
+            t, ok, u, v = _moller_trumbore(origin[r], direction[r], tri[c],
+                                           t_max[r])
+            if amask:
+                opq, mix = _alpha_cell_bits(mask[c], u, v)
+                if amask == 1:
+                    t = torch.where(ok & (opq | mix), t, BIG_F32)
+                else:
+                    t_opq = t_opq.scatter_reduce(
+                        0, r, torch.where(ok & opq, t, BIG_F32).amin(1),
+                        "amin")
+                    t = torch.where(ok & mix, t, BIG_F32)
             pt, pk = torch.min(t, dim=1)     # first min: least slot
             ps = c * k2 + pk
             new_t = best_t.scatter_reduce(0, r, pt, "amin")
@@ -225,6 +291,10 @@ def _plain_slots(scene, origin, direction, t_max, prune=True):
             best_s = keep.scatter_reduce(0, r, cand, "amin")
             best_t = new_t
     best_s = torch.where(best_t < BIG_F32, best_s, -1)
+    if amask == 2:
+        solid = t_opq < best_t
+        best_t = torch.where(solid, BIG_F32, best_t)
+        best_s = torch.where(solid, -2, best_s)
     return best_t, best_s
 
 
@@ -266,8 +336,8 @@ def build_kernel() -> float:
         lib = ctypes.CDLL(str(so))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.trace2_launch.restype = I
-        lib.trace2_launch.argtypes = [P, P, P, I, P, I, P, P, P, I, I, I,
-                                      P, P, P, P, P]
+        lib.trace2_launch.argtypes = [P, P, P, I, P, I, P, P, P, P, I, I, I,
+                                      I, P, P, P, P, P]
         _lib = lib
     return time.perf_counter() - t0
 
@@ -278,7 +348,12 @@ def _check(name, x, dtype, device):
                          f"tensor on {device}, got {x.dtype} on {x.device}")
 
 
-def _launch_kernel(scene, origin, direction, t_max, any_hit, counters):
+def _mode_name(any_hit, amask):
+    return "any_hit" if any_hit else ("closest", "amask1", "amask2")[amask]
+
+
+def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
+                   amask):
     build_kernel()
     dev = origin.device
     n = origin.shape[0]
@@ -292,6 +367,12 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters):
                         ("pk_l1box", l1box, torch.float32),
                         ("pk_l1_base", l1_base, torch.int32)):
         _check(name, x, dt, dev)
+    mask = None
+    if amask:
+        mask = scene["pk_mask"]
+        _check("pk_mask", mask, torch.int32, dev)
+        if mask.shape != (tri.shape[0], 8):
+            raise ValueError("trace2: pk_mask must hold 8 words per slot")
     m1, m2 = l1box.shape[0], l2box.shape[0]
     if (origin.shape != (n, 3) or direction.shape != (n, 3)
             or tri.shape[1:] != (12,) or l2box.shape[1:] != (8,)
@@ -307,20 +388,22 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters):
     out_slot = torch.empty((n,), dtype=torch.int32, device=dev)
     cnt = touched = None
     if counters:
-        cnt = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+        cnt = torch.zeros((n, 4), dtype=torch.int32, device=dev)
         touched = torch.zeros((m1 + m2,), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib.trace2_launch(
         origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), n,
         l1box.data_ptr(), m1, l1_base.data_ptr(),
-        l2box.data_ptr(), tri.data_ptr(), k2, g, int(bool(any_hit)),
-        out_t.data_ptr(), out_slot.data_ptr(),
+        l2box.data_ptr(), tri.data_ptr(),
+        mask.data_ptr() if amask else None, k2, g, int(bool(any_hit)),
+        int(amask), out_t.data_ptr(), out_slot.data_ptr(),
         cnt.data_ptr() if counters else None,
         touched.data_ptr() if counters else None, stream)
     if rc != 0:
         raise RuntimeError(f"trace2 kernel launch failed (cudaError {rc})")
     tri_intersect2.launches += 1
+    tri_intersect2.launches_by_mode[_mode_name(any_hit, amask)] += 1
     if counters:
         cnt = dict(counters=cnt, l1_touched=touched[:m1].bool(),
                    leaf_touched=touched[m1:].bool())
@@ -332,14 +415,16 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters):
 # ---------------------------------------------------------------------------
 
 def tri_intersect2(scene, origin, direction, t_max, any_hit: bool = False,
-                   counters: bool = False):
+                   counters: bool = False, amask: int = 0):
     """Closest (or any) hit of a ray batch against the two-level tables.
 
     origin/direction [N,3] f32, t_max [N] f32 (or a scalar).  Returns
-    dict(t, tri, inst, valid).  counters=True (CUDA only) adds "counters",
-    per ray int32 [N,3] (L1 table passes, L1 visits, leaf blocks tested),
-    and "l1_touched" [M1] / "leaf_touched" [M2] bool, the L1s and child
+    dict(t, tri, inst, valid); amask=2 adds "solid" (module docstring).
+    counters=True (CUDA only) adds "counters", per ray int32 [N,4] (L1
+    table passes, L1 visits, leaf blocks tested, mask lookups), and
+    "l1_touched" [M1] / "leaf_touched" [M2] bool, the L1s and child
     blocks any ray visited."""
+    _check_mode(scene, any_hit, amask)
     n = origin.shape[0]
     origin = origin.to(torch.float32).contiguous()
     direction = direction.to(torch.float32).contiguous()
@@ -349,32 +434,54 @@ def tri_intersect2(scene, origin, direction, t_max, any_hit: bool = False,
     cnt = None
     if origin.is_cuda:
         t, slot, cnt = _launch_kernel(scene, origin, direction, t_max,
-                                      any_hit, counters)
+                                      any_hit, counters, amask)
     else:
         if counters:
             raise ValueError("counters come from the CUDA kernel only")
-        t, slot = _plain_slots(scene, origin, direction, t_max)
-    res = _result(scene, t, slot)
+        t, slot = _plain_slots(scene, origin, direction, t_max, amask=amask)
+    res = _result(scene, t, slot, amask)
     if cnt is not None:
         res.update(cnt)
     return res
 
 
-tri_intersect2.launches = 0
+tri_intersect2.launches = 0           # kernel launches, all modes
+tri_intersect2.launches_by_mode = dict(closest=0, any_hit=0, amask1=0,
+                                       amask2=0)
+
+
+def reset_launches():
+    """Set the kernel's launch counts (total and per mode) to 0."""
+    tri_intersect2.launches = 0
+    for k in tri_intersect2.launches_by_mode:
+        tri_intersect2.launches_by_mode[k] = 0
+
+
+def _check_mode(scene, any_hit, amask):
+    if amask not in (0, 1, 2):
+        raise ValueError(f"amask must be 0, 1 or 2, got {amask!r}")
+    if amask and any_hit:
+        # mode 1 filters a closest pass; mode 2 is its own predicate walk:
+        # a plain any-hit would take mixed candidates for occluders
+        raise ValueError("amask and any_hit are mutually exclusive")
+    if amask and "pk_mask" not in scene:
+        raise ValueError("amask needs tables built with tri_mask (pk_mask)")
 
 
 def tri_intersect2_plain(scene, origin, direction, t_max,
-                         any_hit: bool = False, prune: bool = True):
+                         any_hit: bool = False, prune: bool = True,
+                         amask: int = 0):
     """The plain version on any device (the kernel's oracle on the card;
     never called on the render path).  prune=False tests every slot of
     the table instead of the triangles of the entered child blocks.
     any_hit changes nothing here: the nearest hit is also an occluder."""
+    _check_mode(scene, any_hit, amask)
     n = origin.shape[0]
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
                                                device=origin.device), (n,))
     return _result(scene, *_plain_slots(scene, origin.to(torch.float32),
                                         direction.to(torch.float32), t_max,
-                                        prune))
+                                        prune, amask), amask)
 
 
 def child_boxes_hold_triangles(scene, tri_v) -> bool:
@@ -395,14 +502,18 @@ def child_boxes_hold_triangles(scene, tri_v) -> bool:
     return bool((inside | (s2t < 0)).all()) and bool(far.all())
 
 
-def _result(scene, t, slot):
-    """(t, slot) per ray -> the dict(t, tri, inst, valid) contract."""
+def _result(scene, t, slot, amask=0):
+    """(t, slot) per ray -> the dict(t, tri, inst, valid) contract, plus
+    solid (slot == -2) under amask=2."""
     s2t = scene["pk_slot2tri"]
     valid = slot >= 0
     tri = torch.where(valid, s2t[torch.clamp(slot, 0, s2t.shape[0] - 1)], -1)
     valid = valid & (tri >= 0)
-    return dict(t=torch.where(valid, t, BIG_F32),
-                tri=torch.where(valid, tri, -1).to(torch.int64),
-                inst=torch.full(t.shape, -1, dtype=torch.int64,
-                                device=t.device),
-                valid=valid)
+    res = dict(t=torch.where(valid, t, BIG_F32),
+               tri=torch.where(valid, tri, -1).to(torch.int64),
+               inst=torch.full(t.shape, -1, dtype=torch.int64,
+                               device=t.device),
+               valid=valid)
+    if amask == 2:
+        res["solid"] = slot == -2
+    return res

@@ -7,11 +7,13 @@ camera, and `dataclasses.asdict(meta)`) and returns this package's
 (scene, cam, SceneMeta) on `device`.  Nothing of the JAX package is
 imported: the caller does the NumPy conversion.
 
-Geometry, material and light tables carry over as they are.  The
-reference's traversal tables are laid out for its TPU kernels, so for a
-meta.accel == "pallas" scene the two-level tables are rebuilt here from
-the triangles (same SAH builder, same order); any other accel becomes the
-brute scan, which returns the same hits.
+Geometry, material, texture and light tables carry over as they are.
+The reference's traversal tables are laid out for its TPU kernels, so for
+a meta.accel == "pallas" scene the two-level tables (the opaque / alpha
+split and the alpha micro-mask words included) are rebuilt here from the
+carried triangles, materials and textures with this package's own builder
+code (same SAH builder, same order); any other accel becomes the brute
+scan, which returns the same hits.
 """
 from __future__ import annotations
 
@@ -24,10 +26,12 @@ from .core.device import resolve_device
 from .scene.types import SceneMeta
 
 _SCENE_KEYS = (
-    "tri_v", "tri_n", "tri_uv", "tri_prop", "tri_pack",
+    "tri_v", "tri_n", "tri_uv", "tri_tan", "tri_prop", "tri_pack",
     "sph_c", "sph_r", "sph_prop",
     "quad_q", "quad_u", "quad_v", "quad_n", "quad_d", "quad_w", "quad_prop",
     "mat_type", "mat_base", "mat_rough", "mat_metal", "mat_ior",
+    "mat_tex", "mat_alpha_mode", "mat_alpha_cutoff",
+    "tex_texels", "tex_info_i", "tex_info_f",
     "light_type", "light_color", "light_vec", "light_shape", "light_flags",
     "light_area", "light_power", "light_cdf", "light_total_power",
     "inf_idx", "scene_lo", "scene_hi")
@@ -36,12 +40,9 @@ _CAM_KEYS = ("origin", "u", "v", "w", "half_wh", "defocus_radius",
 
 
 def _check_supported(f: dict):
-    unsupported = [k for k in ("has_alpha", "has_motion", "has_light_motion",
-                               "n_inst", "n_media", "n_env",
-                               "has_normal_maps", "has_emissive_tex")
+    unsupported = [k for k in ("has_motion", "has_light_motion", "n_inst",
+                               "n_media", "n_env", "has_emissive_tex")
                    if f.get(k)]
-    if any(f.get("mat_tex_present", ())):
-        unsupported.append("mat_tex_present")
     if f.get("scene_medium", -1) >= 0 or f.get("camera_medium", -1) >= 0:
         unsupported.append("medium")
     if unsupported:
@@ -75,13 +76,24 @@ def from_numpy_scene(scene: dict, cam: dict, meta_fields: dict, device=None):
     accel = fields.get("accel", "brute")
     block_g = int(fields.get("block_g", 16))
     if accel == "pallas" and n_tri:
-        from .accel.trace2 import build_tri_blocks2
-        pk, block_k = build_tri_blocks2(
-            np.asarray(arrays["tri_v"][:n_tri], np.float32), g=block_g)
+        from .scene.builder import build_traversal_tables
+        from .scene.textures import TexturePool
+        n_mat = int(fields.get("n_mat", 0))
+        pool = TexturePool.from_packed(
+            arrays["tex_texels"], arrays["tex_info_i"], arrays["tex_info_f"])
+        pk, block_k, alpha_block_k, alpha_cull_mask = build_traversal_tables(
+            np.asarray(arrays["tri_v"][:n_tri], np.float32),
+            arrays["tri_uv"][:n_tri], arrays["tri_prop"][:n_tri, 0], pool,
+            arrays["mat_alpha_mode"][:n_mat],
+            arrays["mat_alpha_cutoff"][:n_mat], arrays["mat_tex"][:n_mat],
+            block_g)
         arrays.update(pk)
-        fields.update(accel="pallas", block_k=block_k, block_g=block_g)
+        fields.update(accel="pallas", block_k=block_k, block_g=block_g,
+                      alpha_block_k=alpha_block_k,
+                      alpha_cull_mask=alpha_cull_mask)
     else:
-        fields.update(accel="brute", block_k=0)
+        fields.update(accel="brute", block_k=0, alpha_block_k=0,
+                      alpha_cull_mask=False)
     out_scene = {k: torch.from_numpy(np.array(v)).to(dev)
                  for k, v in arrays.items()}
     out_cam = {k: torch.from_numpy(np.array(cam[k], np.float32)).to(dev)

@@ -182,6 +182,25 @@ def scross(ax, ay, az, bx, by, bz):
     return (ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx)
 
 
+def sdot_f(ax, ay, az, bx, by, bz):
+    """sdot with the sums rounded as fused multiply-adds, in the order the
+    reference package's compiled CPU code contracts them."""
+    return fma(az, bz, fma(ax, bx, ay * by))
+
+
+def scross_f(ax, ay, az, bx, by, bz):
+    """scross with each difference of products rounded as one fused
+    multiply-add (see sdot_f)."""
+    return (fma(ay, bz, -(az * by)), fma(az, bx, -(ax * bz)),
+            fma(ax, by, -(ay * bx)))
+
+
+def sbary_mix(bu, bv, bw, a0, a1, a2):
+    """bu*a1 + bv*a2 + bw*a0 (barycentric interpolation of a vertex
+    attribute), rounded as the reference's compiled CPU code does."""
+    return fma(bw, a0, fma(bu, a1, bv * a2))
+
+
 def ssafe_normalize(x, y, z):
     """Component form of safe_normalize (same 1e-12 guard)."""
     n2 = x * x + y * y + z * z

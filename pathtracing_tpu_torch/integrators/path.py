@@ -25,6 +25,8 @@ from ..core.bsdf import (bsdf_sample, bsdf_eval_pdf, material_lanes,
 from ..core.filters import FilterConfig, mitchell
 from ..scene.intersect import _intersect, make_interaction, _occluded
 from ..scene import lights as L
+from ..scene.textures import texture_alpha, texture_eval
+from ..scene.types import ALPHA_BLEND, ALPHA_MASK
 
 # per-bounce random dimension layout (camera uses dims 0..4)
 _DIM_BASE = 5
@@ -35,6 +37,7 @@ _D_SCATTER_U = 4
 _D_LIGHT_SELECT = 5
 _D_RR = 6
 _D_ENV_CELL = 9
+_D_ALPHA = 12
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,12 +60,11 @@ class RenderConfig:
 
 
 def _check_cfg(cfg: RenderConfig, meta):
-    if (meta.has_alpha or meta.has_motion or meta.n_inst or meta.n_media
-            or meta.n_env or meta.has_emissive_tex or meta.has_normal_maps
-            or any(meta.mat_tex_present)):
+    if (meta.has_motion or meta.n_inst or meta.n_media or meta.n_env
+            or meta.has_emissive_tex):
         raise NotImplementedError(
-            "scene uses features not ported yet (alpha, motion, instances, "
-            "media or textures)")
+            "scene uses features not ported yet (motion, run-time "
+            "instances, media, environment or emissive textures)")
     if cfg.integrator not in ("path", "simple"):
         raise NotImplementedError(
             f"integrator={cfg.integrator!r} comes with participating media")
@@ -73,13 +75,34 @@ def _check_cfg(cfg: RenderConfig, meta):
 
 
 def resolve_material(scene, meta, it):
-    """Per-lane material parameters (untextured)."""
+    """Per-lane material parameters with textures applied: the base
+    texture modulates the base color, roughness reads the G channel and
+    metallic the B channel of their textures.  A slot no material of the
+    scene uses (meta.mat_tex_present) is skipped outright."""
     mid = torch.clamp(it["mat_id"], 0, scene["mat_type"].shape[0] - 1)
     mtype = torch.where(it["mat_id"] >= 0,
                         scene["mat_type"][mid].to(torch.int64), -1)
-    return material_lanes(mtype, scene["mat_base"][mid],
-                          scene["mat_rough"][mid], scene["mat_metal"][mid],
-                          scene["mat_ior"][mid])
+    base = scene["mat_base"][mid]
+    rough = scene["mat_rough"][mid]
+    metal = scene["mat_metal"][mid]
+    present = meta.mat_tex_present
+    if meta.n_mat and any(present[:3]):
+        tex_ids = scene["mat_tex"][mid]
+    if meta.n_mat and present[0]:
+        bt = tex_ids[:, 0]
+        base = torch.where((bt >= 0)[:, None],
+                           base * texture_eval(scene, bt, it["uv"]), base)
+    if meta.n_mat and present[1]:
+        rt = tex_ids[:, 1]
+        rough = torch.where(rt >= 0,
+                            rough * texture_eval(scene, rt, it["uv"])[:, 1],
+                            rough)
+    if meta.n_mat and present[2]:
+        mt = tex_ids[:, 2]
+        metal = torch.where(mt >= 0,
+                            metal * texture_eval(scene, mt, it["uv"])[:, 2],
+                            metal)
+    return material_lanes(mtype, base, rough, metal, scene["mat_ior"][mid])
 
 
 # ---------------------------------------------------------------------------
@@ -87,8 +110,10 @@ def resolve_material(scene, meta, it):
 # ---------------------------------------------------------------------------
 
 def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
-              active):
-    """One-light next-event estimate from surface vertices."""
+              alpha_salt, active, occ_stats=None):
+    """One-light next-event estimate from surface vertices.  alpha_salt
+    keys the shadow predicate's BLEND random numbers; occ_stats is handed
+    to it (scene/intersect.py::_occluded)."""
     if meta.n_lights == 0:
         return torch.zeros_like(ray_dir)
 
@@ -118,7 +143,8 @@ def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
     active = active & ~dead
     # inactive lanes trace zero-length shadow rays (no kernel work)
     t_shadow = torch.where(active, t_shadow, 0.0)
-    vis = ~_occluded(scene, meta, ref_p, sdir, t_shadow)
+    vis = ~_occluded(scene, meta, ref_p, sdir, t_shadow,
+                     rand_key=alpha_salt, stats=occ_stats)
 
     l_val = L.light_sample_L(scene, meta, lidx, ls, sdir)
     shape_pdf = L.light_sample_pdf(scene, meta, lidx, ls, ref_p, sdir)
@@ -139,10 +165,11 @@ def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
 # The bounce loop
 # ---------------------------------------------------------------------------
 
-def _make_bounce(scene, meta, cfg, px, py, sample_idx, n):
+def _make_bounce(scene, meta, cfg, px, py, sample_idx, n, occ_stats=None):
     """One-bounce step for a bound lane set.  `bounce(state, b)` advances
     every lane one bounce; b is an int or a per-lane [n] tensor (trace_regen,
-    where each lane sits at its own depth)."""
+    where each lane sits at its own depth).  occ_stats (a dict) accumulates
+    the shadow predicate's "calls" and "restarts"."""
     simple = cfg.integrator == "simple"
     s = cfg.sampler
     present = meta.mats_present
@@ -186,6 +213,7 @@ def _make_bounce(scene, meta, cfg, px, py, sample_idx, n):
         u_rr = sample_1d(s, px, py, sample_idx, dim(b, _D_RR))
         u_cell = rngmod.hash_float(px, py, sample_idx, dim(b, _D_ENV_CELL),
                                    s.seed)
+        alpha_salt = rngmod.hash_u32(sample_idx, b, s.seed)
 
         mat = resolve_material(scene, meta, it)
 
@@ -213,6 +241,30 @@ def _make_bounce(scene, meta, cfg, px, py, sample_idx, n):
 
         boundary = surf & (it["mat_id"] < 0)       # material-less surface
         can_scatter = surf & (it["mat_id"] >= 0)
+        if meta.has_alpha:
+            # alpha transparency: a failed stochastic-blend or mask test
+            # lets the ray pass through the surface as if it were not
+            # there (handled below like a material-less boundary)
+            mid_a = torch.clamp(it["mat_id"], 0,
+                                scene["mat_type"].shape[0] - 1)
+            mode_a = scene["mat_alpha_mode"][mid_a]
+            cutoff_a = scene["mat_alpha_cutoff"][mid_a]
+            atex = scene["mat_tex"][mid_a, 4]
+            btex = scene["mat_tex"][mid_a, 0]
+            a_val = texture_alpha(scene, torch.where(atex >= 0, atex, btex),
+                                  it["uv"])
+            if meta.mat_tex_present[4]:
+                # a dedicated alpha texture reads channel 0
+                a_val = torch.where(
+                    atex >= 0, texture_eval(scene, atex, it["uv"])[:, 0],
+                    a_val)
+            u_alpha = sample_1d(s, px, py, sample_idx, dim(b, _D_ALPHA))
+            solid = torch.where(mode_a == ALPHA_BLEND, u_alpha < a_val,
+                                torch.where(mode_a == ALPHA_MASK,
+                                            a_val > cutoff_a, True))
+            see_through = can_scatter & ~solid
+            boundary = boundary | see_through
+            can_scatter = can_scatter & solid
         wi, f, pdf, flags, bvalid, new_origin = bsdf_sample(
             mat, d, it, u_scatter, uv_scatter, present=present)
         absorbed = can_scatter & ~bvalid
@@ -223,7 +275,7 @@ def _make_bounce(scene, meta, cfg, px, py, sample_idx, n):
         if not simple:
             nee_active = scattered & ~new_spec
             nee = sample_ld(scene, meta, cfg, d, it, mat, u_select, uv_light,
-                            u_cell, nee_active)
+                            u_cell, alpha_salt, nee_active, occ_stats)
             radiance = radiance + torch.where(nee_active[:, None],
                                               tput * nee, 0.0)
             n_rays = n_rays + nee_active.sum()
@@ -337,10 +389,11 @@ def _trace_regen(scene, cam, meta, cfg, pixel_idx, waves, sample_offset,
     head = torch.tensor(k, dtype=torch.int64, device=dev)
     b = torch.zeros((k,), dtype=torch.int64, device=dev)
     out = torch.zeros((q_total, 3), dtype=torch.float32, device=dev)
+    occ_stats = {} if with_stats else None
 
     # data-dependent loop: one host sync per iteration (the .item() below)
     while bool(st["alive"].any().item()):
-        bounce = _make_bounce(scene, meta, cfg, px, py, sidx, k)
+        bounce = _make_bounce(scene, meta, cfg, px, py, sidx, k, occ_stats)
         prev_alive = st["alive"]
         st = bounce(st, b)
         b = b + 1
@@ -375,7 +428,9 @@ def _trace_regen(scene, cam, meta, cfg, pixel_idx, waves, sample_offset,
         py = torch.where(take, pyn, py)
         sidx = torch.where(take, sidxn, sidx)
     if with_stats:
-        return out, dict(n_rays=st["n_rays"])
+        return out, dict(n_rays=st["n_rays"],
+                         occluded_calls=occ_stats.get("calls", 0),
+                         chain_restarts=occ_stats.get("restarts", 0))
     return out
 
 

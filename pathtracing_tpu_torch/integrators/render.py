@@ -52,14 +52,17 @@ def render_tile_regen(scene, cam, meta, cfg: RenderConfig, film, pixel_idx,
     """Regenerative render of `waves` consecutive sample indices for one
     pixel batch (one trace_regen queue drain by `lanes` lanes), then one
     splat per wave — the film contract of render_tile.  `stats`, when
-    given, accumulates "n_rays" (closest-hit + shadow rays traced)."""
+    given, accumulates "n_rays" (closest-hit + shadow rays traced),
+    "occluded_calls" (shadow-predicate calls on a scene with alpha
+    materials) and "chain_restarts" (alpha restart-chain iterations)."""
     w, h = cam["resolution"]
     px = pixel_idx % w
     py = pixel_idx // w
     out, st = _trace_regen(scene, cam, meta, cfg, pixel_idx, waves,
                            sample_offset, lanes=lanes, with_stats=True)
     if stats is not None:
-        stats["n_rays"] = stats.get("n_rays", 0) + int(st["n_rays"])
+        for key, val in st.items():
+            stats[key] = stats.get(key, 0) + int(val)
     k = pixel_idx.shape[0]
     for s_w in range(waves):
         sidx = torch.full_like(pixel_idx, int(sample_offset) + s_w)
@@ -90,7 +93,8 @@ def render(scene, cam, meta, cfg: RenderConfig, film=None, spp=None,
            stats: dict | None = None):
     """Full-frame render.  Returns the film dict (rgb + weight sums).
     Runs on the GPU unless device="cpu".  With cfg.regenerate, `stats`
-    (a dict) accumulates "n_rays", the rays traced."""
+    (a dict) accumulates "n_rays", the rays traced, and the shadow
+    predicate's "occluded_calls" and "chain_restarts"."""
     dev = resolve_device(device)
     scene = to_device(scene, dev)
     cam = to_device(cam, dev)

@@ -1,18 +1,27 @@
 """Host-side scene builder (counterpart of pathtracing_tpu/scene/builder.py).
 
-Same API for the features this package runs: materials (diffuse,
-dielectric, thin dielectric, conductor), spheres, quads and triangle
-meshes (emissive ones become area lights), uniform-infinite / distant /
-point lights and the camera.  `build()` packs NumPy tables into torch
-tensors on the device, builds the two-level traversal tables for
-triangle scenes and returns (scene, cam, SceneMeta).
+Same API for the features this package runs: the texture pool,
+materials (diffuse, dielectric, thin dielectric, conductor) with base /
+roughness / metallic / normal / alpha textures and alpha modes, spheres,
+quads and triangle meshes with uvs and authored tangents (emissive ones
+become area lights), models instanced as world triangles,
+uniform-infinite / distant / point lights and the camera.  `build()`
+packs NumPy tables into torch tensors on the device, builds the
+two-level traversal tables for triangle scenes (split into an opaque and
+an alpha set, the latter with per-triangle micro-masks, when some but
+not all triangles have an alpha material) and returns (scene, cam,
+SceneMeta).
 
-Not in this package yet, and refused with NotImplementedError: textures
-and alpha (the textured-scene slice), media, instancing and motion blur.
+Not in this package yet, and refused with NotImplementedError: media,
+motion blur, instances kept as run-time instances (they come with the
+traversal kernel's instanced mode), and environment / function /
+emissive-texture lights.
 """
 from __future__ import annotations
 
+import hashlib
 import os
+import time
 
 import numpy as np
 import torch
@@ -20,11 +29,16 @@ import torch
 from ..core.device import resolve_device
 from ..core.bsdf import (MAT_DIFFUSE, MAT_DIELECTRIC, MAT_THIN_DIELECTRIC,
                          MAT_CONDUCTOR)
+from .alphamask import build_tri_alpha_masks
+from .textures import TexturePool
 from .types import (SceneMeta, LIGHT_UNIFORM_INF, LIGHT_DISTANT, LIGHT_POINT,
                     LIGHT_AREA, SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD,
                     ALPHA_OPAQUE)
 
-_TEXTURE_SLICE = "textures and alpha come with the textured-scene slice"
+BUILD_SECONDS = dict(masks=0.0, tables=0.0)   # of the last table build
+
+FLATTEN_MAX = 4_000_000   # runtime="auto" instances above this many
+                          # expanded triangles would stay run-time instances
 
 
 def _lum(c):
@@ -79,6 +93,66 @@ class _ChunkedRows:
         return self._cat()[i]
 
 
+def alpha_material_mask(mats, mat_modes):
+    """Which of the material ids `mats` name an alpha (non-opaque)
+    material; out-of-range ids (-1) do not."""
+    mats = np.asarray(mats, np.int64)
+    mat_modes = np.asarray(mat_modes, np.int64)
+    out = np.zeros(len(mats), bool)
+    if len(mats) and len(mat_modes):
+        ok = (mats >= 0) & (mats < len(mat_modes))
+        out[ok] = mat_modes[mats[ok]] != ALPHA_OPAQUE
+    return out
+
+
+def build_traversal_tables(tri_v, tri_uv, tri_mat, pool, mat_alpha_mode,
+                           mat_alpha_cutoff, mat_tex, block_g):
+    """Two-level traversal tables for the world triangles tri_v [T,3,3].
+
+    When some but not all triangles have an alpha material there are two
+    table sets: pk_* over the opaque triangles and pka_* over the alpha
+    ones, whose per-triangle micro-mask words (alphamask.py, from tri_uv
+    [T,3,2], the material ids tri_mat [T] and the host TexturePool) ride
+    in slot order as pka_mask.  pk_slot2tri / pka_slot2tri name GLOBAL
+    triangle ids.  Returns (arrays, block_k, alpha_block_k,
+    alpha_cull_mask)."""
+    from ..accel.trace2 import build_tri_blocks2
+
+    t0 = time.perf_counter()
+    BUILD_SECONDS.update(masks=0.0, tables=0.0)
+
+    def tables(ids, mask_rows=None):
+        arrays, bk = build_tri_blocks2(tri_v[ids], g=block_g,
+                                       tri_mask=mask_rows)
+        # slot2tri indexes the subset: compose to GLOBAL triangle ids
+        s2t = arrays["pk_slot2tri"]
+        arrays["pk_slot2tri"] = np.where(
+            s2t >= 0, ids[np.clip(s2t, 0, len(ids) - 1)], -1
+        ).astype(np.int32)
+        return arrays, bk
+
+    nt = len(tri_v)
+    all_ids = np.arange(nt)
+    tri_alpha = alpha_material_mask(tri_mat, mat_alpha_mode)
+    n_alpha = int(tri_alpha.sum())
+    if not 0 < n_alpha < nt:
+        arrays, block_k = tables(all_ids)
+        BUILD_SECONDS["tables"] = time.perf_counter() - t0
+        return arrays, block_k, 0, False
+    ids_a = all_ids[tri_alpha]
+    masks = build_tri_alpha_masks(
+        np.asarray(tri_uv, np.float32).reshape(-1, 3, 2)[ids_a],
+        np.asarray(tri_mat, np.int64)[ids_a], pool, mat_alpha_mode,
+        mat_alpha_cutoff, mat_tex)
+    BUILD_SECONDS["masks"] = time.perf_counter() - t0
+    arrays, block_k = tables(all_ids[~tri_alpha])
+    pka, alpha_block_k = tables(ids_a, mask_rows=masks)
+    arrays.update({"pka_" + k[3:]: v for k, v in pka.items()})
+    BUILD_SECONDS["tables"] = (time.perf_counter() - t0
+                               - BUILD_SECONDS["masks"])
+    return arrays, block_k, alpha_block_k, True
+
+
 def _accumulate_vertex_normals(vertices, indices):
     """Area-weighted vertex normals via bincount."""
     e1 = vertices[indices[:, 1]] - vertices[indices[:, 0]]
@@ -98,8 +172,14 @@ def _accumulate_vertex_normals(vertices, indices):
 
 class SceneBuilder:
     def __init__(self):
-        self._mat = dict(type=[], base=[], rough=[], metal=[], ior=[])
-        self._tri = {k: _ChunkedRows() for k in ("v", "n", "uv", "prop")}
+        self.textures = TexturePool()
+        self._mat = dict(type=[], base=[], rough=[], metal=[], ior=[],
+                         tex=[], alpha_mode=[], alpha_cutoff=[])
+        self._tri = {k: _ChunkedRows()
+                     for k in ("v", "n", "uv", "tan", "prop")}
+        self._models = []
+        self._model_dedup = {}
+        self._auto_inst = []       # (model id, 4x4) flattened at build()
         self._sph = {k: _ChunkedRows() for k in ("c", "r", "prop")}
         self._quad = {k: _ChunkedRows() for k in ("q", "u", "v", "prop")}
         self._lights = []
@@ -108,16 +188,19 @@ class SceneBuilder:
 
     # -- materials ---------------------------------------------------------
 
-    def _add_material(self, mtype, base, rough, metal, ior, *tex,
-                      alpha_mode=ALPHA_OPAQUE):
-        if any(t >= 0 for t in tex) or alpha_mode != ALPHA_OPAQUE:
-            raise NotImplementedError(_TEXTURE_SLICE)
+    def _add_material(self, mtype, base, rough, metal, ior,
+                      base_tex=-1, rough_tex=-1, metal_tex=-1, norm_tex=-1,
+                      alpha_tex=-1, alpha_mode=ALPHA_OPAQUE,
+                      alpha_cutoff=0.5) -> int:
         m = self._mat
         m["type"].append(mtype)
         m["base"].append(np.asarray(base, np.float32))
         m["rough"].append(float(rough))
         m["metal"].append(float(metal))
         m["ior"].append(float(ior))
+        m["tex"].append([base_tex, rough_tex, metal_tex, norm_tex, alpha_tex])
+        m["alpha_mode"].append(int(alpha_mode))
+        m["alpha_cutoff"].append(float(alpha_cutoff))
         return len(m["type"]) - 1
 
     def add_diffuse(self, base_color=(0.8, 0.8, 0.8), roughness=1.0,
@@ -128,15 +211,15 @@ class SceneBuilder:
         return self._add_material(MAT_DIFFUSE, base_color, roughness,
                                   metallic, 1.5, base_tex, rough_tex,
                                   metal_tex, norm_tex, alpha_tex,
-                                  alpha_mode=alpha_mode)
+                                  alpha_mode, alpha_cutoff)
 
     def add_dielectric(self, ior=1.5, roughness=0.0, base_color=(1, 1, 1),
                        base_tex=-1, rough_tex=-1, norm_tex=-1, alpha_tex=-1,
                        alpha_mode=ALPHA_OPAQUE, alpha_cutoff=0.5) -> int:
         """Rough or smooth glass."""
         return self._add_material(MAT_DIELECTRIC, base_color, roughness, 0.0,
-                                  ior, base_tex, rough_tex, norm_tex,
-                                  alpha_tex, alpha_mode=alpha_mode)
+                                  ior, base_tex, rough_tex, -1, norm_tex,
+                                  alpha_tex, alpha_mode, alpha_cutoff)
 
     def add_thin_dielectric(self, ior=1.5, base_color=(1, 1, 1),
                             base_tex=-1) -> int:
@@ -153,7 +236,7 @@ class SceneBuilder:
     def _maybe_area_light(self, shape_kind, shape_idx, emission, em_tex,
                           one_sided) -> int:
         if em_tex >= 0:
-            raise NotImplementedError(_TEXTURE_SLICE)
+            _refuse("an emissive texture")
         if emission is None:
             return -1
         self._lights.append(dict(type=LIGHT_AREA,
@@ -199,8 +282,6 @@ class SceneBuilder:
         """Flatten a triangle mesh into the global triangle table; emissive
         meshes get one area light per triangle above the power cull.
         transform: optional 4x4 object-to-world, applied here."""
-        if tangents is not None:
-            _refuse("authored tangents (normal mapping)")
         if medium >= 0:
             _refuse("participating media")
         _static(velocity)
@@ -220,12 +301,17 @@ class SceneBuilder:
                                                      keepdims=True), 1e-20)
         uvs = (np.asarray(uvs, np.float32).reshape(-1, 2) if uvs is not None
                else np.zeros((len(vertices), 2), np.float32))
+        has_tan = tangents is not None
+        tangents = (np.asarray(tangents, np.float32).reshape(-1, 3)
+                    if has_tan else np.zeros_like(vertices))
+        if has_tan and transform is not None:
+            tangents = tangents @ tf[:3, :3].T
 
         first = len(self._tri["v"])
         f = len(indices)
         lids = np.full(f, -1, np.int64)
         if em_tex >= 0:
-            raise NotImplementedError(_TEXTURE_SLICE)
+            _refuse("an emissive texture")
         if emission is not None and _lum(emission) > 0:
             v0 = vertices[indices[:, 0]]
             e1 = vertices[indices[:, 1]] - v0
@@ -240,11 +326,13 @@ class SceneBuilder:
         self._tri["n"].extend(np.ascontiguousarray(normals[indices],
                                                    np.float32))
         self._tri["uv"].extend(np.ascontiguousarray(uvs[indices], np.float32))
+        self._tri["tan"].extend(np.ascontiguousarray(tangents[indices],
+                                                     np.float32))
         props = np.empty((f, 4), np.int64)
         props[:, 0] = material
         props[:, 1] = lids
         props[:, 2] = -1
-        props[:, 3] = 0
+        props[:, 3] = 1 if has_tan else 0
         self._tri["prop"].extend(props)
         return first, f
 
@@ -273,7 +361,7 @@ class SceneBuilder:
         return len(self._lights) - 1
 
     def add_env_light(self, *args, **kwargs):
-        raise NotImplementedError(_TEXTURE_SLICE)
+        _refuse("an environment-map or function light")
 
     add_env_light_from_file = add_function_inf_light = add_env_light
 
@@ -282,14 +370,88 @@ class SceneBuilder:
 
     set_scene_medium = add_medium
 
-    def add_model(self, *args, **kwargs):
-        _refuse("instancing")
+    # -- models & instancing ------------------------------------------------
 
-    add_model_instance = add_model
+    def add_model(self, vertices, indices, normals=None, uvs=None,
+                  tangents=None, material=-1, medium=-1,
+                  emission=None, em_tex=-1) -> int:
+        """Register a reusable model; instance it with add_model_instance.
+        Content-identical registrations share one model id."""
+        if medium >= 0:
+            _refuse("participating media")
+        if em_tex >= 0:
+            _refuse("an emissive texture")
+        h = hashlib.sha256()
+        for a in (vertices, indices, normals, uvs, tangents):
+            if a is None:
+                h.update(b"\0none")
+            else:
+                arr = np.ascontiguousarray(np.asarray(a))
+                h.update(str(arr.shape).encode())
+                h.update(arr.tobytes())
+        key = (h.hexdigest(), int(material),
+               tuple(np.asarray(emission).tolist())
+               if emission is not None else None)
+        if key in self._model_dedup:
+            return self._model_dedup[key]
+        self._models.append(dict(vertices=vertices, indices=indices,
+                                 normals=normals, uvs=uvs,
+                                 tangents=tangents, material=material,
+                                 emission=emission))
+        self._model_dedup[key] = len(self._models) - 1
+        return self._model_dedup[key]
 
-    @property
-    def textures(self):
-        raise NotImplementedError(_TEXTURE_SLICE)
+    def add_model_instance(self, model_id: int, transform=None,
+                           runtime: bool | str = False,
+                           velocity=(0.0, 0.0, 0.0)):
+        """Instance a registered model under a 4x4 object-to-world
+        transform, as world triangles.
+
+        runtime=False re-emits the geometry now (it keeps its place in
+        the triangle order).  runtime="auto" defers to build(), which
+        re-emits every such instance after all other meshes, as the
+        reference package's builder does below FLATTEN_MAX expanded
+        triangles.  Keeping instances as run-time instances
+        (runtime=True, an "auto" total above FLATTEN_MAX, or an emissive
+        model under "auto") needs the traversal kernel's instanced mode,
+        which is not in this package yet."""
+        _static(velocity)
+        m = self._models[model_id]
+        if runtime is True:
+            _refuse("run-time instancing (runtime=True; it comes with the "
+                    "slice that ports the traversal kernel's instanced mode)")
+        if not runtime:
+            return self.add_mesh(m["vertices"], m["indices"],
+                                 normals=m["normals"], uvs=m["uvs"],
+                                 tangents=m["tangents"],
+                                 material=m["material"],
+                                 emission=m["emission"], transform=transform)
+        if runtime != "auto":
+            raise ValueError(f"runtime must be False, True or 'auto', got "
+                             f"{runtime!r}")
+        if m["emission"] is not None and _lum(m["emission"]) > 0:
+            _refuse("an emissive model instanced at run time (runtime="
+                    "'auto' keeps emissive models as run-time instances)")
+        tf = np.eye(4, dtype=np.float32) if transform is None \
+            else np.asarray(transform, np.float32)
+        self._auto_inst.append((model_id, tf))
+        return len(self._auto_inst) - 1
+
+    def _flatten_instances(self):
+        """Re-emit the runtime="auto" instances as world triangles."""
+        autos, self._auto_inst = self._auto_inst, []
+        total = sum(len(np.asarray(self._models[mid]["indices"]).reshape(-1, 3))
+                    for mid, _ in autos)
+        if total > FLATTEN_MAX:
+            self._auto_inst = autos
+            _refuse(f"{total:,} instanced triangles (more than {FLATTEN_MAX:,}"
+                    " stay run-time instances, which need the traversal "
+                    "kernel's instanced mode)")
+        for mid, tf in autos:
+            m = self._models[mid]
+            self.add_mesh(m["vertices"], m["indices"], normals=m["normals"],
+                          uvs=m["uvs"], tangents=m["tangents"],
+                          material=m["material"], transform=tf)
 
     # -- camera ------------------------------------------------------------
 
@@ -358,12 +520,14 @@ class SceneBuilder:
 
         power_cull drops lights with power below it.  accel: "auto" picks
         "brute" under 4096 primitives and "pallas" (the two-level traversal
-        tables) for triangle scenes above; "brute" forces the scan.  The
+        tables) for triangle scenes above; "brute" forces the scan (and
+        builds no alpha micro-masks: it is the unmasked oracle).  The
         reference package sends triangle sets of 65,536 or fewer to its
         single-level kernel; here they use the two-level tables too."""
         dev = resolve_device(device)
         if accel not in ("auto", "pallas", "brute"):
             raise NotImplementedError(f"accel={accel!r} is not ported")
+        self._flatten_instances()
         lo, hi = self._scene_bounds()
         center = 0.5 * (lo + hi)
         scene_radius = float(np.linalg.norm(hi - center)) or 1.0
@@ -419,6 +583,7 @@ class SceneBuilder:
         tri_v = pad(self._tri["v"], (1, 3, 3))
         tri_n = pad(self._tri["n"], (1, 3, 3))
         tri_uv = pad(self._tri["uv"], (1, 3, 2))
+        tri_tan = pad(self._tri["tan"], (1, 3, 3))
         tri_prop_p = pad(tri_prop, (1, 4), np.int32, -1)
         # packed per-triangle interaction row [T, 32]: one gather fetches
         # verts 9, shading normals 9, uvs 6, prop 4 (+4 pad)
@@ -427,8 +592,8 @@ class SceneBuilder:
             tri_prop_p.astype(np.float32),
             np.zeros((len(tri_v), 4), np.float32)], 1)
         arrays = dict(
-            tri_v=tri_v, tri_n=tri_n, tri_uv=tri_uv, tri_prop=tri_prop_p,
-            tri_pack=tri_pack,
+            tri_v=tri_v, tri_n=tri_n, tri_uv=tri_uv, tri_tan=tri_tan,
+            tri_prop=tri_prop_p, tri_pack=tri_pack,
             sph_c=pad(self._sph["c"], (1, 3)),
             sph_r=pad(self._sph["r"], (1,)),
             sph_prop=pad(sph_prop, (1, 3), np.int32, -1),
@@ -440,6 +605,9 @@ class SceneBuilder:
             mat_rough=pad(self._mat["rough"], (1,)),
             mat_metal=pad(self._mat["metal"], (1,)),
             mat_ior=pad(self._mat["ior"], (1,), fill=1.5),
+            mat_tex=pad(self._mat["tex"], (1, 5), np.int32, -1),
+            mat_alpha_mode=pad(self._mat["alpha_mode"], (1,), np.int32),
+            mat_alpha_cutoff=pad(self._mat["alpha_cutoff"], (1,), fill=0.5),
             light_type=pad([lt["type"] for lt in lights], (1,), np.int32, -1),
             light_color=pad([lt["color"] for lt in lights], (1, 3)),
             light_vec=pad([lt["vec"] for lt in lights], (1, 3)),
@@ -456,18 +624,30 @@ class SceneBuilder:
             inf_idx=pad(inf_idx, (1,), np.int32, -1),
             scene_lo=np.asarray(lo, np.float32),
             scene_hi=np.asarray(hi, np.float32),
+            **self.textures.pack(),
         )
 
         types_in_scene = set(int(t) for t in self._mat["type"])
         mats_present = tuple(bool(k in types_in_scene) or not types_in_scene
                              for k in range(4))
-        block_k = 0
+        mat_modes = np.asarray(self._mat["alpha_mode"], np.int64)
+        has_alpha = bool((mat_modes != ALPHA_OPAQUE).any())
+        analytic_alpha = bool(
+            alpha_material_mask(sph_prop[:, 0], mat_modes).any()
+            or alpha_material_mask(quad_prop[:, 0], mat_modes).any())
+        mat_tex_np = (np.asarray(self._mat["tex"], np.int64)
+                      if nm else np.zeros((0, 5), np.int64))
+        block_k = alpha_block_k = 0
+        alpha_cull_mask = False
         block_g = int(os.environ.get("PT_BLOCK_G", 32))
         if accel == "auto":
             accel = "brute" if nt + ns + nq < 4096 or not nt else "pallas"
         if accel == "pallas" and nt:
-            from ..accel.trace2 import build_tri_blocks2
-            pk, block_k = build_tri_blocks2(tri_v[:nt], g=block_g)
+            pk, block_k, alpha_block_k, alpha_cull_mask = \
+                build_traversal_tables(
+                    tri_v[:nt], tri_uv[:nt], tri_prop[:, 0], self.textures,
+                    self._mat["alpha_mode"], self._mat["alpha_cutoff"],
+                    self._mat["tex"], block_g)
             arrays.update(pk)
         else:
             accel = "brute"
@@ -478,7 +658,13 @@ class SceneBuilder:
             n_tri=nt, n_sph=ns, n_quad=nq, n_mat=nm, n_lights=len(lights),
             n_inf=len(inf_idx), light_sampler=self.light_sampler,
             accel=accel, block_k=block_k, block_g=block_g, block_pops=4,
-            mats_present=mats_present)
+            alpha_block_k=alpha_block_k, mats_present=mats_present,
+            has_alpha=has_alpha,
+            has_tangents=bool(nt and (tri_prop[:, 3] > 0).any()),
+            has_normal_maps=bool(nm and (mat_tex_np[:, 3] >= 0).any()),
+            mat_tex_present=tuple(bool((mat_tex_np[:, s] >= 0).any())
+                                  for s in range(5)),
+            analytic_alpha=analytic_alpha, alpha_cull_mask=alpha_cull_mask)
         return scene, self._pack_camera(dev), meta
 
     def _pack_camera(self, dev):

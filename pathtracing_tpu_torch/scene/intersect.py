@@ -23,9 +23,12 @@ import torch
 from ..core.device import resolve_device, to_device
 from ..core.math import (fma, fsqrt, SHADOW_EPS, BIG_F32, vdot, vdot_k,
                          safe_normalize, sphere_uv, offset_ray, unpack3,
-                         pack3, sdot, scross,
+                         pack3, sdot, scross, sdot_f, scross_f, sbary_mix,
                          ssafe_normalize, sonb_from_normal)
-from .types import SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD
+from ..core.rng import hash_u32, uniform_from_u32
+from .textures import texture_alpha, texture_eval
+from .types import (SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD, ALPHA_BLEND,
+                    ALPHA_MASK)
 
 _CHUNK = 512
 
@@ -205,35 +208,90 @@ def _first_block_key(scene, origin, direction):
 # Closest hit
 # ---------------------------------------------------------------------------
 
+def _subset_scene(scene, prefix):
+    """View of `scene` with the prefix'd triangle table set mounted under
+    the pk_ names the traversal reads (pka_* = the alpha-material split,
+    builder.build_traversal_tables)."""
+    if prefix == "pk_":
+        return scene
+    sub = {k: v for k, v in scene.items() if not k.startswith("pk")}
+    for k, v in scene.items():
+        if k.startswith(prefix):
+            sub["pk_" + k[len(prefix):]] = v
+    return sub
+
+
 def _pallas_dispatch(scene, meta, origin, direction, t_max,
-                     any_hit: bool = False):
+                     any_hit: bool = False, tri_tables: str = "all",
+                     analytic: bool = True, sort_key=None,
+                     alpha_shadow: bool = False):
     """Triangles through the two-level traversal, the analytic prims of a
     mixed scene through the brute scan, results merged.  Rays are sorted
     by _first_block_key with dead lanes (t_max <= 0) last, and padded to a
-    multiple of TILE with t_max = 0 lanes."""
+    multiple of TILE with t_max = 0 lanes.
+
+    tri_tables: "all" traverses the main tables and then the alpha split
+    (pka_*), bounded by the first result, when the scene has one;
+    "opaque" / "alpha" restrict to one set (the shadow predicate's opaque
+    any-hit pass and its alpha restart chain).  analytic=False leaves the
+    spheres and quads out.  sort_key: precomputed _first_block_key values;
+    the restart chain dispatches repeatedly from (nearly) the same origins
+    and pays the slab pre-pass once (keys order work, they never change
+    results).  When meta.alpha_cull_mask, the pka_* run tests the
+    per-triangle alpha micro-masks in the traversal: closest passes drop
+    definitely-transparent hits (amask=1); alpha_shadow=True runs the
+    shadow walk (amask=2), whose result carries "solid" for lanes a
+    definitely-opaque hit occludes outright."""
     from ..accel.trace2 import tri_intersect2, TILE
 
     n = origin.shape[0]
     dev = origin.device
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
                                                device=dev), (n,))
-    key = torch.where(t_max <= 0.0, 0xFFFFFFFF,
-                      _first_block_key(scene, origin, direction))
+    if sort_key is None:
+        sort_key = _first_block_key(scene, origin, direction)
+    key = torch.where(t_max <= 0.0, 0xFFFFFFFF, sort_key)
     perm = torch.argsort(key, stable=True)
     origin_s, direction_s, tmax_s = origin[perm], direction[perm], t_max[perm]
     pad = (-n) % TILE
     o = torch.nn.functional.pad(origin_s, (0, 0, 0, pad))
     d = torch.nn.functional.pad(direction_s, (0, 0, 0, pad), value=1.0)
     tm = torch.nn.functional.pad(tmax_s, (0, pad))    # t_max 0: pads miss
-    hit = tri_intersect2(scene, o, d, tm, any_hit=any_hit)
-    t, idx, valid = hit["t"][:n], hit["tri"][:n], hit["valid"][:n]
+    am_alpha = 0
+    if meta.alpha_cull_mask and not any_hit:
+        am_alpha = 2 if alpha_shadow else 1
+
+    runs = []
+    if tri_tables in ("all", "opaque"):
+        runs.append(("pk_", 0))
+    if tri_tables in ("all", "alpha") and meta.alpha_block_k \
+            and "pka_tri" in scene:
+        runs.append(("pka_", am_alpha))
+    hit = tri_intersect2(_subset_scene(scene, runs[0][0]), o, d, tm,
+                         any_hit=any_hit, amask=runs[0][1])
+    for tables, amk in runs[1:]:
+        # the later (small) table only needs strictly closer hits, and an
+        # any-hit pass needs nothing once occluded
+        tm2 = torch.where(hit["valid"], 0.0 if any_hit else hit["t"], tm)
+        h2 = tri_intersect2(_subset_scene(scene, tables), o, d, tm2,
+                            any_hit=any_hit, amask=amk)
+        closer = h2["valid"] & (~hit["valid"] | (h2["t"] < hit["t"]))
+        merged = dict(t=torch.where(closer, h2["t"], hit["t"]),
+                      tri=torch.where(closer, h2["tri"], hit["tri"]),
+                      valid=hit["valid"] | h2["valid"])
+        if "solid" in h2:
+            merged["solid"] = h2["solid"] | hit.get("solid", False)
+        hit = merged
     # back to the caller's ray order
-    t = torch.empty_like(t).index_copy_(0, perm, t)
-    idx = torch.empty_like(idx).index_copy_(0, perm, idx)
-    valid = torch.empty_like(valid).index_copy_(0, perm, valid)
+
+    def unsort(x):
+        return torch.empty_like(x[:n]).index_copy_(0, perm, x[:n])
+
+    t, idx, valid = unsort(hit["t"]), unsort(hit["tri"]), unsort(hit["valid"])
+    solid = unsort(hit["solid"]) if "solid" in hit else None
     kind = torch.where(valid, SHAPE_TRI, -1)
 
-    if meta.n_sph or meta.n_quad:
+    if analytic and (meta.n_sph or meta.n_quad):
         meta2 = dataclasses.replace(meta, n_tri=0, accel="brute")
         other = _intersect(scene, meta2, origin, direction, t_max)
         better = other["valid"] & (~valid | (other["t"] < t))
@@ -241,8 +299,11 @@ def _pallas_dispatch(scene, meta, origin, direction, t_max,
         kind = torch.where(better, other["kind"], kind)
         idx = torch.where(better, other["idx"], idx)
         valid = valid | other["valid"]
-    return dict(t=torch.where(valid, t, BIG_F32), kind=kind, idx=idx,
-                valid=valid)
+    out = dict(t=torch.where(valid, t, BIG_F32), kind=kind, idx=idx,
+               valid=valid)
+    if solid is not None:
+        out["solid"] = solid
+    return out
 
 
 def _intersect(scene, meta, origin, direction, t_max):
@@ -300,6 +361,32 @@ def intersect(scene, meta, origin, direction, t_max, device=None):
 # Interaction assembly (gathers at the winning primitive)
 # ---------------------------------------------------------------------------
 
+def _tri_barycentrics(origin, direction, tv):
+    """(bu, bv, bw, e1, e2) of the hit of each ray on its triangle tv
+    [N,3,3], recomputed at the hit (cheaper than storing them).
+
+    The sums of products are rounded as fused multiply-adds, in the order
+    the reference package's compiled CPU code contracts them: texture
+    coordinates interpolated from these barycentrics are multiplied by the
+    texture's width, so at uv ~ 8 on a 512-texel map a one-ulp difference
+    moves a bilinear weight by 5e-4 and a normal-mapped shading normal
+    with it."""
+    dxr, dyr, dzr = unpack3(direction)
+    e1 = (tv[:, 1, 0] - tv[:, 0, 0], tv[:, 1, 1] - tv[:, 0, 1],
+          tv[:, 1, 2] - tv[:, 0, 2])
+    e2 = (tv[:, 2, 0] - tv[:, 0, 0], tv[:, 2, 1] - tv[:, 0, 1],
+          tv[:, 2, 2] - tv[:, 0, 2])
+    h = scross_f(dxr, dyr, dzr, *e2)
+    det = sdot_f(*e1, *h)
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1.0, det)
+    s = (origin[:, 0] - tv[:, 0, 0], origin[:, 1] - tv[:, 0, 1],
+         origin[:, 2] - tv[:, 0, 2])
+    bu = sdot_f(*s, *h) * inv_det
+    q = scross_f(*s, *e1)
+    bv = sdot_f(dxr, dyr, dzr, *q) * inv_det
+    return bu, bv, 1.0 - bu - bv, e1, e2
+
+
 def _ref_tangent(ns):
     """normalize(cross(up, ns)), up = (0,1,0) when |ns.x| > 0.9999."""
     big_x = torch.abs(ns[..., 0:1]) > 0.9999
@@ -308,15 +395,22 @@ def _ref_tangent(ns):
     return safe_normalize(torch.cross(up.expand_as(ns), ns, dim=-1))
 
 
-def make_interaction(scene, meta, origin, direction, hit):
+def make_interaction(scene, meta, origin, direction, hit,
+                     lite: bool = False):
     """Surface interaction for a hit batch: dict(valid, t, p_raw, p, n, ns,
     tangent, uv, mat_id, light_id, med_id, kind, idx).
 
       triangle: barycentric interpolation of the shading normal (flipped to
-                the geometric side), integer-ulp offset origin, ONB tangent;
+                the geometric side), integer-ulp offset origin, authored
+                tangent made orthogonal to it (Gram-Schmidt) or the ONB
+                tangent, normal mapping;
       sphere:   outward normal, sphere uv;
       quad:     two-sided normal, planar uv.
-    Miss lanes are sanitized (p = 0, n = ns = +z, ids -1)."""
+    Miss lanes are sanitized (p = 0, n = ns = +z, ids -1).
+
+    lite=True skips authored-tangent interpolation and normal mapping (the
+    ONB tangent is still produced): the alpha restart chain consumes only
+    p_raw / n / uv / mat_id, none of which depend on either."""
     t = hit["t"]
     idx = hit["idx"]
     kind = hit["kind"]
@@ -329,34 +423,34 @@ def make_interaction(scene, meta, origin, direction, hit):
     tuv = pk_row[:, 18:24].reshape(-1, 3, 2)
     tprop = pk_row[:, 24:28].to(torch.int64)
     dxr, dyr, dzr = unpack3(direction)
-    e1x, e1y, e1z = (tv[:, 1, 0] - tv[:, 0, 0], tv[:, 1, 1] - tv[:, 0, 1],
-                     tv[:, 1, 2] - tv[:, 0, 2])
-    e2x, e2y, e2z = (tv[:, 2, 0] - tv[:, 0, 0], tv[:, 2, 1] - tv[:, 0, 1],
-                     tv[:, 2, 2] - tv[:, 0, 2])
-    # barycentrics recomputed at the hit point
-    hx, hy, hz = scross(dxr, dyr, dzr, e2x, e2y, e2z)
-    det = e1x * hx + e1y * hy + e1z * hz
-    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1.0, det)
-    sx = origin[:, 0] - tv[:, 0, 0]
-    sy = origin[:, 1] - tv[:, 0, 1]
-    sz = origin[:, 2] - tv[:, 0, 2]
-    bu = (sx * hx + sy * hy + sz * hz) * inv_det
-    qx, qy, qz = scross(sx, sy, sz, e1x, e1y, e1z)
-    bv = sdot(dxr, dyr, dzr, qx, qy, qz) * inv_det
-    bw = 1.0 - bu - bv
-    tri_uv = (bu[:, None] * tuv[:, 1] + bv[:, None] * tuv[:, 2]
-              + bw[:, None] * tuv[:, 0])
+    bu, bv, bw, (e1x, e1y, e1z), (e2x, e2y, e2z) = _tri_barycentrics(
+        origin, direction, tv)
+    tri_uv = sbary_mix(bu[:, None], bv[:, None], bw[:, None], tuv[:, 0],
+                       tuv[:, 1], tuv[:, 2])
     nsx, nsy, nsz = ssafe_normalize(
-        bu * tn[:, 1, 0] + bv * tn[:, 2, 0] + bw * tn[:, 0, 0],
-        bu * tn[:, 1, 1] + bv * tn[:, 2, 1] + bw * tn[:, 0, 1],
-        bu * tn[:, 1, 2] + bv * tn[:, 2, 2] + bw * tn[:, 0, 2])
+        *(sbary_mix(bu, bv, bw, tn[:, 0, c], tn[:, 1, c], tn[:, 2, c])
+          for c in range(3)))
     ngx, ngy, ngz = ssafe_normalize(*scross(e1x, e1y, e1z, e2x, e2y, e2z))
     flip_ns = sdot(ngx, ngy, ngz, nsx, nsy, nsz) < 0
     nsx = torch.where(flip_ns, -nsx, nsx)
     nsy = torch.where(flip_ns, -nsy, nsy)
     nsz = torch.where(flip_ns, -nsz, nsz)
     _, (fbx, fby, fbz) = sonb_from_normal(nsx, nsy, nsz)
-    tan_t = pack3(fbx, fby, fbz)
+    if meta.has_tangents and not lite:
+        ttan = scene["tri_tan"][_rows(idx, scene["tri_tan"])]
+        trx = bu * ttan[:, 1, 0] + bv * ttan[:, 2, 0] + bw * ttan[:, 0, 0]
+        try_ = bu * ttan[:, 1, 1] + bv * ttan[:, 2, 1] + bw * ttan[:, 0, 1]
+        trz = bu * ttan[:, 1, 2] + bv * ttan[:, 2, 2] + bw * ttan[:, 0, 2]
+        has_tan = tprop[:, 3] > 0
+        ns_dot_tr = sdot(nsx, nsy, nsz, trx, try_, trz)
+        tgx, tgy, tgz = ssafe_normalize(trx - nsx * ns_dot_tr,
+                                        try_ - nsy * ns_dot_tr,
+                                        trz - nsz * ns_dot_tr)
+        tan_t = pack3(torch.where(has_tan, tgx, fbx),
+                      torch.where(has_tan, tgy, fby),
+                      torch.where(has_tan, tgz, fbz))
+    else:   # no triangle in the scene has authored tangents
+        tan_t = pack3(fbx, fby, fbz)
     ns_t = pack3(nsx, nsy, nsz)
     ng_t = pack3(ngx, ngy, ngz)
     off_sign = torch.where(sdot(dxr, dyr, dzr, ngx, ngy, ngz) > 0,
@@ -401,6 +495,22 @@ def make_interaction(scene, meta, origin, direction, hit):
 
     ok = hit["valid"]
     okn = ok[:, None]
+    ns = pick(ns_t, ns_s, ns_q)
+    tangent = pick(tan_t, tan_s, tan_q)
+    uv = pick(tri_uv, uv_s, uv_q)
+    mat_id = pick_id(0)
+    # normal mapping, where the material has a normal texture
+    if meta.n_mat and meta.has_normal_maps and not lite:
+        norm_tex = scene["mat_tex"][_rows(mat_id, scene["mat_tex"]), 3]
+        has_norm = (norm_tex >= 0) & (mat_id >= 0) & ok
+        nmap = texture_eval(scene, norm_tex, uv)
+        n_local = safe_normalize(2.0 * nmap - 1.0)
+        # local frame: axis 0 the tangent, 1 cross(ns, tangent), 2 ns
+        bitan = torch.cross(ns, tangent, dim=-1)
+        ns_mapped = safe_normalize(n_local[:, 0:1] * tangent
+                                   + n_local[:, 1:2] * bitan
+                                   + n_local[:, 2:3] * ns)
+        ns = torch.where(has_norm[:, None], ns_mapped, ns)
     up = p_raw.new_tensor([0.0, 0.0, 1.0]).expand_as(p_raw)
     right = p_raw.new_tensor([1.0, 0.0, 0.0]).expand_as(p_raw)
     # miss lanes: with t = BIG_F32 the hit point overflows; sanitize them
@@ -409,34 +519,197 @@ def make_interaction(scene, meta, origin, direction, hit):
         p_raw=torch.where(okn, p_raw, 0.0),
         p=torch.where(okn, pick(p_t, p_s, p_q), 0.0),
         n=torch.where(okn, pick(ng_t, ns_s, qn), up),
-        ns=torch.where(okn, pick(ns_t, ns_s, ns_q), up),
-        tangent=torch.where(okn, pick(tan_t, tan_s, tan_q), right),
-        uv=torch.where(okn, pick(tri_uv, uv_s, uv_q), 0.0),
-        mat_id=torch.where(ok, pick_id(0), -1),
+        ns=torch.where(okn, ns, up),
+        tangent=torch.where(okn, tangent, right),
+        uv=torch.where(okn, uv, 0.0),
+        mat_id=torch.where(ok, mat_id, -1),
         light_id=torch.where(ok, pick_id(1), -1),
         med_id=torch.where(ok, pick_id(2), -1))
+
+
+def _chain_interaction(scene, meta, origin, direction, hit):
+    """Triangle-only interaction subset for the alpha restart chain:
+    p_raw, geometric normal, uv, mat_id and nothing else (the chain only
+    advances past the surface and fetches its alpha).  Only legal when the
+    chain excludes analytic prims (meta.analytic_alpha False)."""
+    t = hit["t"]
+    ok = hit["valid"]
+    p_raw = fma(t[:, None], direction, origin)
+    row = scene["tri_pack"][_rows(hit["idx"], scene["tri_pack"])]
+    tv = row[:, 0:9].reshape(-1, 3, 3)
+    tuv = row[:, 18:24].reshape(-1, 3, 2)
+    mat = row[:, 24].to(torch.int64)
+    bu, bv, bw, (e1x, e1y, e1z), (e2x, e2y, e2z) = _tri_barycentrics(
+        origin, direction, tv)
+    uv = sbary_mix(bu[:, None], bv[:, None], bw[:, None], tuv[:, 0],
+                   tuv[:, 1], tuv[:, 2])
+    ngx, ngy, ngz = ssafe_normalize(*scross(e1x, e1y, e1z, e2x, e2y, e2z))
+    okn = ok[:, None]
+    return dict(
+        valid=ok, t=t,
+        p_raw=torch.where(okn, p_raw, 0.0),
+        n=torch.where(okn, pack3(ngx, ngy, ngz),
+                      p_raw.new_tensor([0.0, 0.0, 1.0])),
+        uv=torch.where(okn, uv, 0.0),
+        mat_id=torch.where(ok, mat, -1))
 
 
 # ---------------------------------------------------------------------------
 # Shadow predicate
 # ---------------------------------------------------------------------------
 
-def _occluded(scene, meta, origin, direction, t_max):
-    if meta.has_alpha:
-        raise NotImplementedError(
-            "alpha-tested shadow rays come with the textures/alpha slice")
-    if meta.accel == "pallas":
-        return _pallas_dispatch(scene, meta, origin, direction,
-                                t_max - SHADOW_EPS, any_hit=True)["valid"]
-    return _intersect(scene, meta, origin, direction,
-                      t_max - SHADOW_EPS)["valid"]
+MAX_RESTARTS = 64    # safety net against degenerate geometry, not a budget
 
 
-def occluded(scene, meta, origin, direction, t_max, device=None):
-    """Shadow predicate: is anything hit in [SHADOW_EPS, t_max -
-    SHADOW_EPS)?  One any-hit pass (opaque scenes).  Runs on the GPU
+def _occluded(scene, meta, origin, direction, t_max, rand_key=None,
+              stats: dict | None = None, compact: bool = True):
+    """The shadow predicate on device tensors (see `occluded`).  `stats`,
+    when given, accumulates "calls" and "restarts" (chain iterations run).
+    compact=False keeps every restart at full width (the tests hold the
+    compacted tail to it)."""
+    if not meta.has_alpha:
+        # opaque scene: pure any-hit
+        if meta.accel == "pallas":
+            return _pallas_dispatch(scene, meta, origin, direction,
+                                    t_max - SHADOW_EPS, any_hit=True)["valid"]
+        return _intersect(scene, meta, origin, direction,
+                          t_max - SHADOW_EPS)["valid"]
+
+    n = origin.shape[0]
+    dev = origin.device
+    split = (meta.accel == "pallas" and meta.alpha_block_k > 0
+             and "pka_tri" in scene)
+    if split:
+        # ONE slab pre-pass for the whole predicate: the opaque any-hit and
+        # every restart dispatch from the same origins (restarts only
+        # advance along the ray), so they share the key
+        key0 = _first_block_key(scene, origin, direction)
+        # analytic prims with only opaque materials never need an alpha
+        # test: they fold into the single any-hit pass and drop out of
+        # every chain iteration
+        ana_alpha = meta.analytic_alpha
+        occ0 = _pallas_dispatch(scene, meta, origin, direction,
+                                t_max - SHADOW_EPS, any_hit=True,
+                                tri_tables="opaque", analytic=not ana_alpha,
+                                sort_key=key0)["valid"]
+
+        def chain_isect(o, d, t_rem, key):
+            # with micro-masked tables each dispatch resolves definitely-
+            # opaque hits in the traversal ("solid" lanes: occluded, no
+            # restart) and skips definitely-transparent ones, so the chain
+            # iterates only on hits that need the exact texture test
+            return _pallas_dispatch(scene, meta, o, d, t_rem,
+                                    tri_tables="alpha", analytic=ana_alpha,
+                                    sort_key=key, alpha_shadow=True)
+
+        def chain_inter(h, o, d):
+            if not ana_alpha:
+                return _chain_interaction(scene, meta, o, d, h)
+            return make_interaction(scene, meta, o, d, h, lite=True)
+    else:
+        # no split tables: the restart chain runs over the whole scene
+        occ0 = torch.zeros((n,), dtype=torch.bool, device=dev)
+        key0 = None
+
+        def chain_isect(o, d, t_rem, key):
+            return _intersect(scene, meta, o, d, t_rem)
+
+        def chain_inter(h, o, d):
+            return make_interaction(scene, meta, o, d, h, lite=True)
+
+    def body(o, d, t_rem, live, lane, key, rkey, it_):
+        """One restart for the lanes given: (o, t_rem, newly occluded,
+        live) after it.  `lane` is each lane's index in the caller's batch:
+        the BLEND random number is keyed on it, so gathering the live lanes
+        changes no result."""
+        # finished lanes trace zero-length rays (sorted last, no work)
+        h = chain_isect(o, d, torch.where(live, t_rem, 0.0), key)
+        # definite occlusion found in the traversal: these lanes carry no
+        # candidate hit (valid False), they are done
+        solid_k = h.get("solid")
+        if solid_k is None:
+            solid_k = torch.zeros_like(live)
+        inter = chain_inter(h, o, d)
+        mat_ids = _rows(inter["mat_id"], scene["mat_type"])
+        mode = scene["mat_alpha_mode"][mat_ids]
+        cutoff = scene["mat_alpha_cutoff"][mat_ids]
+        atex = scene["mat_tex"][mat_ids, 4]
+        btex = scene["mat_tex"][mat_ids, 0]
+        a_val = texture_alpha(scene, torch.where(atex >= 0, atex, btex),
+                              inter["uv"])
+        if meta.mat_tex_present[4]:
+            # a dedicated alpha texture reads channel 0
+            a_val = torch.where(atex >= 0,
+                                texture_eval(scene, atex, inter["uv"])[:, 0],
+                                a_val)
+        u = uniform_from_u32(hash_u32(lane, it_,
+                                      0 if rkey is None else rkey))
+        solid = torch.where(mode == ALPHA_BLEND, u < a_val,
+                            torch.where(mode == ALPHA_MASK, a_val > cutoff,
+                                        True))
+        solid = solid | (inter["mat_id"] < 0)     # no material: an occluder
+        newly_occ = live & ((h["valid"] & solid) | solid_k)
+        live_next = live & h["valid"] & ~solid & ~solid_k
+        # scale-robust advance past the transparent surface
+        n_fwd = torch.where(vdot_k(d, inter["n"]) > 0, inter["n"],
+                            -inter["n"])
+        o = torch.where(live_next[:, None],
+                        offset_ray(inter["p_raw"], n_fwd), o)
+        t_rem = torch.where(live_next, t_rem - h["t"], t_rem)
+        return o, t_rem, newly_occ, live_next
+
+    t_rem = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=dev) - SHADOW_EPS,
+                               (n,))
+    per_lane_key = isinstance(rand_key, torch.Tensor) and rand_key.ndim > 0
+    o, d, key, rkey = origin, direction, key0, rand_key
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    live = ~occ0
+    occ = occ0.clone()
+    it_ = 0
+    # data-dependent loop: one host sync per restart (the .item() below)
+    while it_ < MAX_RESTARTS and bool(live.any().item()):
+        o, t_rem, newly, live = body(o, d, t_rem, live, lane, key, rkey, it_)
+        # lane < n always; clamped so a CUDA scatter can never fault
+        occ[torch.clamp(lane, 0, n - 1)] |= newly
+        it_ += 1
+        if compact and lane.shape[0] > 1024:
+            # tail compaction: most lanes resolve in the first full-width
+            # iteration; the few survivors are gathered (with their
+            # original lane index) so later restarts stop paying
+            # full-width interaction and texture costs
+            take = torch.nonzero(live)[:, 0]
+            if take.shape[0] < lane.shape[0]:
+                o, d, t_rem, lane = o[take], d[take], t_rem[take], lane[take]
+                key = key[take] if key is not None else None
+                rkey = rkey[take] if per_lane_key else rkey
+                live = live[take]
+    if stats is not None:
+        stats["calls"] = stats.get("calls", 0) + 1
+        stats["restarts"] = stats.get("restarts", 0) + it_
+    return occ
+
+
+def occluded(scene, meta, origin, direction, t_max, rand_key=None,
+             device=None):
+    """Shadow predicate: is anything solid hit in [SHADOW_EPS, t_max -
+    SHADOW_EPS)?
+
+    Without alpha materials: one any-hit pass.  With alpha materials on the
+    two-level tables the builder splits the alpha-material triangles into
+    their own pka_* tables, so the predicate is ONE any-hit traversal of
+    the opaque set plus a restart chain over only the (small) alpha set
+    and, when they carry alpha materials, the analytic prims.  Each restart
+    takes the nearest candidate, applies the exact test (the alpha
+    texture's channel 0, else the base texture's alpha; MASK against the
+    cutoff, BLEND against a random number keyed on (lane, restart,
+    rand_key)) and advances past a transparent surface.  Other backends
+    run the chain over the whole scene with no masks.  Runs on the GPU
     unless device="cpu"."""
     dev = resolve_device(device)
+    if isinstance(rand_key, torch.Tensor):
+        rand_key = rand_key.to(dev)
     return _occluded(to_device(scene, dev), meta, origin.to(dev),
                      direction.to(dev),
-                     torch.as_tensor(t_max, dtype=torch.float32).to(dev))
+                     torch.as_tensor(t_max, dtype=torch.float32).to(dev),
+                     rand_key)

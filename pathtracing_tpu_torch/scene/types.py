@@ -8,13 +8,20 @@ every table padded to >= 1 row so gathers stay well-formed:
   tri_uv  [T,3,2]  texcoords                tri_prop[T,4]  (mat, light,
                                                             medium, has_tan)
   tri_pack[T,32]   verts 9 | normals 9 | uvs 6 | prop 4 | pad 4
+  tri_tan [T,3,3]  authored tangents (zeros where a mesh has none)
   sph_c   [S,3], sph_r [S], sph_prop [S,3]
   quad_q/u/v/n [Q,3], quad_d [Q], quad_w [Q,3], quad_prop [Q,3]
   mat_type[M], mat_base[M,3], mat_rough[M], mat_metal[M], mat_ior[M]
+  mat_tex [M,5] i32 (base, rough, metal, normal, alpha texture ids),
+  mat_alpha_mode[M] i32, mat_alpha_cutoff[M]
+  tex_texels[NT,4], tex_info_i[K,6] i32, tex_info_f[K,8] (textures.py)
   light_type[L], light_color[L,3], light_vec[L,3], light_shape[L,2],
   light_flags[L], light_area[L], light_power[L], light_cdf[L],
   light_total_power[1], inf_idx[LI]
-  pk_* two-level traversal tables (accel/trace2.py)
+  pk_*  two-level traversal tables (accel/trace2.py); when some but not
+        all triangles have an alpha material, pk_* covers the opaque ones
+        and pka_* the alpha ones, with pka_mask the per-slot micro-mask
+        words (alphamask.py)
 """
 from __future__ import annotations
 
@@ -42,8 +49,9 @@ ALPHA_MASK = 2
 class SceneMeta:
     """Same fields as the reference package's SceneMeta, so a scene built
     there carries across (convert.from_numpy_scene).  Fields for features
-    this package does not run yet (textures, alpha, media, instances,
-    motion) must hold their "absent" values here."""
+    this package does not run yet (media, run-time instances, motion,
+    environment and emissive textures) must hold their "absent" values
+    here."""
     n_tri: int = 0
     n_sph: int = 0
     n_quad: int = 0

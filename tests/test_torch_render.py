@@ -1,7 +1,8 @@
 """End-to-end parity of pathtracing_tpu_torch's renders with the JAX
-package: the San-Miguel-analog slice (carried across with
-convert.from_numpy_scene, and built by the port's own builder on its
-two-level traversal path), the committed goldens, and the import guard."""
+package: the San-Miguel-analog slices, untextured and faithful (carried
+across with convert.from_numpy_scene, and built by the port's own builder
+on its two-level traversal path), the committed goldens, and the import
+guard."""
 import dataclasses
 import subprocess
 import sys
@@ -52,6 +53,109 @@ def slice_scenes():
     return jscene, _carry(*jscene), own
 
 
+@pytest.fixture(scope="module")
+def faithful_scenes():
+    """The faithful miniature three ways: the JAX package's brute build,
+    that build carried across with its table split rebuilt, and the
+    port's own build on the two-level tables."""
+    kw = dict(resolution=(32, 32), n_tris=2_000, foliage=8)
+    jscene = jscenes.sanmiguel_analog(accel="brute", **kw)
+    carried = _carry(*jscene)
+    # the carried scene runs the masked split-table path too
+    jpallas = dataclasses.replace(jscene[2], accel="pallas")
+    carried_split = _carry(jscene[0], jscene[1], jpallas)
+    own = tscenes.sanmiguel_analog(accel="pallas", device="cpu", **kw)
+    return jscene, carried, carried_split, own
+
+
+def test_torch_faithful_scene_arrays_match_jax(faithful_scenes):
+    (js, _, jm), carried, carried_split, own = faithful_scenes
+    scene, _, meta = own
+    assert meta.accel == "pallas" and carried[2].accel == "brute"
+    for sc, m in (own[::2], carried_split[::2]):
+        assert m.has_alpha and m.alpha_cull_mask and m.alpha_block_k > 0
+        assert "pka_tri" in sc and "pka_mask" in sc
+        assert m.has_normal_maps and not m.analytic_alpha
+    assert not carried[2].alpha_cull_mask and "pka_tri" not in carried[0]
+    assert meta.n_tri == jm.n_tri and meta.n_lights == jm.n_lights
+    assert meta.mat_tex_present == jm.mat_tex_present
+    assert meta.mats_present == jm.mats_present
+    shared = [k for k in scene if k.startswith(("tri_", "mat_", "tex_",
+                                                "light_", "sph_", "quad_"))]
+    assert {"tri_tan", "mat_tex", "mat_alpha_mode", "tex_texels"} <= \
+        set(shared)
+    for k in shared + ["inf_idx", "scene_lo", "scene_hi"]:
+        np.testing.assert_array_equal(scene[k].numpy(), np.asarray(js[k]),
+                                      err_msg=k)
+        np.testing.assert_array_equal(carried[0][k].numpy(),
+                                      np.asarray(js[k]), err_msg=k)
+    # the carried scene's rebuilt tables are the port's own
+    for k in ("pk_slot2tri", "pka_slot2tri", "pka_mask", "pka_tri"):
+        assert torch.equal(carried_split[0][k], scene[k]), k
+
+
+def _faithful_cfgs(max_depth, regenerate):
+    kw = dict(spp=4, max_depth=max_depth, integrator="path",
+              regenerate=regenerate)
+    return (JConfig(sampler=JSampler(x_samples=2, y_samples=2, seed=3), **kw),
+            TConfig(sampler=TSampler(x_samples=2, y_samples=2, seed=3), **kw))
+
+
+@pytest.mark.parametrize("regenerate", [True, False])
+def test_torch_faithful_slice_render_matches_jax(faithful_scenes, regenerate):
+    """Textures, normal map, alpha foliage, glass, metal and lamp meshes,
+    sample for sample against the JAX package: > 99% of values within
+    rtol=1e-4, atol=1e-5 at max_depth=2 (two surface hits with their
+    texture fetches, normal mapping, alpha tests and shadow chains).
+
+    Sample-exact parity is held on the unmasked paths only, as in the JAX
+    package's own faithful-scene test: the brute scan, and the split
+    tables with the micro-masks left unused.  The masked closest pass
+    skips definitely-transparent foliage hits in the traversal, where the
+    unmasked path spends a bounce (and that bounce's random numbers) to
+    pass through them, so its see-through paths differ sample by sample;
+    test_torch_faithful_slice_render_at_depth_5 holds it statistically.
+
+    Why depth 2: the terrain's 512-texel normal map is sampled at uv up
+    to 8 and turns the normal by ~0.5 rad per texel, so a one-ulp
+    difference in a hit position (the two packages' compiled code rounds
+    a few sums differently) moves the shading normal by ~1e-4 and the
+    path has decorrelated two bounces later.  Measured on this scene,
+    brute against brute: 99.0% of values agree at depth 2, 95% at depth
+    3, 85% at depth 5."""
+    (js, jc, jm), carried, carried_split, own = faithful_scenes
+    jcfg, tcfg = _faithful_cfgs(2, regenerate)
+    want = np.asarray(j_render(js, jc, jm, jcfg))
+    assert np.isfinite(want).all() and want.mean() > 0.01
+    unmasked = dataclasses.replace(own[2], alpha_cull_mask=False)
+    for scene, cam, meta in (carried, (own[0], own[1], unmasked)):
+        got = t_render(scene, cam, meta, tcfg, device="cpu").numpy()
+        close = np.isclose(got, want, rtol=1e-4, atol=1e-5)
+        assert close.mean() > 0.99, (meta.accel, close.mean())
+
+
+def test_torch_faithful_slice_render_at_depth_5(faithful_scenes):
+    """The slice's configuration at miniature size (spp=4, max_depth=5,
+    regenerate): the masked split-table build (the port's own and the
+    carried one, which must be the same image) and the brute build
+    against the JAX package's image.  Paths decorrelate after a few
+    bounces (see test_torch_faithful_slice_render_matches_jax), so this
+    holds the estimator, not the samples: means within 1% (measured
+    0.1%) and > 90% of values within rtol=5e-2, atol=1e-3 (measured
+    97.8% masked, 98.9% brute)."""
+    (js, jc, jm), carried, carried_split, own = faithful_scenes
+    jcfg, tcfg = _faithful_cfgs(5, True)
+    want = np.asarray(j_render(js, jc, jm, jcfg))
+    images = [t_render(scene, cam, meta, tcfg, device="cpu").numpy()
+              for scene, cam, meta in (carried, carried_split, own)]
+    np.testing.assert_array_equal(images[1], images[2])
+    for got in images[:2]:
+        assert np.isfinite(got).all()
+        assert abs(got.mean() - want.mean()) < 0.01 * want.mean()
+        close = np.isclose(got, want, rtol=5e-2, atol=1e-3)
+        assert close.mean() > 0.90, close.mean()
+
+
 @pytest.mark.parametrize("regenerate", [True, False])
 def test_torch_slice_render_matches_jax(slice_scenes, regenerate):
     (js, jc, jm), carried, own = slice_scenes
@@ -84,6 +188,8 @@ def test_torch_carried_pallas_scene_rebuilds_tables():
 
 # name: (scene, config, sampler grid)
 _GOLDENS = {
+    "textured": (lambda m: m.textured_quad(resolution=(24, 24)),
+                 dict(spp=4, max_depth=3, integrator="path"), (2, 2)),
     "cornell": (lambda m: m.cornell_box(resolution=(32, 32)),
                 dict(spp=8, max_depth=4, integrator="path"), (4, 2)),
     "furnace": (lambda m: m.furnace(resolution=(16, 16)),
@@ -125,9 +231,17 @@ def test_torch_entry_points_need_a_device_choice():
 
 
 def test_torch_faithful_scene_refused():
+    """The faithful scene builds now (its foliage instances are re-emitted
+    as world triangles); what stays refused is keeping them as run-time
+    instances."""
+    scene, _, meta = tscenes.sanmiguel_analog(resolution=(8, 8), n_tris=100,
+                                              foliage=2, device="cpu")
+    assert meta.has_alpha and meta.n_inst == 0 and meta.n_tri > 100 + 2 * 96
+    b = tscenes.SceneBuilder()
+    mv, mf, _ = tscenes._sm_foliage_model(np.random.default_rng(3))
+    shrub = b.add_model(mv, mf)
     with pytest.raises(NotImplementedError):
-        tscenes.sanmiguel_analog(resolution=(8, 8), n_tris=100,
-                                 device="cpu")
+        b.add_model_instance(shrub, runtime=True)
 
 
 def test_torch_package_imports_no_jax():

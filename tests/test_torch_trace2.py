@@ -1,6 +1,7 @@
 """The two-level traversal of pathtracing_tpu_torch (accel/trace2.py)
 against the JAX package's pallas_tri_intersect2 (interpret mode on the
-CPU) and its table builder, plus the dispatch around it."""
+CPU) and its table builder, in its closest, any-hit and alpha micro-mask
+modes, plus the dispatch around it."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -11,9 +12,13 @@ import torch
 from pathtracing_tpu.accel.pallas_trace2 import (
     build_tri_blocks2 as j_build, pallas_tri_intersect2)
 from pathtracing_tpu.core.math import BIG_F32
+from pathtracing_tpu.scene.alphamask import build_tri_alpha_masks as j_masks
+from pathtracing_tpu.scene.textures import TexturePool as JPool
 from pathtracing_tpu.scene import intersect as jisect
 from pathtracing_tpu_torch.accel import trace2
 from pathtracing_tpu_torch.scene import intersect as tisect
+from pathtracing_tpu_torch.scene.alphamask import build_tri_alpha_masks
+from pathtracing_tpu_torch.scene.textures import TexturePool
 from pathtracing_tpu_torch.scene.types import SceneMeta
 
 torch.set_num_threads(2)
@@ -151,6 +156,150 @@ def test_torch_trace2_miss_contract():
     assert (res["t"] == BIG_F32).all() and (res["tri"] == -1).all()
 
 
+def _leaf_tex(k=64):
+    u, v = np.meshgrid((np.arange(k) + 0.5) / k, (np.arange(k) + 0.5) / k)
+    leaf = np.zeros((k, k, 4), np.float32)
+    leaf[..., 3] = ((((u - 0.5) / 0.38) ** 2
+                     + ((v - 0.5) / 0.47) ** 2) < 1.0).astype(np.float32)
+    return leaf
+
+
+def _alpha_cards(seed, n_cards, spread=6.0, size=(1.0, 2.5)):
+    """n_cards alpha-cutout cards (2 triangles each) scattered in a box:
+    (tri_v [2n,3,3], uvs [2n,3,2])."""
+    rng = np.random.default_rng(seed)
+    tri_v, uvs = [], []
+    quad_uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    for _ in range(n_cards):
+        c = rng.uniform(-spread, spread, 3)
+        s = rng.uniform(*size)
+        a = rng.normal(size=3)
+        a /= np.linalg.norm(a)
+        b = np.cross(a, rng.normal(size=3))
+        b /= np.linalg.norm(b)
+        q = np.array([c - 0.5 * s * a - 0.5 * s * b,
+                      c + 0.5 * s * a - 0.5 * s * b,
+                      c + 0.5 * s * a + 0.5 * s * b,
+                      c - 0.5 * s * a + 0.5 * s * b], np.float32)
+        for f in ((0, 1, 2), (0, 2, 3)):
+            tri_v.append(q[list(f)])
+            uvs.append(quad_uv[list(f)])
+    return np.asarray(tri_v, np.float32), np.asarray(uvs, np.float32)
+
+
+def _card_masks(uvs, pool_cls=TexturePool, build=build_tri_alpha_masks):
+    pool = pool_cls()
+    tid = pool.add_image(_leaf_tex())
+    return build(uvs, np.zeros(len(uvs), np.int64), pool, [2], [0.5],
+                 [[tid, -1, -1, -1, -1]])
+
+
+def test_torch_trace2_mask_table_rides_in_slot_order():
+    tri_v, uvs = _alpha_cards(40, 150)
+    masks = _card_masks(uvs)
+    ta, k2 = trace2.build_tri_blocks2(tri_v, tri_mask=masks)
+    s2t = ta["pk_slot2tri"]
+    pm = ta["pk_mask"]
+    assert pm.dtype == np.int32 and pm.shape == (len(s2t), 8)
+    np.testing.assert_array_equal(pm[s2t >= 0, :7], masks[s2t[s2t >= 0]])
+    assert not pm[s2t < 0].any() and not pm[:, 7].any()
+    # the same words, in the same slots, as the JAX tables' mask rows
+    jm = _card_masks(uvs, JPool, j_masks)
+    ja, jk2 = j_build(tri_v, tri_mask=jm)
+    m1, w = ja["pk_l1_base"].shape[0], 16 * jk2 + 128
+    jrows = ja["pk_tri"].reshape(16, m1, w)[9:16, :, :16 * jk2]
+    np.testing.assert_array_equal(pm[:, :7].T,
+                                  jrows.reshape(7, -1).view(np.int32))
+    with pytest.raises(ValueError):
+        trace2.build_tri_blocks2(tri_v, tri_mask=masks.view(np.float32))
+
+
+@pytest.mark.parametrize("amask", [1, 2])
+def test_torch_trace2_amask_plain_matches_pallas_kernel(amask):
+    """The alpha micro-mask modes against the JAX kernel (interpret mode)
+    on 500 alpha-card triangles.  Mode 1 is order-independent in both:
+    valid and tri equal, t to rtol=1e-5.  In mode 2 the JAX kernel's
+    `solid` depends on its visit order (it collapses on an opaque-cell hit
+    below its CURRENT best mixed t), the port's does not (solid iff the
+    nearest opaque-cell hit is nearer than every mixed one), so exactly
+    these relations hold: the same miss lanes; every port-solid lane is
+    JAX-solid; every JAX-solid lane is solid or a candidate in the port."""
+    tri_v, uvs = _alpha_cards(41, 250)
+    jm = _card_masks(uvs, JPool, j_masks)
+    tm = _card_masks(uvs)
+    ja, jk2 = j_build(tri_v, tri_mask=jm)
+    ta, _ = trace2.build_tri_blocks2(tri_v, tri_mask=tm)
+    o, d = _rays(42, 256)
+    t_max = np.full((256,), BIG_F32, np.float32)
+    t_max[::7] = 11.0
+    got_j = pallas_tri_intersect2({k: jnp.asarray(v) for k, v in ja.items()},
+                                  jnp.asarray(o), jnp.asarray(d),
+                                  jnp.asarray(t_max), jk2, amask=amask)
+    got_t = trace2.tri_intersect2(_port_tables(ta), torch.from_numpy(o),
+                                  torch.from_numpy(d),
+                                  torch.from_numpy(t_max), amask=amask)
+    vj, vt = np.asarray(got_j["valid"]), got_t["valid"].numpy()
+    plain0 = trace2.tri_intersect2(_port_tables(ta), torch.from_numpy(o),
+                                   torch.from_numpy(d),
+                                   torch.from_numpy(t_max))
+    if amask == 1:
+        assert "solid" not in got_t
+        np.testing.assert_array_equal(vt, vj)
+        np.testing.assert_array_equal(got_t["tri"].numpy()[vj],
+                                      np.asarray(got_j["tri"])[vj])
+        np.testing.assert_allclose(got_t["t"].numpy()[vj],
+                                   np.asarray(got_j["t"])[vj], rtol=1e-5)
+        # the cull really drops some hits of the unmasked pass
+        assert 20 < vt.sum() < plain0["valid"].numpy().sum()
+        return
+    sj, st = np.asarray(got_j["solid"]), got_t["solid"].numpy()
+    assert st.sum() > 10, "solid never fires"
+    assert (vt & ~st).sum() > 10, "no mixed candidate"
+    np.testing.assert_array_equal(~vt & ~st, ~vj & ~sj)      # miss lanes
+    assert not (st & ~sj).any()           # port-solid => JAX-solid
+    assert not (sj & ~(st | vt)).any()    # JAX-solid => solid or candidate
+    assert not (st & vt).any() and not (sj & vj).any()
+    # where both report a candidate and JAX did not collapse, it is the
+    # same nearest mixed hit
+    both = vt & vj
+    np.testing.assert_array_equal(got_t["tri"].numpy()[both],
+                                  np.asarray(got_j["tri"])[both])
+    assert (got_t["t"].numpy()[st] == BIG_F32).all()
+    assert (got_t["tri"].numpy()[st] == -1).all()
+
+
+def test_torch_trace2_amask_refuses_any_hit_and_maskless_tables():
+    tri_v, uvs = _alpha_cards(43, 20)
+    ta, _ = trace2.build_tri_blocks2(tri_v, tri_mask=_card_masks(uvs))
+    o, d = _rays(2, 8)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    for fn in (trace2.tri_intersect2, trace2.tri_intersect2_plain):
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            fn(_port_tables(ta), o, d, BIG_F32, any_hit=True, amask=1)
+        with pytest.raises(ValueError, match="amask must be"):
+            fn(_port_tables(ta), o, d, BIG_F32, amask=3)
+        tb, _ = trace2.build_tri_blocks2(tri_v)
+        with pytest.raises(ValueError, match="pk_mask"):
+            fn(_port_tables(tb), o, d, BIG_F32, amask=2)
+
+
+@pytest.mark.parametrize("amask", [1, 2])
+def test_torch_trace2_amask_pruned_plain_equals_brute(amask):
+    tri_v, uvs = _alpha_cards(44, 2000, spread=10.0)
+    ta, _ = trace2.build_tri_blocks2(tri_v, tri_mask=_card_masks(uvs), g=32)
+    tabs = _port_tables(ta)
+    o, d = _rays(45, 400, spread=10.0)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    t_max = torch.full((400,), BIG_F32)
+    t_max[::4] = 18.0
+    pruned = trace2.tri_intersect2_plain(tabs, o, d, t_max, amask=amask)
+    brute = trace2.tri_intersect2_plain(tabs, o, d, t_max, amask=amask,
+                                        prune=False)
+    assert 50 < int(brute["valid"].sum()) < 400
+    for k in brute:
+        assert torch.equal(pruned[k], brute[k]), k
+
+
 def _mixed_scene(seed=21):
     """A 2000-tri soup plus spheres and quads, as numpy tables."""
     tri_v = _soup(seed, 2000)
@@ -247,13 +396,25 @@ def test_torch_trace2_kernel_matches_plain_on_card():
         if not any_hit:
             assert torch.equal(got["tri"], ref["tri"])
             assert torch.equal(got["t"], ref["t"])
+    tri_v, uvs = _alpha_cards(44, 5000, spread=10.0)
+    ta, _ = trace2.build_tri_blocks2(tri_v, tri_mask=_card_masks(uvs), g=32)
+    scene = {k: v.cuda() for k, v in _port_tables(ta).items()}
+    for amask in (1, 2):
+        got = trace2.tri_intersect2(scene, o, d, BIG_F32, amask=amask)
+        ref = trace2.tri_intersect2_plain(scene, o, d, BIG_F32, prune=False,
+                                          amask=amask)
+        torch.cuda.synchronize()
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), (amask, k)
 
 
 _HOST_SHIM = r"""
 #include <cmath>
 #include <cstdint>
 #include <cstddef>
+#include <cstring>
 struct float4 { float x, y, z, w; };
+struct int4 { int x, y, z, w; };
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -262,6 +423,12 @@ struct float4 { float x, y, z, w; };
 struct dim3_ { int x; };
 static dim3_ blockIdx, threadIdx, blockDim;
 inline float4 __ldg(const float4* p) { return *p; }
+inline int4 __ldg(const int4* p) { return *p; }
+inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, 4);
+  return f;
+}
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 """
 
@@ -269,15 +436,22 @@ _HOST_LAUNCH = r"""
 extern "C" void trace2_host(const float* orig, const float* dirs,
                             const float* tmax, int n, const float* l1box,
                             int m1, const int* l1_base, const float* l2box,
-                            const float* tri, int k2, int g, int any_hit,
-                            float* out_t, int* out_slot) {
+                            const float* tri, const int* mask, int k2, int g,
+                            int any_hit, int amask, float* out_t,
+                            int* out_slot) {
   blockDim.x = 1;
   threadIdx.x = 0;
   for (int i = 0; i < n; ++i) {
     blockIdx.x = i;
-    trace2_kernel(orig, dirs, tmax, n, (const float4*)l1box, m1, l1_base,
-                  (const float4*)l2box, (const float4*)tri, k2, g, any_hit,
-                  out_t, out_slot, nullptr, nullptr);
+#define HOST_CALL(AMASK)                                                    \
+    trace2_kernel<AMASK>(orig, dirs, tmax, n, (const float4*)l1box, m1,     \
+                         l1_base, (const float4*)l2box, (const float4*)tri, \
+                         (const int4*)mask, k2, g, any_hit, out_t,          \
+                         out_slot, nullptr, nullptr)
+    if (amask == 0) HOST_CALL(0);
+    else if (amask == 1) HOST_CALL(1);
+    else HOST_CALL(2);
+#undef HOST_CALL
   }
 }
 """
@@ -303,9 +477,10 @@ def host_kernel(tmp_path_factory):
                    capture_output=True, timeout=120)
     lib = ctypes.CDLL(str(d / "t2.so"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.trace2_host.argtypes = [P, P, P, I, P, I, P, P, P, I, I, I, P, P]
+    lib.trace2_host.argtypes = [P, P, P, I, P, I, P, P, P, P, I, I, I, I,
+                                P, P]
 
-    def run(tabs, o, d, t_max, any_hit):
+    def run(tabs, o, d, t_max, any_hit, amask=0):
         n = len(o)
         out_t = np.empty(n, np.float32)
         out_s = np.empty(n, np.int32)
@@ -318,7 +493,9 @@ def host_kernel(tmp_path_factory):
                         tabs["pk_l1box"].ctypes.data, m1,
                         tabs["pk_l1_base"].ctypes.data,
                         tabs["pk_l2box"].ctypes.data,
-                        tabs["pk_tri"].ctypes.data, k2, g, int(any_hit),
+                        tabs["pk_tri"].ctypes.data,
+                        tabs["pk_mask"].ctypes.data if amask else None,
+                        k2, g, int(any_hit), amask,
                         out_t.ctypes.data, out_s.ctypes.data)
         return out_t, out_s
     return run
@@ -342,3 +519,29 @@ def test_torch_trace2_kernel_source_matches_plain(host_kernel, n_tri, g):
     np.testing.assert_array_equal(ht, pt.numpy())
     _, hs_any = host_kernel(ta, o, d, t_max, True)
     np.testing.assert_array_equal(hs_any >= 0, ps.numpy() >= 0)
+
+
+@pytest.mark.parametrize("amask", [1, 2])
+@pytest.mark.parametrize("n_cards,g", [(1500, 16), (40000, 32)])
+def test_torch_trace2_kernel_source_matches_plain_amask(host_kernel, n_cards,
+                                                        g, amask):
+    """The CUDA kernel's alpha micro-mask modes (the cell lookup, the
+    mode-1 cull, the mode-2 order-independent solid rule with its
+    min(t_mix, t_opq) box culling) equal the plain version exactly:
+    same slots (-2 = solid), bit-equal t."""
+    big = n_cards > 10000
+    tri_v, uvs = _alpha_cards(51, n_cards, spread=18.0 if big else 6.0,
+                              size=(0.6, 1.6) if big else (1.0, 2.5))
+    ta, _ = trace2.build_tri_blocks2(tri_v, tri_mask=_card_masks(uvs), g=g)
+    o, d = _rays(52, 500, spread=18.0 if big else 6.0)
+    t_max = np.full((500,), BIG_F32, np.float32)
+    t_max[::3] = 14.0
+    pt, ps = trace2._plain_slots(_port_tables(ta), torch.from_numpy(o),
+                                 torch.from_numpy(d), torch.from_numpy(t_max),
+                                 amask=amask)
+    ht, hs = host_kernel(ta, o, d, t_max, False, amask)
+    assert (ps >= 0).sum() > 50
+    if amask == 2:
+        assert (ps == -2).sum() > 50
+    np.testing.assert_array_equal(hs, ps.numpy())
+    np.testing.assert_array_equal(ht, pt.numpy())
