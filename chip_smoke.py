@@ -5,55 +5,79 @@
 
 Phases (any failure exits non-zero; the last stdout line is the JSON
 device summary only when every phase passed):
-  1. build the CUDA kernel (csrc/trace2.cu) with nvcc and print its time
-     and each mode's registers;
-  2. hold the trace2 kernel against its plain PyTorch version on the card,
-     in all four modes, no flip allowed:
-     a. closest hit and any-hit on a 200K-triangle soup with 64K rays,
-        against the brute force over every table slot;
-     b. the alpha micro-mask modes (amask 1 and 2) on a 200K-triangle
-        soup of alpha-cutout cards (masks from the scene's leaf texture)
-        with 65,280 rays, against the same brute force;
-     c. closest hit and any-hit on the 10.5M-triangle San-Miguel-analog
+  1. build both CUDA kernels (csrc/trace2.cu, the two-level traversal K1,
+     and csrc/trace1.cu, the single-level traversal K2; one nvcc each,
+     started together) and print each instance's registers;
+  2. hold every kernel mode against its plain PyTorch version on the card,
+     no flip allowed:
+     a. K1 and K2 closest hit and any-hit on a 200K-triangle soup (K2: cut
+        to 65,536 triangles, its size) with 64K rays, against the brute
+        force over every table slot;
+     b. the alpha micro-mask modes (amask 1 and 2) of K1 and K2 on a soup
+        of alpha-cutout cards (masks from the scene's leaf texture) with
+        65,280 rays, against the same brute force;
+     c. K1 closest hit and any-hit on the 10.5M-triangle San-Miguel-analog
         tables with 65,280 bounce-like rays (the render's dispatch width)
         against the plain version culled by child box, after checking
         that every child box holds its triangles; kernel and plain times
         and the kernel's bound from its counters;
-     d. (after phase 5's scene build) amask 1 and 2 on the faithful
+     d. (after phase 5's scene build) K1 amask 1 and 2 on the faithful
         scene's full alpha tables (240,000 foliage triangles) with 65,280
         rays through the foliage, the same way; the share of lanes mode 1
         culled and mode 2 resolved as `solid` must both be > 0;
+     e. synthetic instanced and moving soups (300 sheared, non-uniformly
+        scaled instances of two models over world triangles; random
+        velocities and ray times): K1 instanced closest / any-hit, K1
+        motion, K1 instanced + motion, K2 instanced, K2 motion, against
+        the brute force on 8,192 rays and the culled plain version on
+        65,280;
+     f. (after phase 6's scene build) K1 instanced amask 1 and 2 on the
+        run-time-instanced foliage's real alpha tables (2,500 expanded
+        L1s over one stored shrub) with foliage rays;
+     g. (after phase 7's scene build) K2 closest / any-hit on the small
+        courtyard's real opaque tables with bounce rays and K2 amask 1 /
+        2 on its alpha tables with foliage rays;
   3. card numerics against the port's CPU numerics, which the CPU tests
      hold to the JAX package: small renders (the untextured and the
-     faithful San-Miguel analog, the Cornell box, the textured quad) must
+     faithful San-Miguel analog, the Cornell box, the textured quad, a
+     scene of run-time instances, a moving mesh, a moving instance) must
      agree on more than 99% of pixel values to rtol=1e-4, atol=1e-5 (the
      faithful miniature at depth 2: its normal map amplifies one-ulp
-     differences, so its depth-4 agreement is printed, not held), and
-     the shadow predicate on ~8K rays through a small faithful scene's
-     foliage must be equal lane for lane (MASK mode is deterministic);
+     differences, so its depth-4 agreement is printed, not held), and the
+     shadow predicate on ~8K rays through the foliage of the small
+     faithful scene, flattened and with run-time-instanced foliage, must
+     be equal lane for lane (MASK mode is deterministic);
   4. the legacy path: sanmiguel_analog(faithful=False) at 1920x1080, path
      tracing, depth 32, 1 spp, regenerate=True, one frame through the
      public render(); launches > 0, image finite with a positive mean;
   5. the faithful path: sanmiguel_analog(faithful=True) (10.5M terrain +
-     240,000 alpha foliage triangles, textures, normal map, glass, metal,
-     lamp meshes) at 1920x1080, path tracing, depth 64, 1 spp,
-     regenerate=True, a warm and a timed frame through render(); the
-     kernel's launch counts over the timed frame must be > 0 in all four
-     modes and the image finite with a positive mean; with --sections, one
-     more frame with a timer around each section of the bounce loop; with
-     --profile, one more frame under torch.profiler;
-  6. print the kernel table JSON, the card's name and power limit, and the
+     240,000 alpha foliage triangles flattened to world triangles,
+     textures, normal map, glass, metal, lamp meshes) at 1920x1080, depth
+     64, 1 spp, regenerate=True, one frame through render(); K1's launch
+     counts over the frame must be > 0 in its four plain modes; with
+     --sections, one more frame with a timer around each section of the
+     bounce loop; with --profile, one more frame under torch.profiler;
+  6. path A: the same scene with its 2,500 shrubs kept as run-time
+     instances (PT_FLATTEN_MAX=0), same settings, one frame: K1 closest
+     and any-hit on the plain opaque tables, K1 instanced amask 1 / 2 on
+     the alpha tables; its rays per sample and image mean are printed
+     beside phase 5's;
+  7. path B: sanmiguel_analog(n_tris=60,000, foliage=600), same settings,
+     one frame: K2 in its four plain modes;
+  8. print the kernel table JSON, the card's name and power limit, and the
      device summary.
-Writes chiprun_out/sanmiguel_legacy.ppm and chiprun_out/sanmiguel_faithful.ppm.
+Writes chiprun_out/sanmiguel_{legacy,faithful,tlas,small}.ppm and the whole
+output to chiprun_out/chip_smoke.log.
 
-The script imports nothing of JAX.  Tolerances: the kernel and the plain
-version share the arithmetic (the kernel is built without FMA
-contraction) and both break ties in t by the least table slot, and the
-amask=2 contract does not depend on visit order, so `valid`, `tri` and
+The script imports nothing of JAX.  Tolerances: a kernel and its plain
+version share the arithmetic (the kernels are built without FMA
+contraction) and both break ties in t by the least table slot (instanced
+tables: the least expanded block, then the least offset), and the amask=2
+contract does not depend on visit order, so `valid`, `tri`, `inst` and
 `solid` must agree exactly (no flip allowed) and `t` to rtol=1e-5.  In
 any-hit mode `tri` is whichever occluder the traversal found first, so
-only `valid` is compared, and every reported occluder is checked to be
-hit.
+only `valid` is compared, and every reported occluder of a plain table is
+checked to be hit.
 """
 from __future__ import annotations
 
@@ -69,6 +93,8 @@ N_TRIS = 10_500_000         # 10.5M-triangle terrain;
 DEPTH = 32                  # the legacy path's depth,
 DEPTH_FAITHFUL = 64         # the faithful path's
 FOLIAGE = 2500              # shrub instances (96 alpha triangles each)
+N_TRIS_SMALL = 60_000       # path B: the courtyard at the size of one
+FOLIAGE_SMALL = 600         # imported model, on the single-level kernel
 FP32_PEAK = 67e12           # H100 SXM fp32 (non-tensor) FLOP/s
 HBM_RATE = 3.35e12          # H100 SXM HBM3 bytes/s
 SLAB_FLOPS = 20             # one ray/box slab test
@@ -93,71 +119,91 @@ def _sync_time(fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
-def _compare(trace2, scene, o, d, t_max, label, prune):
-    """Kernel vs plain version (culled by child box, or the brute force
-    over every slot); returns (max_abs_err of t, ms of the plain
-    version's call)."""
+def _fns(mod):
+    """(kernel wrapper, plain version) of a traversal module."""
+    if hasattr(mod, "tri_intersect2"):
+        return mod.tri_intersect2, mod.tri_intersect2_plain
+    return mod.tri_intersect1, mod.tri_intersect1_plain
+
+
+def _compare(mod, scene, o, d, t_max, label, prune, **kw):
+    """Kernel vs plain version (culled by box, or the brute force over
+    every slot); kw: time.  Returns {"closest": (max_abs_err of t, ms of
+    the plain version's call), "any_hit": (max abs difference of the
+    occlusion flags, ms of the plain version's any_hit call)}."""
     import torch
+    kernel, plain = _fns(mod)
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    ref = trace2.tri_intersect2_plain(scene, o, d, t_max, prune=prune)
+    ref = plain(scene, o, d, t_max, prune=prune, **kw)
     b.record()
-    got = trace2.tri_intersect2(scene, o, d, t_max)
-    anyh = trace2.tri_intersect2(scene, o, d, t_max, any_hit=True)
+    # the brute force is one function for both modes: not run twice
+    ref_any = plain(scene, o, d, t_max, any_hit=True, prune=True, **kw) \
+        if prune else ref
+    c = torch.cuda.Event(enable_timing=True)
+    c.record()
+    got = kernel(scene, o, d, t_max, **kw)
+    anyh = kernel(scene, o, d, t_max, any_hit=True, **kw)
     torch.cuda.synchronize()
     n = o.shape[0]
     flips = int((got["valid"] != ref["valid"]).sum())
     both = got["valid"] & ref["valid"]
-    tri_diff = int((both & (got["tri"] != ref["tri"])).sum())
-    same = both & (got["tri"] == ref["tri"])
+    tri_diff = int((both & ((got["tri"] != ref["tri"])
+                            | (got["inst"] != ref["inst"]))).sum())
+    same = both & (got["tri"] == ref["tri"]) & (got["inst"] == ref["inst"])
     t_bad = int((same & ~torch.isclose(got["t"], ref["t"], rtol=1e-5,
                                        atol=0.0)).sum())
     err = float((got["t"] - ref["t"]).abs()[same].max()) if same.any() \
         else 0.0
-    any_flips = int((anyh["valid"] != ref["valid"]).sum())
+    any_flips = int((anyh["valid"] != ref_any["valid"]).sum())
     # every any-hit occluder must really be hit within t_max
     v = anyh["valid"]
     tv = scene["tri_v"] if "tri_v" in scene else None
     occl_bad = 0
-    if tv is not None and v.any():
+    if tv is not None and v.any() and kw.get("time") is None \
+            and "pk_blk_src" not in scene:
         idx = torch.nonzero(v)[:, 0]
         tri = tv[anyh["tri"][idx]]
         t = _ray_tri_t(o[idx], d[idx], tri)
         occl_bad = int((~((t >= 1e-5) & (t < t_max[idx]))).sum())
-    plain_ms = a.elapsed_time(b)
+    plain_ms, plain_any_ms = a.elapsed_time(b), b.elapsed_time(c)
+    any_txt = f", any-hit {plain_any_ms:.1f} ms" if prune else ""
     print(f"[compare] {label} vs {'culled' if prune else 'brute'} plain "
-          f"({plain_ms:.1f} ms): rays={n} hits={int(ref['valid'].sum())} "
-          f"closest: valid_flips={flips} tri_mismatch={tri_diff} "
+          f"({plain_ms:.1f} ms{any_txt}): rays={n} hits={int(ref['valid'].sum())} "
+          f"(on instances {int((ref['inst'] >= 0).sum())}) "
+          f"closest: valid_flips={flips} tri_or_inst_mismatch={tri_diff} "
           f"t_outside_rtol={t_bad} max_abs_err_t={err:.3e} | any-hit: "
           f"valid_flips={any_flips} bad_occluders={occl_bad}", flush=True)
     if flips or tri_diff or t_bad or any_flips or occl_bad:
         raise RuntimeError(f"kernel disagrees with its plain version on "
                            f"{label}")
-    return err, plain_ms
+    return {"closest": (err, plain_ms),
+            "any_hit": (float(any_flips), plain_any_ms)}
 
 
-def _compare_amask(trace2, scene, o, d, t_max, label, prune):
+def _compare_amask(mod, scene, o, d, t_max, label, prune, **kw):
     """Kernel vs plain version in the alpha micro-mask modes.  Returns
     {mode: (max_abs_err of t, plain ms, share culled or solid)}."""
     import torch
+    kernel, plain = _fns(mod)
     n = o.shape[0]
-    base = trace2.tri_intersect2(scene, o, d, t_max)
+    base = kernel(scene, o, d, t_max, **kw)
     out = {}
     for amask in (1, 2):
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        ref = trace2.tri_intersect2_plain(scene, o, d, t_max, prune=prune,
-                                          amask=amask)
+        ref = plain(scene, o, d, t_max, prune=prune, amask=amask, **kw)
         b.record()
-        got = trace2.tri_intersect2(scene, o, d, t_max, amask=amask)
+        got = kernel(scene, o, d, t_max, amask=amask, **kw)
         torch.cuda.synchronize()
         plain_ms = a.elapsed_time(b)
         flips = int((got["valid"] != ref["valid"]).sum())
-        tri_diff = int((got["tri"] != ref["tri"]).sum())
+        tri_diff = int(((got["tri"] != ref["tri"])
+                        | (got["inst"] != ref["inst"])).sum())
         same = got["valid"] & ref["valid"] & (got["tri"] == ref["tri"])
         t_bad = int((same & ~torch.isclose(got["t"], ref["t"], rtol=1e-5,
                                            atol=0.0)).sum())
@@ -179,7 +225,7 @@ def _compare_amask(trace2, scene, o, d, t_max, label, prune):
               f"{'culled' if prune else 'brute'} plain ({plain_ms:.1f} ms): "
               f"rays={n} unmasked hits={int(base['valid'].sum())} "
               f"hits={int(ref['valid'].sum())} valid_flips={flips} "
-              f"tri_mismatch={tri_diff} t_outside_rtol={t_bad} "
+              f"tri_or_inst_mismatch={tri_diff} t_outside_rtol={t_bad} "
               f"max_abs_err_t={err:.3e} {what}", flush=True)
         if flips or tri_diff or t_bad or solid_flips:
             raise RuntimeError(f"kernel (amask={amask}) disagrees with its "
@@ -231,48 +277,156 @@ def _bounce_rays(scene, n, seed=2):
     return o[perm].contiguous(), d[perm].contiguous()
 
 
-def _bound_ms(trace2, scene, o, d, t_max, amask=0):
-    """Least time for the work this run's rays need: the larger of the
-    fp32 operations (slab and triangle tests the traversal performs and,
-    in the alpha modes, its mask lookups, from the kernel's counters) over
-    the fp32 peak, and the bytes over the HBM rate: rays in (28 B) and
-    results out (8 B) once each, the L1 table (boxes + child base), once
-    each the child boxes of the L1s and the triangle rows of the child
-    blocks that some ray visited, and the 32 B of mask words of every hit
-    that looked its cell up."""
-    res = trace2.tri_intersect2(scene, o, d, t_max, counters=True,
-                                amask=amask)
+def _bound_ms(mod, scene, o, d, t_max, amask=0, any_hit=False, **kw):
+    """Least time for the work this run's rays need in this mode (an
+    any-hit walk ends at its first occluder, so it is counted with
+    any_hit=True, not as a closest walk): the larger of the fp32
+    operations (slab and triangle tests the traversal performs and, in
+    the alpha modes, its mask lookups, from the kernel's counters) over
+    the fp32 peak, and the bytes over the HBM rate: rays in (28 B, 32 with
+    a time) and results out (8 B, 12 on instanced tables) once each, the
+    top-level table (boxes, + child base for the two-level kernel, +
+    source and instance ids and one 48 B inverse transform per visited
+    expanded entry on instanced tables), once each the child boxes of the
+    PHYSICAL L1s (instances share them) and the triangle rows of the
+    physical blocks that some ray visited, and the 32 B of mask words of
+    every hit that looked its cell up."""
+    import torch
+    kernel, _ = _fns(mod)
+    res = kernel(scene, o, d, t_max, counters=True, amask=amask,
+                 any_hit=any_hit, **kw)
     cnt = res["counters"].to(float).sum(0)
-    m1 = scene["pk_l1box"].shape[0]
-    g = scene["pk_l2box"].shape[0] // m1
-    k2 = scene["pk_tri"].shape[0] // scene["pk_l2box"].shape[0]
-    flops = (float(cnt[0]) * m1 * SLAB_FLOPS + float(cnt[1]) * g * SLAB_FLOPS
-             + float(cnt[2]) * k2 * MT_FLOPS + float(cnt[3]) * MASK_FLOPS)
     n = o.shape[0]
-    l1_seen = int(res["l1_touched"].sum())
-    leaf_seen = int(res["leaf_touched"].sum())
-    nbytes = (n * (28 + 8) + m1 * 36 + l1_seen * g * 32
-              + leaf_seen * k2 * 48 + float(cnt[3]) * MASK_BYTES)
+    inst = "pk_blk_src" in scene
+    ray_bytes = n * (28 + 8 + (4 if kw.get("time") is not None else 0)
+                     + (4 if inst else 0))
+    if "pk_l1box" in scene:                     # two-level
+        m1 = scene["pk_l1box"].shape[0]
+        m2 = scene["pk_l2box"].shape[0]
+        g = m2 // scene["pk_l1_base"].shape[0]
+        k2 = scene["pk_tri"].shape[0] // m2
+        flops = (float(cnt[0]) * m1 * SLAB_FLOPS
+                 + float(cnt[1]) * g * SLAB_FLOPS
+                 + float(cnt[2]) * k2 * MT_FLOPS
+                 + float(cnt[3]) * MASK_FLOPS)
+        top_seen = int(res["l1_touched"].sum())
+        phys_seen = top_seen
+        if inst:     # distinct physical L1s among the visited expanded ones
+            phys_seen = int(torch.unique(
+                scene["pk_blk_src"][res["l1_touched"]]).numel())
+        leaf_seen = int(res["leaf_touched"].sum())
+        nbytes = (ray_bytes + m1 * (36 + (8 if inst else 0))
+                  + phys_seen * g * 32 + (top_seen * 48 if inst else 0)
+                  + leaf_seen * k2 * 48 + float(cnt[3]) * MASK_BYTES)
+        what = (f"L1 passes={cnt[0] / n:.2f} L1 visits={cnt[1] / n:.2f} "
+                f"leaf blocks={cnt[2] / n:.2f} (tri tests="
+                f"{cnt[2] / n * k2:.0f}) mask lookups={cnt[3] / n:.3f}; L1s "
+                f"visited {top_seen}/{m1} (physical {phys_seen}), child "
+                f"blocks visited {leaf_seen}/{m2}")
+    else:                                       # single-level
+        m = scene["pk_blkbox"].shape[0]
+        mp, k = scene["pk_tri"].shape[:2]
+        flops = (float(cnt[0]) * m * SLAB_FLOPS + float(cnt[1]) * k * MT_FLOPS
+                 + float(cnt[3]) * MASK_FLOPS)
+        seen = int(res["blocks_touched"].sum())
+        nbytes = (ray_bytes + m * (32 + (8 if inst else 0))
+                  + seen * k * 48
+                  + (seen * 48 if inst else 0)
+                  + float(cnt[3]) * MASK_BYTES)
+        what = (f"table passes={cnt[0] / n:.2f} blocks visited="
+                f"{cnt[1] / n:.2f} (tri tests={cnt[1] / n * k:.0f}) mask "
+                f"lookups={cnt[3] / n:.3f}; physical blocks visited "
+                f"{seen}/{mp}")
     ops_ms, bytes_ms = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-    per_ray = (cnt / n).tolist()
-    print(f"[bound] amask={amask} rays={n} per-ray: L1 passes="
-          f"{per_ray[0]:.2f} L1 visits={per_ray[1]:.2f} leaf blocks="
-          f"{per_ray[2]:.2f} (tri tests={per_ray[2] * k2:.0f}) mask lookups="
-          f"{per_ray[3]:.3f}; L1s visited {l1_seen}/{m1}, "
-          f"child blocks visited {leaf_seen}/{m1 * g}; flops={flops:.3e} "
-          f"bytes={nbytes:.3e} ops_ms={ops_ms:.4f} bytes_ms={bytes_ms:.4f}",
-          flush=True)
+    print(f"[bound] amask={amask} any_hit={any_hit} rays={n} per-ray: {what}"
+          f"; flops="
+          f"{flops:.3e} bytes={nbytes:.3e} ops_ms={ops_ms:.4f} bytes_ms="
+          f"{bytes_ms:.4f}", flush=True)
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
 
 
-def _card_vs_cpu(render_image, scene, cam, meta, cfg, label, min_frac=0.99):
+def _measure(mod, scene, o, d, t_max, label, modes, prune=True,
+             brute_rays=0, **kw):
+    """Hold the kernel's `modes` (a subset of closest / any_hit / amask1 /
+    amask2) against the plain version on these rays (culled by box; with
+    brute_rays also against the brute force on that many of them), time
+    each mode and compute each mode's own bound from its own counters.
+    Returns {mode: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)};
+    any_hit's max_abs_err is over the occlusion flags (its only output
+    that is compared)."""
+    kernel, _ = _fns(mod)
+    out = {}
+    sub = {k: (v[:brute_rays] if v is not None else None)
+           for k, v in kw.items() if k == "time"}
+    kw_b = {**kw, **sub}
+    if "closest" in modes or "any_hit" in modes:
+        if brute_rays:
+            _compare(mod, scene, o[:brute_rays], d[:brute_rays],
+                     t_max[:brute_rays], label, prune=False, **kw_b)
+        cmp_c = _compare(mod, scene, o, d, t_max, label, prune=prune, **kw)
+        for mode in ("closest", "any_hit"):
+            if mode in modes:
+                anyh = mode == "any_hit"
+                err, plain_ms = cmp_c[mode]
+                ms = _sync_time(lambda: kernel(scene, o, d, t_max,
+                                               any_hit=anyh, **kw))
+                b_ms, b_by = _bound_ms(mod, scene, o, d, t_max, any_hit=anyh,
+                                       **kw)
+                out[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by)
+    if "amask1" in modes or "amask2" in modes:
+        if brute_rays:
+            _compare_amask(mod, scene, o[:brute_rays], d[:brute_rays],
+                           t_max[:brute_rays], label, prune=False, **kw_b)
+        cmp_a = _compare_amask(mod, scene, o, d, t_max, label, prune=prune,
+                               **kw)
+        for amask in (1, 2):
+            err, plain_ms, share = cmp_a[amask]
+            if not share > 0.0:
+                raise RuntimeError(f"amask={amask} resolved no lane on "
+                                   f"{label}")
+            ms = _sync_time(lambda: kernel(scene, o, d, t_max, amask=amask,
+                                           **kw))
+            b_ms, b_by = _bound_ms(mod, scene, o, d, t_max, amask=amask, **kw)
+            out[f"amask{amask}"] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=b_ms,
+                                        bound_by=b_by)
+    for mode, r in out.items():
+        print(f"[kernel] {label} {mode}: {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+    return out
+
+
+def _launch_counts():
+    """{"trace2[mode]" / "trace1[mode]": launches} of both kernels."""
+    from pathtracing_tpu_torch.accel import trace1, trace2
+    out = {f"trace2[{k}]": v
+           for k, v in trace2.tri_intersect2.launches_by_mode.items()}
+    out.update({f"trace1[{k}]": v
+                for k, v in trace1.tri_intersect1.launches_by_mode.items()})
+    return out
+
+
+def _reset_counts():
+    from pathtracing_tpu_torch.accel import trace1, trace2
+    trace1.reset_launches()
+    trace2.reset_launches()
+
+
+def _card_vs_cpu(render_image, scene, cam, meta, cfg, label, min_frac=0.99,
+                 counts=None):
     """The same small render on the card (kernel, float32 GPU math) and
     on the CPU (plain traversal, the numerics the CPU tests hold to the
     JAX package); fails unless >99% of values agree to rtol=1e-4,
     atol=1e-5 (the JAX package's rule for two traversal paths)."""
     import torch
+    _reset_counts()
     got = render_image(scene, cam, meta, cfg, device="cuda").cpu()
+    if counts is not None:       # launches of the card render, by mode
+        for k, v in _launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
     want = render_image(scene, cam, meta, cfg, device="cpu")
     close = torch.isclose(got, want, rtol=1e-4, atol=1e-5)
     frac = float(close.to(torch.float64).mean())
@@ -299,7 +453,8 @@ def _shell_rays(rng, n, dev):
 
 
 def _card_soup(rng, n_cards, dev, trace2):
-    """Two-level tables, with micro-masks, of n_cards randomly oriented
+    """Tables of the traversal module given (two-level for accel/trace2,
+    single-level for accel/trace1), with micro-masks, of n_cards randomly oriented
     alpha-cutout cards (2 triangles each) carrying the faithful scene's
     leaf texture (MASK mode, cutoff 0.5)."""
     import numpy as np
@@ -325,7 +480,10 @@ def _card_soup(rng, n_cards, dev, trace2):
     masks = build_tri_alpha_masks(uvs, np.zeros(len(uvs), np.int64),
                                   sb.textures, [2], [0.5],
                                   [[leaf_tid, -1, -1, -1, -1]])
-    tabs, _ = trace2.build_tri_blocks2(tri_v, g=32, tri_mask=masks)
+    if hasattr(trace2, "build_tri_blocks2"):
+        tabs, _ = trace2.build_tri_blocks2(tri_v, g=32, tri_mask=masks)
+    else:
+        tabs, _ = trace2.build_tri_blocks(tri_v, tri_mask=masks)
     return {k: torch.from_numpy(v).to(dev) for k, v in tabs.items()}
 
 
@@ -351,7 +509,7 @@ def _foliage_rays(scene, n, seed=5):
     return o[perm].contiguous(), d[perm].contiguous()
 
 
-def _occluded_card_vs_cpu(scene, cam, meta, n=8160):
+def _occluded_card_vs_cpu(scene, cam, meta, n=8160, label="flattened"):
     """The shadow predicate (opaque any-hit pass + masked alpha restart
     chain) on the card against the port's CPU predicate, on rays through
     the small faithful scene's foliage toward the sun and the sky.  MASK
@@ -380,7 +538,7 @@ def _occluded_card_vs_cpu(scene, cam, meta, n=8160):
               d.to(dev), t_max.to(dev), rand_key=7, stats=stats)
     flips = int((got != want).sum())
     print(f"[occluded card-vs-cpu] {n} shadow rays through the foliage of "
-          f"the small faithful scene: occluded {int(want.sum())} (cpu) "
+          f"the small faithful scene ({label}): occluded {int(want.sum())} (cpu) "
           f"{int(got.sum())} (card), lane flips {flips}, chain restarts "
           f"{stats['restarts']}", flush=True)
     if flips or not 0 < int(want.sum()) < n:
@@ -388,26 +546,28 @@ def _occluded_card_vs_cpu(scene, cam, meta, n=8160):
                            "CPU's")
 
 
-def _frame(trace2, render, filmmod, scene, cam, meta, cfg, label, ppm,
-           warm):
+def _frame(render, filmmod, scene, cam, meta, cfg, label, ppm, warm=False):
     """Render one timed frame through render() (after a warm one if asked)
-    with the kernel's launch counts set to 0 just before it and read just
-    after; print its numbers, check the image, write it.  Returns the
-    launch counts per mode."""
+    with both kernels' launch counts set to 0 just before it and read just
+    after; print its numbers, check the image, write it.  Returns
+    (launch counts by kernel and mode, dict(rays_per_sample, mean,
+    samples_per_s, seconds))."""
     import torch
+    from pathtracing_tpu_torch.accel import trace1, trace2
     if warm:
         t0 = time.perf_counter()
         render(scene, cam, meta, cfg)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
     stats = {}
-    trace2.reset_launches()
+    _reset_counts()
     t0 = time.perf_counter()
     film = render(scene, cam, meta, cfg, stats=stats)
     torch.cuda.synchronize()
     frame_s = time.perf_counter() - t0
-    by_mode = dict(trace2.tri_intersect2.launches_by_mode)
-    total = trace2.tri_intersect2.launches
+    counts = _launch_counts()
+    total = (trace2.tri_intersect2.launches
+             + trace1.tri_intersect1.launches)
     w, h = cam["resolution"]
     img = filmmod.finalize(film)
     mean = float(img.mean())
@@ -415,20 +575,120 @@ def _frame(trace2, render, filmmod, scene, cam, meta, cfg, label, ppm,
     calls = stats.get("occluded_calls", 0)
     restarts = stats.get("chain_restarts", 0) / calls if calls else 0.0
     warm_txt = f"{warm_s:.2f}s" if warm else "none"
+    used = {k: v for k, v in counts.items() if v}
+    rps = stats["n_rays"] / (w * h)
     print(f"[render] {label}: {w}x{h} 1spp regen: warm {warm_txt} timed "
           f"{frame_s:.2f}s camera_samples/s {w * h / frame_s:.1f} "
-          f"rays/sample {stats['n_rays'] / (w * h):.3f} trace2 launches "
-          f"{total} by mode {by_mode} occluded calls {calls} chain restarts/"
-          f"call {restarts:.3f} image mean {mean:.5f} finite {finite}",
-          flush=True)
+          f"rays/sample {rps:.3f} kernel launches {total} by kernel and mode "
+          f"{used} occluded calls {calls} chain restarts/call {restarts:.3f} "
+          f"bounce iterations {stats['iterations']}, lane bounces at depth "
+          f">= 20: {stats['deep_bounces']}, of them with a closest hit nearer "
+          f"than 1e-4 (re-hits): {stats['deep_rehits']}; "
+          f"image mean {mean:.5f} finite {finite}", flush=True)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     filmmod.write_ppm(film, (w, h), out_dir / ppm)
-    if total != sum(by_mode.values()):
+    if total != sum(counts.values()):
         raise RuntimeError("per-mode launch counts do not add up")
     if not finite or not mean > 0.0:
         raise RuntimeError(f"bad image: mean={mean} finite={finite}")
-    return by_mode
+    return counts, dict(rays_per_sample=rps, mean=mean, seconds=frame_s,
+                        samples_per_s=w * h / frame_s)
+
+
+def _need(counts, keys, label):
+    for k in keys:
+        if counts.get(k, 0) <= 0:
+            raise RuntimeError(f"{label} never launched {k}")
+
+
+def _xf(rng):
+    """A sheared, non-uniformly scaled, rotated, translated 4x4."""
+    import numpy as np
+    a = rng.uniform(0, np.pi)
+    c, s = np.cos(a), np.sin(a)
+    lin = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]]) \
+        @ np.diag(rng.uniform(0.5, 2.0, 3))
+    lin[0, 1] += 0.3
+    m = np.eye(4)
+    m[:3, :3] = lin
+    m[:3, 3] = rng.uniform(-50, 50, 3)
+    return m.astype(np.float32)
+
+
+def _soup_tris(rng, n, spread=60.0, size=1.5):
+    import numpy as np
+    v0 = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
+    return np.stack([v0, v0 + rng.normal(0, size, (n, 3)),
+                     v0 + rng.normal(0, size, (n, 3))], 1).astype(np.float32)
+
+
+def _pyramid_scene(kind, device="cpu"):
+    """Small scenes for the card-vs-CPU renders of run-time instances and
+    motion: "inst" (three run-time instances of a pyramid + world
+    triangles: single-level instanced tables), "moving_mesh" (a moving
+    5,202-triangle mesh: single-level tables with velocities),
+    "moving_inst" (a moving run-time instance + moving world triangles:
+    two-level instanced tables with motion), "inst_big" (the instances
+    over a 72,200-triangle mesh: more than 65,536 triangles, so two-level
+    instanced tables), "moving_mesh_k1" (the moving mesh forced onto the
+    two-level tables with TWOLEVEL_MIN = 0)."""
+    import math
+    import numpy as np
+    from pathtracing_tpu_torch.scene import builder as builder_mod
+    from pathtracing_tpu_torch.scene.builder import SceneBuilder
+    pv = np.asarray([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1],
+                     [0, 1.2, 0]], np.float32)
+    pf = np.asarray([[0, 1, 4], [1, 2, 4], [2, 3, 4], [3, 0, 4],
+                     [0, 2, 1], [0, 3, 2]], np.int32)
+
+    def tf(tx, ty, tz, s=1.0, ry=0.0):
+        c, si = math.cos(ry), math.sin(ry)
+        return np.asarray([[c * s, 0, si * s, tx], [0, s, 0, ty],
+                           [-si * s, 0, c * s, tz], [0, 0, 0, 1]], np.float32)
+
+    def grid(side, y0=0.0):
+        x, z = np.meshgrid(np.linspace(-3, 3, side), np.linspace(-3, 3, side))
+        y = 0.4 * np.sin(2 * x) * np.cos(2 * z) + y0
+        v = np.stack([x, y, z], -1).reshape(-1, 3)
+        i, j = np.meshgrid(np.arange(side - 1), np.arange(side - 1),
+                           indexing="ij")
+        a = (i * side + j).ravel()
+        return v, np.concatenate([np.stack([a, a + 1, a + side], -1),
+                                  np.stack([a + 1, a + side + 1, a + side],
+                                           -1)])
+
+    b = SceneBuilder()
+    mat = b.add_diffuse((0.7, 0.5, 0.3))
+    shutter = (0.0, 1.0)
+    if kind in ("moving_mesh", "moving_mesh_k1"):
+        b.add_mesh(*grid(52), material=mat, velocity=(1.5, 0.0, 0.0))
+    else:
+        mid = b.add_model(pv, pf, material=mat)
+        moving = kind == "moving_inst"
+        b.add_model_instance(mid, tf(-2, 0, 0, ry=0.5), runtime=True,
+                             velocity=(2.0, 0.5, 0.0) if moving else (0, 0, 0))
+        b.add_model_instance(mid, tf(2, 0, 1, s=1.5, ry=0.7), runtime=True)
+        b.add_model_instance(mid, tf(0, 0, -2, s=0.7, ry=2.1), runtime=True)
+        b.add_mesh(pv * 2.0 + np.asarray([0, 0, 5], np.float32), pf,
+                   material=mat,
+                   velocity=(0.0, 1.0, 0.0) if moving else (0, 0, 0))
+        if kind == "inst_big":
+            b.add_mesh(*grid(191, -0.6), material=mat)       # 72,200 tris
+        b.add_quad([-6, -1.2, -6], [12, 0, 0], [0, 0, 12],
+                   material=b.add_diffuse((0.5, 0.5, 0.5)))
+        if not moving:
+            shutter = (0.0, 0.0)
+    b.add_uniform_inf_light((1.0, 1.0, 1.0))
+    b.set_camera([0, 4, -7], [0, 0.5, 0], math.radians(40), (48, 48),
+                 shutter=shutter)
+    saved = builder_mod.TWOLEVEL_MIN
+    if kind == "moving_mesh_k1":
+        builder_mod.TWOLEVEL_MIN = 0
+    try:
+        return b.build(accel="pallas", device=device)
+    finally:
+        builder_mod.TWOLEVEL_MIN = saved
 
 
 def _sections_frame(render, scene, cam, meta, cfg):
@@ -457,8 +717,11 @@ def _sections_frame(render, scene, cam, meta, cfg):
             return out
         return wrap
 
-    def kernel_name(scene, o, d, t_max, any_hit, counters, amask):
-        return "  > K1 kernel " + T._mode_name(any_hit, amask)
+    def kernel_name(scene, o, d, t_max, any_hit, counters, amask, time=None,
+                    **kw):
+        return "  > K1 kernel " + T.mode_name(any_hit, amask,
+                                               "pk_blk_src" in scene,
+                                               time is not None)
 
     def dispatch_name(*a, any_hit=False, tri_tables="all", **k):
         return (f"  > _pallas_dispatch tri_tables={tri_tables} "
@@ -538,6 +801,21 @@ def _profile_frame(render, scene, cam, meta, cfg):
               flush=True)
 
 
+class _Tee:
+    """stdout that also lands in a file, so a long output is kept whole."""
+
+    def __init__(self, stream, path):
+        self.stream, self.file = stream, open(path, "w")
+
+    def write(self, text):
+        self.file.write(text)
+        self.file.flush()
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
 def main() -> int:
     import argparse
     import numpy as np
@@ -556,9 +834,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    Path("chiprun_out").mkdir(exist_ok=True)
+    sys.stdout = _Tee(sys.stdout, Path("chiprun_out") / "chip_smoke.log")
+    import os
     from pathtracing_tpu_torch import RenderConfig, SamplerConfig, render, \
         render_image
-    from pathtracing_tpu_torch.accel import trace2
+    from pathtracing_tpu_torch.accel import cubuild, trace1, trace2
     from pathtracing_tpu_torch.native.loader import native_available
     from pathtracing_tpu_torch.scene import builder
     from pathtracing_tpu_torch.scene.intersect import _subset_scene
@@ -580,40 +861,96 @@ def main() -> int:
           f"{importlib.util.find_spec('triton') is not None} | native SAH "
           f"builder: {native_available()}", flush=True)
 
-    # ---- 1. build
-    t0 = time.perf_counter()
-    trace2.build_kernel()
-    print(f"[build] trace2.cu built+loaded in {time.perf_counter() - t0:.2f}s",
-          flush=True)
-    for line in trace2.BUILD_LOG.splitlines():
-        if "Compiling entry" in line:
-            mode = line.split("trace2_kernelILi")[1][0]
-            print(f"[build] kernel instance AMASK={mode}:", flush=True)
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    def on_card(tabs):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in tabs.items()}
 
-    # ---- 2a. random soup, closest + any-hit
+    # ---- 1. build (one nvcc per source, started together)
+    t0 = time.perf_counter()
+    cubuild.build_all()
+    trace2.build_kernel()
+    trace1.build_kernel()
+    print(f"[build] trace2.cu + trace1.cu built+loaded in "
+          f"{time.perf_counter() - t0:.2f}s ({cubuild.BUILD_SECONDS})",
+          flush=True)
+    for stem in ("trace2", "trace1"):
+        for name, line in cubuild.kernel_resources(stem):
+            print(f"[build] {stem} {name}: {line}", flush=True)
+
+    kern = {}       # "trace2[mode]" / "trace1[mode]" -> measured numbers
+
+    # ---- 2a. random soup, closest + any-hit, K1 and K2 (cut to its size)
     rng = np.random.default_rng(13)
     nt = 200_000
-    v0 = rng.uniform(-60, 60, (nt, 3)).astype(np.float32)
-    tri_v = np.stack([v0, v0 + rng.normal(0, 1.5, (nt, 3)),
-                      v0 + rng.normal(0, 1.5, (nt, 3))], 1).astype(np.float32)
-    tabs, _ = trace2.build_tri_blocks2(tri_v, g=32)
-    soup = {k: torch.from_numpy(v).to(dev) for k, v in tabs.items()}
-    soup["tri_v"] = torch.from_numpy(tri_v).to(dev)
+    tri_v = _soup_tris(rng, nt)
     n = 65536
     o, d = _shell_rays(rng, n, dev)
-    _compare(trace2, soup, o, d, torch.full((n,), 3e38, device=dev),
-             "soup 200K tris x 64K rays", prune=False)
+    big = torch.full((n,), 3e38, device=dev)
+    soup = on_card(trace2.build_tri_blocks2(tri_v, g=32)[0])
+    soup["tri_v"] = torch.from_numpy(tri_v).to(dev)
+    _compare(trace2, soup, o, d, big, "K1 soup 200K tris x 64K rays",
+             prune=False)
+    soup = on_card(trace1.build_tri_blocks(tri_v[:65536])[0])
+    soup["tri_v"] = torch.from_numpy(tri_v[:65536]).to(dev)
+    _compare(trace1, soup, o, d, big, "K2 soup 65,536 tris x 64K rays",
+             prune=False)
     del soup
 
     # ---- 2b. alpha-card soup, amask 1 + 2 against the brute force
     nr = (65536 // RES[0]) * RES[0]          # 34 rows x 1920 = 65,280 lanes
-    cards = _card_soup(np.random.default_rng(17), 100_000, dev, trace2)
     o, d = _shell_rays(rng, nr, dev)
-    _compare_amask(trace2, cards, o, d, torch.full((nr,), 3e38, device=dev),
-                   "card soup 200K tris", prune=False)
+    big = torch.full((nr,), 3e38, device=dev)
+    cards = _card_soup(np.random.default_rng(17), 100_000, dev, trace2)
+    _compare_amask(trace2, cards, o, d, big, "K1 card soup 200K tris",
+                   prune=False)
+    cards = _card_soup(np.random.default_rng(17), 32_768, dev, trace1)
+    _compare_amask(trace1, cards, o, d, big, "K2 card soup 65,536 tris",
+                   prune=False)
     del cards
+
+    # ---- 2e. synthetic instanced and moving soups
+    rng = np.random.default_rng(29)
+    ov = np.concatenate([_soup_tris(rng, 96, 3.0, 1.0),
+                         _soup_tris(rng, 200, 4.0, 1.0)])
+    fw = [_xf(rng) for _ in range(300)]
+    iv = [np.linalg.inv(f).astype(np.float32) for f in fw]
+    wv = _soup_tris(rng, 20_000)
+    iargs = (wv, ov, [f[:3, :4] for f in fw], [f[:3, :4] for f in iv],
+             [0] * 200 + [96] * 100, [96] * 200 + [200] * 100)
+    wvel = rng.normal(0, 3.0, (len(wv), 3)).astype(np.float32)
+    ivel = rng.normal(0, 3.0, (300, 3)).astype(np.float32)
+    times = torch.from_numpy(rng.uniform(0, 1, nr).astype(np.float32)).to(dev)
+    mv = _soup_tris(rng, 60_000)
+    mvel = rng.normal(0, 3.0, (len(mv), 3)).astype(np.float32)
+    shut = (0.0, 1.0)
+    tabs = on_card(trace2.build_tri_blocks2_inst(*iargs, g=32)[0])
+    r = _measure(trace2, tabs, o, d, big, "K1 instanced soup (300 instances "
+                 "+ 20K world tris)", ("closest", "any_hit"), brute_rays=8192)
+    kern["trace2[inst_closest]"] = r["closest"]
+    kern["trace2[inst_any_hit]"] = r["any_hit"]
+    tabs = on_card(trace2.build_tri_blocks2_inst(
+        *iargs, g=32, tri_vel=wvel, inst_vel=ivel, shutter=shut)[0])
+    r = _measure(trace2, tabs, o, d, big, "K1 instanced + motion soup",
+                 ("closest", "any_hit"), brute_rays=8192, time=times)
+    kern["trace2[inst_motion_closest]"] = r["closest"]
+    kern["trace2[inst_motion_any_hit]"] = r["any_hit"]
+    tabs = on_card(trace2.build_tri_blocks2(mv, g=32, tri_vel=mvel,
+                                            shutter=shut)[0])
+    r = _measure(trace2, tabs, o, d, big, "K1 motion soup 60K tris",
+                 ("closest", "any_hit"), brute_rays=8192, time=times)
+    kern["trace2[motion_closest]"] = r["closest"]
+    kern["trace2[motion_any_hit]"] = r["any_hit"]
+    tabs = on_card(trace1.build_tri_blocks_inst(*iargs)[0])
+    r = _measure(trace1, tabs, o, d, big, "K2 instanced soup (300 instances "
+                 "+ 20K world tris)", ("closest", "any_hit"), brute_rays=8192)
+    kern["trace1[inst_closest]"] = r["closest"]
+    kern["trace1[inst_any_hit]"] = r["any_hit"]
+    tabs = on_card(trace1.build_tri_blocks(mv, tri_vel=mvel, shutter=shut)[0])
+    r = _measure(trace1, tabs, o, d, big, "K2 motion soup 60K tris",
+                 ("closest", "any_hit"), brute_rays=8192, time=times)
+    kern["trace1[motion_closest]"] = r["closest"]
+    kern["trace1[motion_any_hit]"] = r["any_hit"]
+    del tabs, o, d, big, times
 
     # ---- 2c. full-size legacy tables, closest + any-hit
     t0 = time.perf_counter()
@@ -633,20 +970,11 @@ def main() -> int:
           "children are far-point boxes", flush=True)
     o64, d64 = _bounce_rays(scene, nr)
     t64 = torch.full((nr,), 1e30, device=dev)
-    kern = {}
-    err, plain_ms = _compare(trace2, scene, o64, d64, t64,
-                             f"{meta.n_tri:,}-tri tables x {nr} bounce rays",
-                             prune=True)
-    ms = _sync_time(lambda: trace2.tri_intersect2(scene, o64, d64, t64))
-    ms_any = _sync_time(lambda: trace2.tri_intersect2(scene, o64, d64, t64,
-                                                      any_hit=True))
-    bound_ms, bound_by = _bound_ms(trace2, scene, o64, d64, t64)
-    print(f"[kernel] {nr}-ray bounce dispatch: closest {ms:.3f} ms, any-hit "
-          f"{ms_any:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} "
-          f"ms ({bound_by})", flush=True)
-    for mode, t_ms in (("closest", ms), ("any_hit", ms_any)):
-        kern[mode] = dict(max_abs_err=err, ms=t_ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+    r = _measure(trace2, scene, o64, d64, t64,
+                 f"K1 {meta.n_tri:,}-tri tables x {nr} bounce rays",
+                 ("closest", "any_hit"))
+    kern["trace2[closest]"] = r["closest"]
+    kern["trace2[any_hit]"] = r["any_hit"]
     del o64, d64
 
     # ---- 3. card numerics vs the port's CPU numerics, small scenes
@@ -682,92 +1010,213 @@ def main() -> int:
                  "sanmiguel_analog(faithful=True) 20K tris + 32 shrubs 64x36 "
                  "depth 4", min_frac=0.0)
     _occluded_card_vs_cpu(*mini)
+    # the same miniature with its shrubs kept as run-time instances
+    os.environ["PT_FLATTEN_MAX"] = "0"
+    mini = sanmiguel_analog(resolution=(64, 36), n_tris=20_000, foliage=32,
+                            faithful=True, device="cpu")
+    del os.environ["PT_FLATTEN_MAX"]
+    if mini[2].n_inst != 32 or "pka_blk_src" not in mini[0]:
+        raise RuntimeError("PT_FLATTEN_MAX=0 did not keep the shrubs as "
+                           "run-time instances")
+    _card_vs_cpu(render_image, *mini, dataclasses.replace(small, max_depth=2),
+                 "sanmiguel_analog(faithful=True, run-time instances) 20K "
+                 "tris + 32 shrubs 64x36 depth 2")
+    _occluded_card_vs_cpu(*mini, label="run-time instances")
     del mini
+    # run-time instances and motion on small scenes; the launches of these
+    # card renders are the path's count for the modes no full frame runs
+    small_counts = {}
+    cfg_c = RenderConfig(spp=4, max_depth=3, integrator="path",
+                         regenerate=True,
+                         sampler=SamplerConfig(x_samples=2, y_samples=2,
+                                               seed=5))
+    for kind, what in (("inst", "three run-time instances + world tris "
+                        "(single-level instanced tables)"),
+                       ("moving_mesh", "a moving 5,202-tri mesh "
+                        "(single-level tables with velocities)"),
+                       ("moving_inst", "a moving run-time instance + moving "
+                        "world tris (two-level instanced tables)"),
+                       ("inst_big", "three run-time instances over 72,200 "
+                        "world tris (two-level instanced tables)"),
+                       ("moving_mesh_k1", "the moving mesh with TWOLEVEL_MIN "
+                        "= 0 (two-level tables with velocities)")):
+        _card_vs_cpu(render_image, *_pyramid_scene(kind), cfg_c,
+                     f"{what} 48x48", counts=small_counts)
+    print(f"[card-vs-cpu] launches of the five small card renders: "
+          f"{ {k: v for k, v in small_counts.items() if v} }", flush=True)
+    _need(small_counts, ("trace1[inst_closest]", "trace1[inst_any_hit]",
+                         "trace1[motion_closest]", "trace1[motion_any_hit]",
+                         "trace2[inst_motion_closest]",
+                         "trace2[inst_motion_any_hit]",
+                         "trace2[inst_closest]", "trace2[inst_any_hit]",
+                         "trace2[motion_closest]", "trace2[motion_any_hit]"),
+          "the small renders")
 
     # ---- 4. the legacy path, through the public entry point
     # as bench.py renders the legacy cell: default 4x4 stratified sampler
     cfg = RenderConfig(spp=1, max_depth=DEPTH, integrator="path",
                        rays_per_batch=65536, regenerate=True)
-    legacy = _frame(trace2, render, filmmod, scene, cam, meta, cfg,
-                    f"legacy path d{DEPTH}", "sanmiguel_legacy.ppm",
-                    warm=False)
-    if legacy["closest"] <= 0 or legacy["any_hit"] <= 0:
-        raise RuntimeError("the legacy render never launched the kernel")
+    legacy, _ = _frame(render, filmmod, scene, cam, meta, cfg,
+                       f"legacy path d{DEPTH}", "sanmiguel_legacy.ppm")
+    _need(legacy, ("trace2[closest]", "trace2[any_hit]"), "the legacy render")
     del scene
 
-    # ---- 5. the faithful path
-    t0 = time.perf_counter()
-    scene, cam, meta = sanmiguel_analog(resolution=RES, n_tris=N_TRIS,
-                                        foliage=FOLIAGE, faithful=True,
-                                        device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    bs = builder.BUILD_SECONDS
-    alpha = _subset_scene(scene, "pka_")
-    n_alpha = int((scene["pka_slot2tri"] >= 0).sum())
-    print(f"[scene] sanmiguel_analog(faithful=True): {meta.n_tri:,} tris "
-          f"({n_alpha:,} alpha) + {meta.n_sph} spheres + {meta.n_quad} quads, "
-          f"{meta.n_lights} lights, accel={meta.accel}; opaque tables K2="
-          f"{meta.block_k} L1={scene['pk_l1box'].shape[0]}, alpha tables K2="
-          f"{meta.alpha_block_k} G={meta.block_g} child blocks="
-          f"{scene['pka_l2box'].shape[0]} L1={scene['pka_l1box'].shape[0]}, "
-          f"alpha_cull_mask={meta.alpha_cull_mask}; build {build_s:.1f}s "
-          f"(mask build {bs['masks']:.2f}s, tables {bs['tables']:.1f}s, "
-          f"scene arrays + upload {build_s - bs['masks'] - bs['tables']:.1f}s)",
-          flush=True)
-    if n_alpha != FOLIAGE * 96 or not meta.alpha_cull_mask:
-        raise RuntimeError("the faithful scene has no masked alpha tables")
+    # ---- 5. the faithful path (foliage flattened to world triangles)
+    def build_faithful(label, n_tris=N_TRIS, foliage=FOLIAGE):
+        t0 = time.perf_counter()
+        scene, cam, meta = sanmiguel_analog(resolution=RES, n_tris=n_tris,
+                                            foliage=foliage, faithful=True,
+                                            device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        bs = builder.BUILD_SECONDS
+        n_alpha = int((scene["pka_slot2tri"] >= 0).sum())
+        lvl = {p: ("two-level" if p + "l1_base" in scene else "single-level")
+               + (" instanced" if p + "blk_src" in scene else "")
+               for p in ("pk_", "pka_")}
+        print(f"[scene] {label}: {meta.n_tri:,} world tris + {meta.n_inst} "
+              f"run-time instances of {meta.n_obj_tri} object tris + "
+              f"{meta.n_sph} spheres + {meta.n_quad} quads, {meta.n_lights} "
+              f"lights, accel={meta.accel}; opaque tables {lvl['pk_']} K="
+              f"{meta.block_k} top-level boxes={scene['pk_blk_lo'].shape[0]}"
+              f", alpha tables {lvl['pka_']} K={meta.alpha_block_k} "
+              f"top-level boxes={scene['pka_blk_lo'].shape[0]} data slots="
+              f"{n_alpha:,} G={meta.block_g}, alpha_cull_mask="
+              f"{meta.alpha_cull_mask}; build {build_s:.1f}s (mask build "
+              f"{bs['masks']:.2f}s, tables {bs['tables']:.1f}s, scene arrays "
+              f"+ upload {build_s - bs['masks'] - bs['tables']:.1f}s)",
+              flush=True)
+        if not meta.alpha_cull_mask:
+            raise RuntimeError(f"{label} has no masked alpha tables")
+        return scene, cam, meta, n_alpha
 
-    # ---- 2d. amask 1 + 2 on the full alpha tables
+    scene, cam, meta, n_alpha = build_faithful(
+        "sanmiguel_analog(faithful=True)")
+    if n_alpha != FOLIAGE * 96 or meta.n_inst:
+        raise RuntimeError("the faithful scene's foliage was not flattened")
+    alpha = _subset_scene(scene, "pka_")
+
+    # ---- 2d. K1 amask 1 + 2 on the full alpha tables
     if not trace2.child_boxes_hold_triangles(alpha, scene["tri_v"]):
         raise RuntimeError("an alpha child box does not hold its triangles")
     of, df = _foliage_rays(scene, nr)
     tf_ = torch.full((nr,), 1e30, device=dev)
-    cmp_a = _compare_amask(trace2, alpha, of, df, tf_,
-                           f"{n_alpha:,}-tri alpha tables x {nr} foliage rays",
-                           prune=True)
-    for amask in (1, 2):
-        err_a, plain_a, share = cmp_a[amask]
-        if not share > 0.0:
-            raise RuntimeError(f"amask={amask} resolved no lane on the full "
-                               f"alpha tables")
-        ms_a = _sync_time(lambda: trace2.tri_intersect2(alpha, of, df, tf_,
-                                                        amask=amask))
-        b_ms, b_by = _bound_ms(trace2, alpha, of, df, tf_, amask=amask)
-        print(f"[kernel] {nr}-ray foliage dispatch amask={amask}: {ms_a:.3f} "
-              f"ms, plain {plain_a:.1f} ms, bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
-        kern[f"amask{amask}"] = dict(max_abs_err=err_a, ms=ms_a,
-                                     plain_ms=plain_a, bound_ms=b_ms,
-                                     bound_by=b_by)
-    del of, df, alpha
+    r = _measure(trace2, alpha, of, df, tf_,
+                 f"K1 {n_alpha:,}-tri alpha tables x {nr} foliage rays",
+                 ("amask1", "amask2"))
+    kern["trace2[amask1]"] = r["amask1"]
+    kern["trace2[amask2]"] = r["amask2"]
+    del alpha
 
     cfg = RenderConfig(spp=1, max_depth=DEPTH_FAITHFUL, integrator="path",
                        rays_per_batch=65536, regenerate=True)
-    faithful = _frame(trace2, render, filmmod, scene, cam, meta, cfg,
-                      f"faithful path d{DEPTH_FAITHFUL}",
-                      "sanmiguel_faithful.ppm", warm=True)
-    for mode in ("closest", "any_hit", "amask1", "amask2"):
-        if faithful[mode] <= 0:
-            raise RuntimeError(f"the faithful render never launched the "
-                               f"kernel in mode {mode}")
-
+    faithful, flat = _frame(render, filmmod, scene, cam, meta, cfg,
+                            f"faithful path d{DEPTH_FAITHFUL} (flattened "
+                            f"foliage)", "sanmiguel_faithful.ppm")
+    _need(faithful, [f"trace2[{m}]" for m in ("closest", "any_hit", "amask1",
+                                              "amask2")],
+          "the faithful render")
     if args.sections:
         _sections_frame(render, scene, cam, meta, cfg)
     if args.profile:
         _profile_frame(render, scene, cam, meta, cfg)
+    del scene
 
-    # ---- 6. summary
-    print(json.dumps({"kernels": [{
-        "name": f"trace2[{mode}]",
-        "route": "cuda",
-        "source": "pathtracing_tpu_torch/csrc/trace2.cu",
-        "replaces": "pathtracing_tpu/accel/pallas_trace2.py:438",
-        "launches": faithful[mode],
-        "launches_legacy_path": legacy[mode],
-        **kern[mode],
-        "library_ms": None} for mode in ("closest", "any_hit", "amask1",
-                                         "amask2")]}))
+    # ---- 6. path A: the foliage kept as run-time instances
+    os.environ["PT_FLATTEN_MAX"] = "0"
+    scene, cam, meta, n_alpha = build_faithful(
+        "path A: sanmiguel_analog(faithful=True), PT_FLATTEN_MAX=0")
+    del os.environ["PT_FLATTEN_MAX"]
+    if (meta.n_inst != FOLIAGE or meta.n_obj_tri != 96 or n_alpha != 96
+            or "pka_blk_src" not in scene or "pk_blk_src" in scene
+            or scene["pka_l1box"].shape[0] != FOLIAGE):
+        raise RuntimeError("path A's tables are not the run-time-instanced "
+                           "foliage over plain opaque tables")
+    # ---- 2f. K1 instanced amask 1 + 2 on the real alpha tables
+    alpha = _subset_scene(scene, "pka_")
+    r = _measure(trace2, alpha, of, df, tf_,
+                 f"K1 instanced alpha tables ({FOLIAGE} expanded L1s, one "
+                 f"stored shrub) x {nr} foliage rays", ("amask1", "amask2"))
+    kern["trace2[inst_amask1]"] = r["amask1"]
+    kern["trace2[inst_amask2]"] = r["amask2"]
+    del alpha
+    path_a, tlas = _frame(render, filmmod, scene, cam, meta, cfg,
+                          f"path A d{DEPTH_FAITHFUL} (run-time-instanced "
+                          f"foliage)", "sanmiguel_tlas.ppm")
+    _need(path_a, ("trace2[closest]", "trace2[any_hit]",
+                   "trace2[inst_amask1]", "trace2[inst_amask2]"), "path A")
+    print(f"[path A vs flattened] rays/sample {tlas['rays_per_sample']:.3f} "
+          f"vs {flat['rays_per_sample']:.3f}; image mean {tlas['mean']:.5f} "
+          f"vs {flat['mean']:.5f}; frame {tlas['seconds']:.2f}s vs "
+          f"{flat['seconds']:.2f}s; camera samples/s "
+          f"{tlas['samples_per_s']:.1f} vs {flat['samples_per_s']:.1f}",
+          flush=True)
+    if not (abs(tlas["rays_per_sample"] / flat["rays_per_sample"] - 1) < 0.02
+            and abs(tlas["mean"] / flat["mean"] - 1) < 0.02):
+        raise RuntimeError("path A does not land beside the flattened frame")
+    del scene, of, df, tf_
+
+    # ---- 7. path B: the small courtyard on the single-level kernel
+    scene, cam, meta, n_alpha = build_faithful(
+        f"path B: sanmiguel_analog(n_tris={N_TRIS_SMALL:,}, foliage="
+        f"{FOLIAGE_SMALL})", N_TRIS_SMALL, FOLIAGE_SMALL)
+    if ("pk_l1_base" in scene or "pka_l1_base" in scene or meta.n_inst
+            or n_alpha != FOLIAGE_SMALL * 96):
+        raise RuntimeError("path B's tables are not single-level")
+    # ---- 2g. K2 on path B's real tables
+    ob, db = _bounce_rays(scene, nr)
+    of, df = _foliage_rays(scene, nr)
+    tb_ = torch.full((nr,), 1e30, device=dev)
+    r = _measure(trace1, scene, ob, db, tb_,
+                 f"K2 opaque tables ({scene['pk_blkbox'].shape[0]} blocks of "
+                 f"{meta.block_k}) x {nr} bounce rays", ("closest", "any_hit"))
+    kern["trace1[closest]"] = r["closest"]
+    kern["trace1[any_hit]"] = r["any_hit"]
+    alpha = _subset_scene(scene, "pka_")
+    r = _measure(trace1, alpha, of, df, tb_,
+                 f"K2 alpha tables ({alpha['pk_blkbox'].shape[0]} blocks of "
+                 f"{meta.alpha_block_k}) x {nr} foliage rays",
+                 ("amask1", "amask2"))
+    kern["trace1[amask1]"] = r["amask1"]
+    kern["trace1[amask2]"] = r["amask2"]
+    del alpha, ob, db, of, df
+    path_b, _ = _frame(render, filmmod, scene, cam, meta, cfg,
+                       f"path B d{DEPTH_FAITHFUL} (single-level kernel)",
+                       "sanmiguel_small.ppm")
+    _need(path_b, [f"trace1[{m}]" for m in ("closest", "any_hit", "amask1",
+                                            "amask2")], "path B")
+
+    # ---- 8. summary
+    # launches: of ONE full-width frame whose path runs the mode (the
+    # faithful frame, else path A, else path B), or, for the modes that no
+    # full-width scene of the package reaches, the sum over the five small
+    # card renders (48x48, 4 spp, depth 3); launches_from says which
+    frames = (("the faithful frame, 1080p depth 64", faithful),
+              ("the path A frame, 1080p depth 64", path_a),
+              ("the path B frame, 1080p depth 64", path_b))
+    small_from = "the five small card renders together (48x48, 4 spp, " \
+        "depth 3): no full-width scene reaches this mode"
+    replaces = {"trace2": "pathtracing_tpu/accel/pallas_trace2.py:438",
+                "trace1": "pathtracing_tpu/accel/pallas_trace.py:289"}
+    rows = []
+    for name in sorted(kern):
+        stem = name.split("[")[0]
+        n_launch, where = next(((c[name], w) for w, c in frames
+                                if c.get(name, 0) > 0),
+                               (small_counts.get(name, 0), small_from))
+        if n_launch <= 0:
+            raise RuntimeError(f"{name} was never launched by a render")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"pathtracing_tpu_torch/csrc/{stem}.cu",
+                     "replaces": replaces[stem],
+                     "launches": n_launch, "launches_from": where,
+                     "launches_faithful_path": faithful.get(name, 0),
+                     "launches_small_renders": small_counts.get(name, 0),
+                     "launches_legacy_path": legacy.get(name, 0),
+                     "launches_path_a": path_a.get(name, 0),
+                     "launches_path_b": path_b.get(name, 0),
+                     **kern[name], "library_ms": None})
+    print(json.dumps({"kernels": rows}))
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

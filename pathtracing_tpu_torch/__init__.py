@@ -3,8 +3,8 @@ NVIDIA Hopper (H100), beside the JAX package pathtracing_tpu.
 
 It imports torch and numpy only (never jax or pathtracing_tpu).  Entry
 points run on the GPU unless the caller passes device="cpu"; the CUDA
-traversal kernel (csrc/trace2.cu) is compiled with nvcc on first use, not
-at import.
+traversal kernels (csrc/trace2.cu, csrc/trace1.cu) are compiled with nvcc
+on first use, not at import.
 """
 from .scene.builder import SceneBuilder  # noqa: F401
 from .scene.types import SceneMeta  # noqa: F401

@@ -7,13 +7,16 @@ camera, and `dataclasses.asdict(meta)`) and returns this package's
 (scene, cam, SceneMeta) on `device`.  Nothing of the JAX package is
 imported: the caller does the NumPy conversion.
 
-Geometry, material, texture and light tables carry over as they are.
-The reference's traversal tables are laid out for its TPU kernels, so for
-a meta.accel == "pallas" scene the two-level tables (the opaque / alpha
-split and the alpha micro-mask words included) are rebuilt here from the
-carried triangles, materials and textures with this package's own builder
-code (same SAH builder, same order); any other accel becomes the brute
-scan, which returns the same hits.
+Geometry, material, texture and light tables carry over as they are,
+the run-time instance tables (otri_*, inst_*, ilight_map) and the
+velocities (*_vel) included.  The reference's traversal tables are laid
+out for its TPU kernels, so for a meta.accel == "pallas" scene the
+tables (single- or two-level as the reference scene has them, plain or
+instanced, the opaque / alpha split, the alpha micro-mask words and the
+motion rows included) are rebuilt here from the carried triangles,
+instances, materials and textures with this package's own builder code
+(same SAH builder, same order); any other accel becomes the brute scan,
+which returns the same hits.
 """
 from __future__ import annotations
 
@@ -35,13 +38,16 @@ _SCENE_KEYS = (
     "light_type", "light_color", "light_vec", "light_shape", "light_flags",
     "light_area", "light_power", "light_cdf", "light_total_power",
     "inf_idx", "scene_lo", "scene_hi")
+_INST_KEYS = ("otri_v", "otri_n", "otri_uv", "otri_tan", "otri_prop",
+              "inst_fwd", "inst_inv", "inst_nrm", "inst_base", "inst_count",
+              "inst_slot_base", "inst_vel", "ilight_map")
+_MOTION_KEYS = ("tri_vel", "sph_vel", "quad_vel")
 _CAM_KEYS = ("origin", "u", "v", "w", "half_wh", "defocus_radius",
              "focus_distance", "shutter")
 
 
 def _check_supported(f: dict):
-    unsupported = [k for k in ("has_motion", "has_light_motion", "n_inst",
-                               "n_media", "n_env", "has_emissive_tex")
+    unsupported = [k for k in ("n_media", "n_env", "has_emissive_tex")
                    if f.get(k)]
     if f.get("scene_medium", -1) >= 0 or f.get("camera_medium", -1) >= 0:
         unsupported.append("medium")
@@ -58,6 +64,15 @@ def from_numpy_scene(scene: dict, cam: dict, meta_fields: dict, device=None):
     arrays = {k: np.asarray(scene[k]) for k in _SCENE_KEYS
               if k in scene and k != "tri_pack"}
     n_tri = int(meta_fields.get("n_tri", 0))
+    n_inst = int(meta_fields.get("n_inst", 0))
+    motion = bool(meta_fields.get("has_motion"))
+    if n_inst:
+        arrays.update({k: np.asarray(scene[k]) for k in _INST_KEYS})
+    if motion:
+        arrays.update({k: np.asarray(scene[k], np.float32)
+                       for k in _MOTION_KEYS})
+    if meta_fields.get("has_light_motion"):
+        arrays["light_vel"] = np.asarray(scene["light_vel"], np.float32)
     if "tri_pack" in scene:
         arrays["tri_pack"] = np.asarray(scene["tri_pack"], np.float32)
     else:
@@ -75,18 +90,30 @@ def from_numpy_scene(scene: dict, cam: dict, meta_fields: dict, device=None):
             fields[k] = tuple(bool(x) for x in fields[k])
     accel = fields.get("accel", "brute")
     block_g = int(fields.get("block_g", 16))
-    if accel == "pallas" and n_tri:
+    if accel == "pallas" and (n_tri or n_inst):
         from .scene.builder import build_traversal_tables
         from .scene.textures import TexturePool
         n_mat = int(fields.get("n_mat", 0))
         pool = TexturePool.from_packed(
             arrays["tex_texels"], arrays["tex_info_i"], arrays["tex_info_f"])
+        inst = None
+        if n_inst:
+            inst = dict(otri_v=arrays["otri_v"], otri_uv=arrays["otri_uv"],
+                        otri_mat=arrays["otri_prop"][:, 0],
+                        fwd=arrays["inst_fwd"], inv=arrays["inst_inv"],
+                        base=arrays["inst_base"], count=arrays["inst_count"],
+                        vel=arrays["inst_vel"])
         pk, block_k, alpha_block_k, alpha_cull_mask = build_traversal_tables(
             np.asarray(arrays["tri_v"][:n_tri], np.float32),
             arrays["tri_uv"][:n_tri], arrays["tri_prop"][:n_tri, 0], pool,
             arrays["mat_alpha_mode"][:n_mat],
             arrays["mat_alpha_cutoff"][:n_mat], arrays["mat_tex"][:n_mat],
-            block_g)
+            block_g,
+            tri_vel=arrays["tri_vel"][:n_tri] if motion else None,
+            shutter=tuple(float(x) for x in np.asarray(cam["shutter"])),
+            inst=inst,
+            two_level=(("pk_l1_base" in scene, "pka_l1_base" in scene)
+                       if "pk_tri" in scene else None))
         arrays.update(pk)
         fields.update(accel="pallas", block_k=block_k, block_g=block_g,
                       alpha_block_k=alpha_block_k,

@@ -38,6 +38,11 @@ _D_LIGHT_SELECT = 5
 _D_RR = 6
 _D_ENV_CELL = 9
 _D_ALPHA = 12
+# drain-tail statistics of the regenerating tracer: a lane at or past
+# _DEEP_BOUNCE is deep, and a deep lane's closest hit nearer than _REHIT_T
+# is a re-hit (a see-through restart that found its own triangle again)
+_DEEP_BOUNCE = 20
+_REHIT_T = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,11 +65,10 @@ class RenderConfig:
 
 
 def _check_cfg(cfg: RenderConfig, meta):
-    if (meta.has_motion or meta.n_inst or meta.n_media or meta.n_env
-            or meta.has_emissive_tex):
+    if meta.n_media or meta.n_env or meta.has_emissive_tex:
         raise NotImplementedError(
-            "scene uses features not ported yet (motion, run-time "
-            "instances, media, environment or emissive textures)")
+            "scene uses features not ported yet (media, environment or "
+            "emissive textures)")
     if cfg.integrator not in ("path", "simple"):
         raise NotImplementedError(
             f"integrator={cfg.integrator!r} comes with participating media")
@@ -110,16 +114,17 @@ def resolve_material(scene, meta, it):
 # ---------------------------------------------------------------------------
 
 def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
-              alpha_salt, active, occ_stats=None):
+              alpha_salt, active, occ_stats=None, time=None):
     """One-light next-event estimate from surface vertices.  alpha_salt
     keys the shadow predicate's BLEND random numbers; occ_stats is handed
-    to it (scene/intersect.py::_occluded)."""
+    to it (scene/intersect.py::_occluded); time [N] is the rays' shutter
+    time (lights are sampled and shadow rays traced at it)."""
     if meta.n_lights == 0:
         return torch.zeros_like(ray_dir)
 
     lidx, pmf, lvalid = L.sample_light_index(scene, meta, u_select)
     ref_p = it["p"]
-    ls = L.light_sample(scene, meta, lidx, ref_p, u_cell, uv_light)
+    ls = L.light_sample(scene, meta, lidx, ref_p, u_cell, uv_light, time)
 
     sdir = ls["dir"]
     # relative shortening so no light self-occludes at any scene scale
@@ -144,7 +149,7 @@ def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
     # inactive lanes trace zero-length shadow rays (no kernel work)
     t_shadow = torch.where(active, t_shadow, 0.0)
     vis = ~_occluded(scene, meta, ref_p, sdir, t_shadow,
-                     rand_key=alpha_salt, stats=occ_stats)
+                     rand_key=alpha_salt, stats=occ_stats, time=time)
 
     l_val = L.light_sample_L(scene, meta, lidx, ls, sdir)
     shape_pdf = L.light_sample_pdf(scene, meta, lidx, ls, ref_p, sdir)
@@ -165,8 +170,10 @@ def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
 # The bounce loop
 # ---------------------------------------------------------------------------
 
-def _make_bounce(scene, meta, cfg, px, py, sample_idx, n, occ_stats=None):
-    """One-bounce step for a bound lane set.  `bounce(state, b)` advances
+def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
+                 occ_stats=None):
+    """One-bounce step for a bound lane set (time [n]: each lane's shutter
+    time, used only on a moving scene).  `bounce(state, b)` advances
     every lane one bounce; b is an int or a per-lane [n] tensor (trace_regen,
     where each lane sits at its own depth).  occ_stats (a dict) accumulates
     the shadow predicate's "calls" and "restarts"."""
@@ -185,8 +192,9 @@ def _make_bounce(scene, meta, cfg, px, py, sample_idx, n, occ_stats=None):
         n_rays = state["n_rays"] + alive.sum()
 
         # dead lanes get t_max = 0: they miss and cost the kernel nothing
-        hit = _intersect(scene, meta, o, d, torch.where(alive, BIG_F32, 0.0))
-        it = make_interaction(scene, meta, o, d, hit)
+        hit = _intersect(scene, meta, o, d, torch.where(alive, BIG_F32, 0.0),
+                         time)
+        it = make_interaction(scene, meta, o, d, hit, time=time)
         missed = alive & ~hit["valid"]
 
         # ---- escaped rays: infinite lights (MIS against BSDF sampling)
@@ -275,7 +283,7 @@ def _make_bounce(scene, meta, cfg, px, py, sample_idx, n, occ_stats=None):
         if not simple:
             nee_active = scattered & ~new_spec
             nee = sample_ld(scene, meta, cfg, d, it, mat, u_select, uv_light,
-                            u_cell, alpha_salt, nee_active, occ_stats)
+                            u_cell, alpha_salt, nee_active, occ_stats, time)
             radiance = radiance + torch.where(nee_active[:, None],
                                               tput * nee, 0.0)
             n_rays = n_rays + nee_active.sum()
@@ -313,7 +321,7 @@ def _make_bounce(scene, meta, cfg, px, py, sample_idx, n, occ_stats=None):
         alive = alive & (torch.sum(tput, dim=-1) > 0.0)
         return dict(o=o_next, d=d_next, tput=tput, radiance=radiance,
                     prev_pdf=new_prev_pdf, spec=spec, alive=alive,
-                    rr_depth=rr_depth, n_rays=n_rays)
+                    rr_depth=rr_depth, n_rays=n_rays, t_hit=hit["t"])
 
     return bounce
 
@@ -330,12 +338,13 @@ def _fresh_state(o, d, n):
                 n_rays=torch.zeros((), dtype=torch.int64, device=dev))
 
 
-def _trace(scene, meta, cfg, origin, direction, px, py, sample_idx,
+def _trace(scene, meta, cfg, origin, direction, time, px, py, sample_idx,
            with_stats=False):
     _check_cfg(cfg, meta)
     n = origin.shape[0]
     state = _fresh_state(origin, direction, n)
-    bounce = _make_bounce(scene, meta, cfg, px, py, sample_idx, n)
+    bounce = _make_bounce(scene, meta, cfg, px, py,
+                          time if meta.has_motion else None, sample_idx, n)
     b = 0
     # data-dependent loop: one host sync per bounce (the .item() below)
     while b < cfg.max_depth and bool(state["alive"].any().item()):
@@ -354,7 +363,9 @@ def trace(scene, cam, meta, cfg: RenderConfig, origin, direction, time,
     the GPU unless device="cpu"."""
     dev = resolve_device(device)
     return _trace(to_device(scene, dev), meta, cfg, origin.to(dev),
-                  direction.to(dev), px.to(dev), py.to(dev),
+                  direction.to(dev),
+                  None if time is None else torch.as_tensor(time).to(dev),
+                  px.to(dev), py.to(dev),
                   torch.as_tensor(sample_idx).to(dev), with_stats)
 
 
@@ -380,22 +391,31 @@ def _trace_regen(scene, cam, meta, cfg, pixel_idx, waves, sample_offset,
         px = pix % w
         py = pix // w
         sidx = offset + qi // n_pix
-        o, d, _, _ = camera_lanes(cam, cfg.sampler, px, py, sidx)
-        return px, py, sidx, o, d
+        o, d, tme, _ = camera_lanes(cam, cfg.sampler, px, py, sidx)
+        return px, py, sidx, o, d, tme
 
+    motion = meta.has_motion
     qi = torch.arange(k, dtype=torch.int64, device=dev)
-    px, py, sidx, o0, d0 = fresh(qi)
+    px, py, sidx, o0, d0, tme = fresh(qi)
     st = _fresh_state(o0, d0, k)
     head = torch.tensor(k, dtype=torch.int64, device=dev)
     b = torch.zeros((k,), dtype=torch.int64, device=dev)
     out = torch.zeros((q_total, 3), dtype=torch.float32, device=dev)
     occ_stats = {} if with_stats else None
+    iterations = 0
+    deep = torch.zeros((2,), dtype=torch.int64, device=dev)
 
     # data-dependent loop: one host sync per iteration (the .item() below)
     while bool(st["alive"].any().item()):
-        bounce = _make_bounce(scene, meta, cfg, px, py, sidx, k, occ_stats)
+        bounce = _make_bounce(scene, meta, cfg, px, py,
+                              tme if motion else None, sidx, k, occ_stats)
         prev_alive = st["alive"]
         st = bounce(st, b)
+        if with_stats:
+            iterations += 1
+            is_deep = prev_alive & (b >= _DEEP_BOUNCE)
+            deep += torch.stack([is_deep.sum(), (
+                is_deep & (st["t_hit"] < _REHIT_T)).sum()])
         b = b + 1
         alive = st["alive"] & (b < cfg.max_depth)
         # flush every sample once, the iteration its path ends
@@ -411,7 +431,7 @@ def _trace_regen(scene, cam, meta, cfg, pixel_idx, waves, sample_offset,
         take = finished & (cand < q_total)
         qi = torch.where(take, cand, qi)
         head = torch.clamp(head + finished.sum(), max=q_total)
-        pxn, pyn, sidxn, on, dn = fresh(qi)
+        pxn, pyn, sidxn, on, dn, tmen = fresh(qi)
         tk = take[:, None]
         st = dict(
             o=torch.where(tk, on, st["o"]),
@@ -427,10 +447,13 @@ def _trace_regen(scene, cam, meta, cfg, pixel_idx, waves, sample_offset,
         px = torch.where(take, pxn, px)
         py = torch.where(take, pyn, py)
         sidx = torch.where(take, sidxn, sidx)
+        tme = torch.where(take, tmen, tme)
     if with_stats:
         return out, dict(n_rays=st["n_rays"],
                          occluded_calls=occ_stats.get("calls", 0),
-                         chain_restarts=occ_stats.get("restarts", 0))
+                         chain_restarts=occ_stats.get("restarts", 0),
+                         iterations=iterations, deep_bounces=deep[0],
+                         deep_rehits=deep[1])
     return out
 
 

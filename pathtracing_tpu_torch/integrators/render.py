@@ -26,9 +26,9 @@ def render_tile(scene, cam, meta, cfg: RenderConfig, film, pixel_idx,
     py = pixel_idx // w
     for s in range(n_samples):
         sample_idx = torch.full_like(pixel_idx, int(sample_offset) + s)
-        origin, direction, _, p = camera_lanes(cam, cfg.sampler, px, py,
-                                               sample_idx)
-        color = _trace(scene, meta, cfg, origin, direction, px, py,
+        origin, direction, time, p = camera_lanes(cam, cfg.sampler, px, py,
+                                                  sample_idx)
+        color = _trace(scene, meta, cfg, origin, direction, time, px, py,
                        sample_idx)
         color = torch.where(torch.isfinite(color), color, 0.0)   # NaN guard
         film = _splat(film, cfg, cam, pixel_idx, p, color, rows, row0)
@@ -54,7 +54,10 @@ def render_tile_regen(scene, cam, meta, cfg: RenderConfig, film, pixel_idx,
     splat per wave — the film contract of render_tile.  `stats`, when
     given, accumulates "n_rays" (closest-hit + shadow rays traced),
     "occluded_calls" (shadow-predicate calls on a scene with alpha
-    materials) and "chain_restarts" (alpha restart-chain iterations)."""
+    materials), "chain_restarts" (alpha restart-chain iterations),
+    "iterations" (bounce iterations of the drain), "deep_bounces" (lane
+    bounces at depth 20 or more: the drain's tail) and "deep_rehits" (those
+    whose closest hit lies nearer than 1e-4)."""
     w, h = cam["resolution"]
     px = pixel_idx % w
     py = pixel_idx // w
@@ -93,8 +96,9 @@ def render(scene, cam, meta, cfg: RenderConfig, film=None, spp=None,
            stats: dict | None = None):
     """Full-frame render.  Returns the film dict (rgb + weight sums).
     Runs on the GPU unless device="cpu".  With cfg.regenerate, `stats`
-    (a dict) accumulates "n_rays", the rays traced, and the shadow
-    predicate's "occluded_calls" and "chain_restarts"."""
+    (a dict) accumulates "n_rays", the rays traced, the shadow predicate's
+    "occluded_calls" and "chain_restarts", and the drain's "iterations",
+    "deep_bounces" and "deep_rehits" (render_tile_regen)."""
     dev = resolve_device(device)
     scene = to_device(scene, dev)
     cam = to_device(cam, dev)

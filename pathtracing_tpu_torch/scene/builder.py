@@ -4,18 +4,19 @@ Same API for the features this package runs: the texture pool,
 materials (diffuse, dielectric, thin dielectric, conductor) with base /
 roughness / metallic / normal / alpha textures and alpha modes, spheres,
 quads and triangle meshes with uvs and authored tangents (emissive ones
-become area lights), models instanced as world triangles,
-uniform-infinite / distant / point lights and the camera.  `build()`
-packs NumPy tables into torch tensors on the device, builds the
-two-level traversal tables for triangle scenes (split into an opaque and
-an alpha set, the latter with per-triangle micro-masks, when some but
-not all triangles have an alpha material) and returns (scene, cam,
-SceneMeta).
+become area lights), models instanced as world triangles or kept as
+run-time instances (with per-instance area lights for emissive models),
+linear motion (`velocity=` on shapes, meshes, instances and point
+lights, `set_camera(shutter=)`), uniform-infinite / distant / point
+lights and the camera.  `build()` packs NumPy tables into torch tensors
+on the device, builds the traversal tables for triangle scenes
+(`build_traversal_tables`: single- or two-level, plain or instanced,
+split into an opaque and an alpha set, the latter with per-triangle
+micro-masks, when some but not all triangles have an alpha material)
+and returns (scene, cam, SceneMeta).
 
-Not in this package yet, and refused with NotImplementedError: media,
-motion blur, instances kept as run-time instances (they come with the
-traversal kernel's instanced mode), and environment / function /
-emissive-texture lights.
+Not in this package yet, and refused with NotImplementedError: media and
+environment / function / emissive-texture lights.
 """
 from __future__ import annotations
 
@@ -32,13 +33,19 @@ from ..core.bsdf import (MAT_DIFFUSE, MAT_DIELECTRIC, MAT_THIN_DIELECTRIC,
 from .alphamask import build_tri_alpha_masks
 from .textures import TexturePool
 from .types import (SceneMeta, LIGHT_UNIFORM_INF, LIGHT_DISTANT, LIGHT_POINT,
-                    LIGHT_AREA, SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD,
+                    LIGHT_AREA, SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD, SHAPE_ITRI,
                     ALPHA_OPAQUE)
 
 BUILD_SECONDS = dict(masks=0.0, tables=0.0)   # of the last table build
 
 FLATTEN_MAX = 4_000_000   # runtime="auto" instances above this many
-                          # expanded triangles would stay run-time instances
+                          # expanded triangles stay run-time instances; the
+                          # environment variable PT_FLATTEN_MAX, read at
+                          # build(), overrides it (0 keeps them all)
+TWOLEVEL_MIN = 65536      # triangle sets above this many go to the
+                          # two-level tables, the others to the single-level
+                          # ones (tests set 0 to force small sets onto the
+                          # two-level kernel)
 
 
 def _lum(c):
@@ -49,9 +56,8 @@ def _refuse(what: str):
     raise NotImplementedError(f"{what} is not in pathtracing_tpu_torch yet")
 
 
-def _static(velocity):
-    if np.abs(np.asarray(velocity, np.float32)).max() > 0:
-        _refuse("motion blur (velocity)")
+def _moves(velocity) -> bool:
+    return bool(np.abs(np.asarray(velocity, np.float32)).max() > 0)
 
 
 class _ChunkedRows:
@@ -106,24 +112,68 @@ def alpha_material_mask(mats, mat_modes):
 
 
 def build_traversal_tables(tri_v, tri_uv, tri_mat, pool, mat_alpha_mode,
-                           mat_alpha_cutoff, mat_tex, block_g):
-    """Two-level traversal tables for the world triangles tri_v [T,3,3].
+                           mat_alpha_cutoff, mat_tex, block_g, tri_vel=None,
+                           shutter=(0.0, 0.0), inst=None, two_level=None):
+    """Traversal tables for the world triangles tri_v [T,3,3] and, with
+    `inst`, the run-time instances: a dict of otri_v [O,3,3], otri_uv
+    [O,3,2], otri_mat [O], fwd / inv [I,3,4], base / count [I], vel [I,3].
+    tri_vel [T,3] (None: a static scene) / shutter: linear motion.
 
+    Which tables, as the reference package's builder chooses them:
+      * no instances: a triangle set of TWOLEVEL_MIN or fewer gets the
+        single-level tables (accel/trace1.py), a larger one the two-level
+        ones (accel/trace2.py); two_level = (main set, alpha set) bools
+        overrides that rule (a scene carried over from the reference
+        package keeps the level its builder chose);
+      * instances: the single-level instanced tables when the scene has
+        no alpha split, no motion and at most 65,536 triangles (world +
+        expanded), else the two-level instanced ones; a subset without
+        instance rows gets plain two-level tables.
     When some but not all triangles have an alpha material there are two
     table sets: pk_* over the opaque triangles and pka_* over the alpha
-    ones, whose per-triangle micro-mask words (alphamask.py, from tri_uv
-    [T,3,2], the material ids tri_mat [T] and the host TexturePool) ride
-    in slot order as pka_mask.  pk_slot2tri / pka_slot2tri name GLOBAL
-    triangle ids.  Returns (arrays, block_k, alpha_block_k,
-    alpha_cull_mask)."""
-    from ..accel.trace2 import build_tri_blocks2
+    ones, whose per-triangle micro-mask words (alphamask.py, from the uvs,
+    the material ids and the host TexturePool) ride in slot order as
+    pka_mask; a moving scene builds no masks.  pk_slot2tri / pka_slot2tri
+    name GLOBAL triangle ids (object triangle ids on model rows).
+    Returns (arrays, block_k, alpha_block_k, alpha_cull_mask)."""
+    from ..accel.trace1 import build_tri_blocks, build_tri_blocks_inst
+    from ..accel.trace2 import build_tri_blocks2, build_tri_blocks2_inst
 
     t0 = time.perf_counter()
     BUILD_SECONDS.update(masks=0.0, tables=0.0)
+    motion = tri_vel is not None
+    nt = len(tri_v)
+    tri_uv = np.asarray(tri_uv, np.float32).reshape(-1, 3, 2)
+    tri_mat = np.asarray(tri_mat, np.int64)
+    tri_alpha = alpha_material_mask(tri_mat, mat_alpha_mode)
 
-    def tables(ids, mask_rows=None):
-        arrays, bk = build_tri_blocks2(tri_v[ids], g=block_g,
-                                       tri_mask=mask_rows)
+    def masks_of(uv, mat, is_alpha):
+        """int32 [n,7] mask words, zero rows on opaque triangles; None on
+        a moving scene or without alpha triangles."""
+        if motion or not is_alpha.any():
+            return None
+        t1 = time.perf_counter()
+        ids = np.nonzero(is_alpha)[0]
+        words = np.zeros((len(is_alpha), 7), np.int32)
+        words[ids] = build_tri_alpha_masks(uv[ids], mat[ids], pool,
+                                           mat_alpha_mode, mat_alpha_cutoff,
+                                           mat_tex)
+        BUILD_SECONDS["masks"] += time.perf_counter() - t1
+        return words
+
+    def world_tables(ids, mask_words=None, two_level=None):
+        """Plain tables over the world subset `ids`."""
+        kw = {}
+        if motion:
+            kw = dict(tri_vel=tri_vel[ids], shutter=shutter)
+        if mask_words is not None:
+            kw["tri_mask"] = mask_words[ids]
+        if two_level is None:
+            two_level = len(ids) > TWOLEVEL_MIN
+        if two_level:
+            arrays, bk = build_tri_blocks2(tri_v[ids], g=block_g, **kw)
+        else:
+            arrays, bk = build_tri_blocks(tri_v[ids], **kw)
         # slot2tri indexes the subset: compose to GLOBAL triangle ids
         s2t = arrays["pk_slot2tri"]
         arrays["pk_slot2tri"] = np.where(
@@ -131,26 +181,66 @@ def build_traversal_tables(tri_v, tri_uv, tri_mat, pool, mat_alpha_mode,
         ).astype(np.int32)
         return arrays, bk
 
-    nt = len(tri_v)
+    def finish(arrays, block_k, pka=None, alpha_block_k=0, masked=False):
+        if pka is not None:
+            arrays.update({"pka_" + k[3:]: v for k, v in pka.items()})
+        BUILD_SECONDS["tables"] = (time.perf_counter() - t0
+                                   - BUILD_SECONDS["masks"])
+        return arrays, block_k, alpha_block_k, masked
+
     all_ids = np.arange(nt)
-    tri_alpha = alpha_material_mask(tri_mat, mat_alpha_mode)
-    n_alpha = int(tri_alpha.sum())
-    if not 0 < n_alpha < nt:
-        arrays, block_k = tables(all_ids)
-        BUILD_SECONDS["tables"] = time.perf_counter() - t0
-        return arrays, block_k, 0, False
-    ids_a = all_ids[tri_alpha]
-    masks = build_tri_alpha_masks(
-        np.asarray(tri_uv, np.float32).reshape(-1, 3, 2)[ids_a],
-        np.asarray(tri_mat, np.int64)[ids_a], pool, mat_alpha_mode,
-        mat_alpha_cutoff, mat_tex)
-    BUILD_SECONDS["masks"] = time.perf_counter() - t0
-    arrays, block_k = tables(all_ids[~tri_alpha])
-    pka, alpha_block_k = tables(ids_a, mask_rows=masks)
-    arrays.update({"pka_" + k[3:]: v for k, v in pka.items()})
-    BUILD_SECONDS["tables"] = (time.perf_counter() - t0
-                               - BUILD_SECONDS["masks"])
-    return arrays, block_k, alpha_block_k, True
+    if inst is None:
+        lvl = two_level or (None, None)
+        n_alpha = int(tri_alpha.sum())
+        if not 0 < n_alpha < nt:
+            return finish(*world_tables(all_ids, two_level=lvl[0]))
+        words = masks_of(tri_uv, tri_mat, tri_alpha)
+        arrays, block_k = world_tables(all_ids[~tri_alpha], two_level=lvl[0])
+        pka, alpha_block_k = world_tables(all_ids[tri_alpha], words, lvl[1])
+        return finish(arrays, block_k, pka, alpha_block_k, words is not None)
+
+    otri_v = np.asarray(inst["otri_v"], np.float32).reshape(-1, 3, 3)
+    otri_mat = np.asarray(inst["otri_mat"], np.int64)
+    otri_alpha = alpha_material_mask(otri_mat, mat_alpha_mode)
+    n_alpha = int(tri_alpha.sum()) + int(otri_alpha.sum())
+    split = 0 < n_alpha < nt + len(otri_alpha)
+    args = (tri_v, otri_v, list(inst["fwd"]), list(inst["inv"]),
+            [int(x) for x in inst["base"]], [int(x) for x in inst["count"]])
+    kw = {}
+    if motion:
+        kw = dict(tri_vel=tri_vel if nt else None,
+                  inst_vel=np.asarray(inst["vel"], np.float32),
+                  shutter=shutter)
+    n_inst_tris = int(np.sum(inst["count"]))
+    if not (nt + n_inst_tris > 65536 or split or motion):
+        # small, unsplit, static: the single-level instanced tables
+        return finish(*build_tri_blocks_inst(*args))
+    if not split:
+        return finish(*build_tri_blocks2_inst(*args, g=block_g, **kw))
+    words = masks_of(tri_uv, tri_mat, tri_alpha)
+    owords = masks_of(np.asarray(inst["otri_uv"], np.float32
+                                 ).reshape(-1, 3, 2), otri_mat, otri_alpha)
+    masked = words is not None or owords is not None
+    if masked:      # one of the two may lack alpha triangles: zero words
+        words = np.zeros((nt, 7), np.int32) if words is None else words
+        owords = (np.zeros((len(otri_v), 7), np.int32) if owords is None
+                  else owords)
+
+    def subset(tri_sel, otri_sel, with_mask):
+        if not otri_sel.any() and tri_sel.any():
+            # no instance rows in this subset (the opaque set of a scene
+            # whose only alpha geometry is instanced foliage): plain
+            # two-level tables over the world subset
+            return world_tables(np.nonzero(tri_sel)[0],
+                                words if with_mask else None, two_level=True)
+        return build_tri_blocks2_inst(
+            *args, tri_sel=tri_sel, otri_sel=otri_sel, g=block_g,
+            tri_mask=words if with_mask else None,
+            otri_mask=owords if with_mask else None, **kw)
+
+    arrays, block_k = subset(~tri_alpha, ~otri_alpha, False)
+    pka, alpha_block_k = subset(tri_alpha, otri_alpha, masked)
+    return finish(arrays, block_k, pka, alpha_block_k, masked)
 
 
 def _accumulate_vertex_normals(vertices, indices):
@@ -175,13 +265,21 @@ class SceneBuilder:
         self.textures = TexturePool()
         self._mat = dict(type=[], base=[], rough=[], metal=[], ior=[],
                          tex=[], alpha_mode=[], alpha_cutoff=[])
+        # vel: linear velocity (position at ray time t = position + vel * t)
         self._tri = {k: _ChunkedRows()
-                     for k in ("v", "n", "uv", "tan", "prop")}
+                     for k in ("v", "n", "uv", "tan", "prop", "vel")}
         self._models = []
         self._model_dedup = {}
-        self._auto_inst = []       # (model id, 4x4) flattened at build()
-        self._sph = {k: _ChunkedRows() for k in ("c", "r", "prop")}
-        self._quad = {k: _ChunkedRows() for k in ("q", "u", "v", "prop")}
+        # run-time instances: object-space triangles, each model once, and
+        # one dict per instance (transforms, range, lights, velocity)
+        self._obj = {k: _ChunkedRows()
+                     for k in ("v", "n", "uv", "tan", "prop")}
+        self._obj_range = {}       # model id -> (first object triangle, count)
+        self._inst = []
+        self._sph = {k: _ChunkedRows() for k in ("c", "r", "prop", "vel")}
+        self._quad = {k: _ChunkedRows()
+                      for k in ("q", "u", "v", "prop", "vel")}
+        self._has_motion = False
         self._lights = []
         self.camera = None
         self.light_sampler = "power"
@@ -251,13 +349,14 @@ class SceneBuilder:
                    velocity=(0.0, 0.0, 0.0)) -> int:
         if medium >= 0:
             _refuse("participating media")
-        _static(velocity)
         idx = len(self._sph["r"])
         lid = self._maybe_area_light(SHAPE_SPH, idx, emission, em_tex,
                                      one_sided)
         self._sph["c"].append(np.asarray(center, np.float32))
         self._sph["r"].append(float(radius))
         self._sph["prop"].append([material, lid, -1])
+        self._sph["vel"].append(np.asarray(velocity, np.float32))
+        self._has_motion |= _moves(velocity)
         return idx
 
     def add_quad(self, q, u, v, material=-1, medium=-1, emission=None,
@@ -265,7 +364,6 @@ class SceneBuilder:
                  velocity=(0.0, 0.0, 0.0)) -> int:
         if medium >= 0:
             _refuse("participating media")
-        _static(velocity)
         idx = len(self._quad["q"])
         lid = self._maybe_area_light(SHAPE_QUAD, idx, emission, em_tex,
                                      one_sided)
@@ -273,6 +371,8 @@ class SceneBuilder:
         self._quad["u"].append(np.asarray(u, np.float32))
         self._quad["v"].append(np.asarray(v, np.float32))
         self._quad["prop"].append([material, lid, -1])
+        self._quad["vel"].append(np.asarray(velocity, np.float32))
+        self._has_motion |= _moves(velocity)
         return idx
 
     def add_mesh(self, vertices, indices, normals=None, uvs=None,
@@ -281,10 +381,10 @@ class SceneBuilder:
                  velocity=(0.0, 0.0, 0.0)):
         """Flatten a triangle mesh into the global triangle table; emissive
         meshes get one area light per triangle above the power cull.
-        transform: optional 4x4 object-to-world, applied here."""
+        transform: optional 4x4 object-to-world, applied here.  velocity:
+        linear motion of the whole mesh over the shutter."""
         if medium >= 0:
             _refuse("participating media")
-        _static(velocity)
         vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
         indices = np.asarray(indices, np.int32).reshape(-1, 3)
         if transform is not None:
@@ -334,6 +434,9 @@ class SceneBuilder:
         props[:, 2] = -1
         props[:, 3] = 1 if has_tan else 0
         self._tri["prop"].extend(props)
+        self._tri["vel"].extend(np.broadcast_to(
+            np.asarray(velocity, np.float32), (f, 3)))
+        self._has_motion |= _moves(velocity)
         return first, f
 
     # -- lights ---------------------------------------------------------------
@@ -353,10 +456,11 @@ class SceneBuilder:
         return len(self._lights) - 1
 
     def add_point_light(self, position, color, velocity=(0.0, 0.0, 0.0)):
-        _static(velocity)
+        """velocity: the position at ray time t is position + velocity * t."""
         self._lights.append(dict(type=LIGHT_POINT,
                                  color=np.asarray(color, np.float32),
                                  vec=np.asarray(position, np.float32),
+                                 vel=np.asarray(velocity, np.float32),
                                  shape=(-1, -1), one_sided=False))
         return len(self._lights) - 1
 
@@ -405,53 +509,111 @@ class SceneBuilder:
                            runtime: bool | str = False,
                            velocity=(0.0, 0.0, 0.0)):
         """Instance a registered model under a 4x4 object-to-world
-        transform, as world triangles.
+        transform.
 
-        runtime=False re-emits the geometry now (it keeps its place in
-        the triangle order).  runtime="auto" defers to build(), which
-        re-emits every such instance after all other meshes, as the
-        reference package's builder does below FLATTEN_MAX expanded
-        triangles.  Keeping instances as run-time instances
-        (runtime=True, an "auto" total above FLATTEN_MAX, or an emissive
-        model under "auto") needs the traversal kernel's instanced mode,
-        which is not in this package yet."""
-        _static(velocity)
+        runtime=False re-emits the geometry now as world triangles (it
+        keeps its place in the triangle order).  runtime=True keeps a
+        run-time instance: the model's object-space triangles are stored
+        once and rays are inverse-transformed per instance at trace time
+        (the traversal kernels' instanced mode, or the brute scan).
+        runtime="auto" lets build() pick: such instances are re-emitted as
+        world triangles after all other meshes when their total expanded
+        size is at most FLATTEN_MAX triangles (PT_FLATTEN_MAX in the
+        environment overrides it), else they stay run-time instances;
+        instances of an emissive model always stay (each gets its own
+        per-triangle area lights).  velocity: linear world-space motion of
+        the whole instance over the shutter."""
         m = self._models[model_id]
-        if runtime is True:
-            _refuse("run-time instancing (runtime=True; it comes with the "
-                    "slice that ports the traversal kernel's instanced mode)")
         if not runtime:
             return self.add_mesh(m["vertices"], m["indices"],
                                  normals=m["normals"], uvs=m["uvs"],
                                  tangents=m["tangents"],
                                  material=m["material"],
-                                 emission=m["emission"], transform=transform)
-        if runtime != "auto":
+                                 emission=m["emission"], transform=transform,
+                                 velocity=velocity)
+        if runtime is not True and runtime != "auto":
             raise ValueError(f"runtime must be False, True or 'auto', got "
                              f"{runtime!r}")
-        if m["emission"] is not None and _lum(m["emission"]) > 0:
-            _refuse("an emissive model instanced at run time (runtime="
-                    "'auto' keeps emissive models as run-time instances)")
+        if model_id not in self._obj_range:
+            # register the object-space geometry once
+            vertices = np.asarray(m["vertices"], np.float32).reshape(-1, 3)
+            indices = np.asarray(m["indices"], np.int32).reshape(-1, 3)
+            normals = (_accumulate_vertex_normals(vertices, indices)
+                       if m["normals"] is None
+                       else np.asarray(m["normals"], np.float32).reshape(-1, 3))
+            uvs = (np.asarray(m["uvs"], np.float32).reshape(-1, 2)
+                   if m["uvs"] is not None
+                   else np.zeros((len(vertices), 2), np.float32))
+            has_tan = m["tangents"] is not None
+            tans = (np.asarray(m["tangents"], np.float32).reshape(-1, 3)
+                    if has_tan else np.zeros_like(vertices))
+            first = len(self._obj["v"])
+            f = len(indices)
+            for key, arr in (("v", vertices), ("n", normals), ("uv", uvs),
+                             ("tan", tans)):
+                self._obj[key].extend(np.ascontiguousarray(arr[indices],
+                                                           np.float32))
+            props = np.empty((f, 4), np.int64)
+            props[:, 0] = m["material"]
+            props[:, 1] = -1
+            props[:, 2] = -1
+            props[:, 3] = 1 if has_tan else 0
+            self._obj["prop"].extend(props)
+            self._obj_range[model_id] = (first, f)
+        base, count = self._obj_range[model_id]
         tf = np.eye(4, dtype=np.float32) if transform is None \
             else np.asarray(transform, np.float32)
-        self._auto_inst.append((model_id, tf))
-        return len(self._auto_inst) - 1
+        inv = np.linalg.inv(tf)
+        inst_idx = len(self._inst)
+        # per-instance per-triangle area lights of an emissive model: each
+        # names the shared object-space triangle and this instance
+        light_first = -1
+        emission = m["emission"]
+        if emission is not None and _lum(emission) > 0:
+            light_first = len(self._lights)
+            color = np.asarray(emission, np.float32)
+            for j in range(count):
+                self._lights.append(dict(
+                    type=LIGHT_AREA, color=color,
+                    vec=np.zeros(3, np.float32),
+                    shape=(SHAPE_ITRI, -1),      # finalized in build()
+                    one_sided=False, _inst=(inst_idx, base + j)))
+        vel = np.asarray(velocity, np.float32)
+        self._has_motion |= _moves(vel)
+        self._inst.append(dict(
+            fwd=tf[:3, :4], inv=inv[:3, :4],
+            nrm=np.linalg.inv(tf[:3, :3]).T.astype(np.float32),
+            base=base, count=count, light_first=light_first, vel=vel,
+            model=model_id, tf4=tf,
+            auto=(runtime == "auto" and light_first < 0)))
+        return inst_idx
 
-    def _flatten_instances(self):
-        """Re-emit the runtime="auto" instances as world triangles."""
-        autos, self._auto_inst = self._auto_inst, []
-        total = sum(len(np.asarray(self._models[mid]["indices"]).reshape(-1, 3))
-                    for mid, _ in autos)
-        if total > FLATTEN_MAX:
-            self._auto_inst = autos
-            _refuse(f"{total:,} instanced triangles (more than {FLATTEN_MAX:,}"
-                    " stay run-time instances, which need the traversal "
-                    "kernel's instanced mode)")
-        for mid, tf in autos:
-            m = self._models[mid]
+    def _maybe_flatten_instances(self):
+        """Re-emit the runtime="auto" instances as world triangles when
+        their total expanded size is small (see add_model_instance), and
+        renumber the instances that stay in the deferred per-instance
+        lights."""
+        autos = [i for i, e in enumerate(self._inst) if e["auto"]]
+        if not autos:
+            return
+        limit = int(os.environ.get("PT_FLATTEN_MAX", FLATTEN_MAX))
+        if sum(self._inst[i]["count"] for i in autos) > limit:
+            return
+        for i in autos:
+            e = self._inst[i]
+            m = self._models[e["model"]]
             self.add_mesh(m["vertices"], m["indices"], normals=m["normals"],
                           uvs=m["uvs"], tangents=m["tangents"],
-                          material=m["material"], transform=tf)
+                          material=m["material"], transform=e["tf4"],
+                          velocity=e["vel"])
+        flat = set(autos)
+        keep = [i for i in range(len(self._inst)) if i not in flat]
+        remap = {old: new for new, old in enumerate(keep)}
+        self._inst = [self._inst[i] for i in keep]
+        for lt in self._lights:
+            if "_inst" in lt:        # emissive models are never flattened
+                i, otri = lt["_inst"]
+                lt["_inst"] = (remap[i], otri)
 
     # -- camera ------------------------------------------------------------
 
@@ -484,6 +646,20 @@ class SceneBuilder:
             u = np.asarray(self._quad["u"])
             v = np.asarray(self._quad["v"])
             pts += [q, q + u, q + v, q + u + v]
+        for inst in self._inst:
+            ov = np.asarray(self._obj["v"][inst["base"]:
+                                           inst["base"] + inst["count"]])
+            if len(ov):
+                lo_o = ov.reshape(-1, 3).min(0)
+                hi_o = ov.reshape(-1, 3).max(0)
+                corners = np.array([[x, y, z] for x in (lo_o[0], hi_o[0])
+                                    for y in (lo_o[1], hi_o[1])
+                                    for z in (lo_o[2], hi_o[2])])
+                wc = corners @ inst["fwd"][:, :3].T + inst["fwd"][:, 3]
+                pts += [wc]
+                if _moves(inst["vel"]):        # union over the shutter
+                    sh = (self.camera or {}).get("shutter", (0.0, 0.0))
+                    pts += [wc + inst["vel"] * sh[0], wc + inst["vel"] * sh[1]]
         if not pts:
             return np.zeros(3), np.ones(3)
         allp = np.concatenate(pts, 0)
@@ -499,6 +675,14 @@ class SceneBuilder:
         if kind == SHAPE_QUAD:
             return float(np.linalg.norm(np.cross(self._quad["u"][idx],
                                                  self._quad["v"][idx])))
+        if kind == SHAPE_ITRI:
+            # instanced triangle: world area under the instance transform
+            i, otri = divmod(idx, max(len(self._obj["v"]), 1))
+            f = self._inst[i]["fwd"]
+            w = np.asarray(self._obj["v"][otri], np.float32) @ f[:, :3].T \
+                + f[:, 3]
+            return 0.5 * float(np.linalg.norm(
+                np.cross(w[1] - w[0], w[2] - w[0])))
         return 0.0
 
     def _light_power(self, lt, scene_radius) -> float:
@@ -519,15 +703,23 @@ class SceneBuilder:
         unless device="cpu").
 
         power_cull drops lights with power below it.  accel: "auto" picks
-        "brute" under 4096 primitives and "pallas" (the two-level traversal
-        tables) for triangle scenes above; "brute" forces the scan (and
-        builds no alpha micro-masks: it is the unmasked oracle).  The
-        reference package sends triangle sets of 65,536 or fewer to its
-        single-level kernel; here they use the two-level tables too."""
+        "brute" under 4096 primitives (instanced triangles counted once
+        per instance) and "pallas" (the traversal tables that
+        build_traversal_tables chooses) for triangle scenes above; "brute"
+        forces the scan (and builds no alpha micro-masks: it is the
+        unmasked oracle)."""
         dev = resolve_device(device)
         if accel not in ("auto", "pallas", "brute"):
             raise NotImplementedError(f"accel={accel!r} is not ported")
-        self._flatten_instances()
+        self._maybe_flatten_instances()
+        n_inst = len(self._inst)
+        n_obj_tri = len(self._obj["v"]) if n_inst else 0
+        # per-instance area lights: the shape id needs the final size of
+        # the object-space table
+        for lt in self._lights:
+            if "_inst" in lt:
+                i, otri = lt["_inst"]
+                lt["shape"] = (SHAPE_ITRI, i * max(n_obj_tri, 1) + otri)
         lo, hi = self._scene_bounds()
         center = 0.5 * (lo + hi)
         scene_radius = float(np.linalg.norm(hi - center)) or 1.0
@@ -553,6 +745,18 @@ class SceneBuilder:
         tri_prop = remap_prop(self._tri["prop"], 4)
         sph_prop = remap_prop(self._sph["prop"], 3)
         quad_prop = remap_prop(self._quad["prop"], 3)
+
+        # a hit on (instance i, object triangle o) finds its light id at
+        # ilight_map[inst_slot_base[i] + (o - base_i)]
+        inst_slot_base = np.full(max(n_inst, 1), -1, np.int32)
+        ilight_slots: list = []
+        for i, inst in enumerate(self._inst):
+            lf = inst["light_first"]
+            if lf >= 0:
+                inst_slot_base[i] = len(ilight_slots)
+                ilight_slots.extend(int(remap[lf + j])
+                                    for j in range(inst["count"]))
+        ilight_map = np.asarray(ilight_slots or [-1], np.int32)
 
         total_power = float(powers.sum())
         if self.light_sampler == "power" and total_power > 0:
@@ -626,6 +830,33 @@ class SceneBuilder:
             scene_hi=np.asarray(hi, np.float32),
             **self.textures.pack(),
         )
+        has_motion = self._has_motion
+        has_light_motion = any(_moves(lt.get("vel", 0.0)) for lt in lights)
+        if has_motion:
+            arrays.update(tri_vel=pad(self._tri["vel"], (1, 3)),
+                          sph_vel=pad(self._sph["vel"], (1, 3)),
+                          quad_vel=pad(self._quad["vel"], (1, 3)))
+        if has_light_motion:
+            arrays["light_vel"] = pad(
+                [lt.get("vel", np.zeros(3, np.float32)) for lt in lights],
+                (1, 3))
+        if n_inst:
+            arrays.update(
+                otri_v=np.asarray(self._obj["v"], np.float32),
+                otri_n=np.asarray(self._obj["n"], np.float32),
+                otri_uv=np.asarray(self._obj["uv"], np.float32),
+                otri_tan=np.asarray(self._obj["tan"], np.float32),
+                otri_prop=np.asarray(self._obj["prop"], np.int32),
+                inst_fwd=np.stack([i["fwd"] for i in self._inst]),
+                inst_inv=np.stack([i["inv"] for i in self._inst]),
+                inst_nrm=np.stack([i["nrm"] for i in self._inst]),
+                inst_base=np.asarray([i["base"] for i in self._inst],
+                                     np.int32),
+                inst_count=np.asarray([i["count"] for i in self._inst],
+                                      np.int32),
+                inst_slot_base=inst_slot_base,
+                inst_vel=np.stack([i["vel"] for i in self._inst]),
+                ilight_map=ilight_map)
 
         types_in_scene = set(int(t) for t in self._mat["type"])
         mats_present = tuple(bool(k in types_in_scene) or not types_in_scene
@@ -640,17 +871,34 @@ class SceneBuilder:
         block_k = alpha_block_k = 0
         alpha_cull_mask = False
         block_g = int(os.environ.get("PT_BLOCK_G", 32))
+        n_inst_tris = sum(i["count"] for i in self._inst)
         if accel == "auto":
-            accel = "brute" if nt + ns + nq < 4096 or not nt else "pallas"
-        if accel == "pallas" and nt:
+            small = nt + ns + nq + n_inst_tris < 4096
+            accel = "brute" if small or not (nt or n_inst) else "pallas"
+        if accel == "pallas" and (nt or n_inst):
+            inst = None
+            if n_inst:
+                inst = dict(otri_v=arrays["otri_v"], otri_uv=arrays["otri_uv"],
+                            otri_mat=arrays["otri_prop"][:, 0],
+                            fwd=arrays["inst_fwd"], inv=arrays["inst_inv"],
+                            base=arrays["inst_base"],
+                            count=arrays["inst_count"], vel=arrays["inst_vel"])
             pk, block_k, alpha_block_k, alpha_cull_mask = \
                 build_traversal_tables(
                     tri_v[:nt], tri_uv[:nt], tri_prop[:, 0], self.textures,
                     self._mat["alpha_mode"], self._mat["alpha_cutoff"],
-                    self._mat["tex"], block_g)
+                    self._mat["tex"], block_g,
+                    tri_vel=(np.asarray(arrays["tri_vel"][:nt], np.float32)
+                             if has_motion else None),
+                    shutter=(self.camera or {}).get("shutter", (0.0, 0.0)),
+                    inst=inst)
             arrays.update(pk)
         else:
             accel = "brute"
+        has_tangents = bool(nt and (tri_prop[:, 3] > 0).any())
+        if n_inst and len(self._obj["prop"]):
+            has_tangents = has_tangents or bool(
+                (np.asarray(self._obj["prop"])[:, 3] > 0).any())
 
         scene = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                  for k, v in arrays.items()}
@@ -659,8 +907,9 @@ class SceneBuilder:
             n_inf=len(inf_idx), light_sampler=self.light_sampler,
             accel=accel, block_k=block_k, block_g=block_g, block_pops=4,
             alpha_block_k=alpha_block_k, mats_present=mats_present,
-            has_alpha=has_alpha,
-            has_tangents=bool(nt and (tri_prop[:, 3] > 0).any()),
+            has_alpha=has_alpha, has_motion=has_motion,
+            has_light_motion=has_light_motion, n_inst=n_inst,
+            n_obj_tri=n_obj_tri, has_tangents=has_tangents,
             has_normal_maps=bool(nm and (mat_tex_np[:, 3] >= 0).any()),
             mat_tex_present=tuple(bool((mat_tex_np[:, s] >= 0).any())
                                   for s in range(5)),

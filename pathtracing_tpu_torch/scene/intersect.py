@@ -3,13 +3,18 @@
 Two backends, chosen by meta.accel:
   "brute"  - a chunked scan over every primitive ([N, C] tensor tests),
              the correctness reference;
-  "pallas" - triangles through the two-level traversal (accel/trace2.py:
-             the CUDA kernel on the card, its plain version on the CPU),
-             analytic prims through the brute scan, results merged.  The
-             name is the reference package's; a scene built there carries
-             across unchanged.
+  "pallas" - triangles through the traversal kernels (two-level tables:
+             accel/trace2.py, single-level ones: accel/trace1.py; the CUDA
+             kernel on the card, its plain version on the CPU), analytic
+             prims through the brute scan, results merged.  The name is
+             the reference package's; a scene built there carries across
+             unchanged.
 
-Shape kinds: 0 = triangle, 1 = sphere, 2 = quad (types.py).
+Shape kinds: 0 = triangle, 1 = sphere, 2 = quad, 3 = triangle of a
+run-time instance, idx = instance * meta.n_obj_tri + object triangle
+(types.py).  `time` [N] is the per-ray shutter time of a moving scene
+(meta.has_motion): a primitive moving at `vel` hit at `time` is the
+static primitive hit from origin - vel * time.
 
 Every gather index is clamped into its table explicitly: the reference
 relies on XLA clamping out-of-range gathers, a CUDA gather faults.
@@ -27,8 +32,8 @@ from ..core.math import (fma, fsqrt, SHADOW_EPS, BIG_F32, vdot, vdot_k,
                          ssafe_normalize, sonb_from_normal)
 from ..core.rng import hash_u32, uniform_from_u32
 from .textures import texture_alpha, texture_eval
-from .types import (SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD, ALPHA_BLEND,
-                    ALPHA_MASK)
+from .types import (SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD, SHAPE_ITRI,
+                    ALPHA_BLEND, ALPHA_MASK)
 
 _CHUNK = 512
 
@@ -41,7 +46,18 @@ def _rows(idx, table):
 # Per-shape batched tests: rays [N,3] x prims [C,...] -> [N,C]
 # ---------------------------------------------------------------------------
 
-def _tri_hits(o, d, v0, v1, v2, t_min=SHADOW_EPS):
+def _ray_origin_comps(o, vel, time):
+    """Per-(ray, prim) effective origin components [N, C or 1]: o - vel *
+    time for prims moving at vel [C,3] (o itself when static)."""
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    if vel is None or time is None:
+        return ox, oy, oz
+    tt = time[:, None]
+    return (ox - vel[None, :, 0] * tt, oy - vel[None, :, 1] * tt,
+            oz - vel[None, :, 2] * tt)
+
+
+def _tri_hits(o, d, v0, v1, v2, t_min=SHADOW_EPS, vel=None, time=None):
     """Two-sided Moller-Trumbore.  Returns (t, valid)."""
     e1 = v1 - v0
     e2 = v2 - v0
@@ -54,9 +70,10 @@ def _tri_hits(o, d, v0, v1, v2, t_min=SHADOW_EPS):
     det = e1x * hx + e1y * hy + e1z * hz
     near_zero = torch.abs(det) < 1e-9
     inv_det = 1.0 / torch.where(near_zero, 1.0, det)
-    sx = o[:, 0:1] - v0[None, :, 0]
-    sy = o[:, 1:2] - v0[None, :, 1]
-    sz = o[:, 2:3] - v0[None, :, 2]
+    ox, oy, oz = _ray_origin_comps(o, vel, time)
+    sx = ox - v0[None, :, 0]
+    sy = oy - v0[None, :, 1]
+    sz = oz - v0[None, :, 2]
     u = (sx * hx + sy * hy + sz * hz) * inv_det
     qx = sy * e1z - sz * e1y
     qy = sz * e1x - sx * e1z
@@ -68,12 +85,13 @@ def _tri_hits(o, d, v0, v1, v2, t_min=SHADOW_EPS):
     return torch.where(valid, t, BIG_F32), valid
 
 
-def _sph_hits(o, d, c, r, t_min=SHADOW_EPS):
+def _sph_hits(o, d, c, r, t_min=SHADOW_EPS, vel=None, time=None):
     """Quadratic sphere test, both roots."""
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    ocx = o[:, 0:1] - c[None, :, 0]
-    ocy = o[:, 1:2] - c[None, :, 1]
-    ocz = o[:, 2:3] - c[None, :, 2]
+    ox, oy, oz = _ray_origin_comps(o, vel, time)
+    ocx = ox - c[None, :, 0]
+    ocy = oy - c[None, :, 1]
+    ocz = oz - c[None, :, 2]
     # sums of products rounded as the reference's fused multiply-adds
     a = fma(dz, dz, fma(dx, dx, dy * dy))
     b = fma(ocz, dz, fma(ocx, dx, ocy * dy))
@@ -89,10 +107,11 @@ def _sph_hits(o, d, c, r, t_min=SHADOW_EPS):
     return t, t0v | t1v
 
 
-def _quad_hits(o, d, q, n, dd, u, v, w, t_min=SHADOW_EPS):
+def _quad_hits(o, d, q, n, dd, u, v, w, t_min=SHADOW_EPS, vel=None,
+               time=None):
     """Two-sided parallelogram test.  Returns (t, valid, alpha, beta)."""
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    ox, oy, oz = _ray_origin_comps(o, vel, time)
     nx, ny, nz = n[None, :, 0], n[None, :, 1], n[None, :, 2]
     # sums of products rounded as the reference's fused multiply-adds
     d_dot_n = fma(dz, nz, fma(dx, nx, dy * ny))
@@ -224,11 +243,12 @@ def _subset_scene(scene, prefix):
 def _pallas_dispatch(scene, meta, origin, direction, t_max,
                      any_hit: bool = False, tri_tables: str = "all",
                      analytic: bool = True, sort_key=None,
-                     alpha_shadow: bool = False):
-    """Triangles through the two-level traversal, the analytic prims of a
-    mixed scene through the brute scan, results merged.  Rays are sorted
-    by _first_block_key with dead lanes (t_max <= 0) last, and padded to a
-    multiple of TILE with t_max = 0 lanes.
+                     alpha_shadow: bool = False, time=None):
+    """Triangles through the traversal kernel of their tables (two-level
+    when the set has "pk_l1_base", else single-level), the analytic prims
+    of a mixed scene through the brute scan, results merged.  Rays are
+    sorted by _first_block_key with dead lanes (t_max <= 0) last, and
+    padded to a multiple of TILE with t_max = 0 lanes.
 
     tri_tables: "all" traverses the main tables and then the alpha split
     (pka_*), bounded by the first result, when the scene has one;
@@ -241,13 +261,19 @@ def _pallas_dispatch(scene, meta, origin, direction, t_max,
     per-triangle alpha micro-masks in the traversal: closest passes drop
     definitely-transparent hits (amask=1); alpha_shadow=True runs the
     shadow walk (amask=2), whose result carries "solid" for lanes a
-    definitely-opaque hit occludes outright."""
+    definitely-opaque hit occludes outright.  A hit on a run-time instance
+    comes back as kind SHAPE_ITRI, idx = inst * n_obj_tri + object
+    triangle.  time [N]: the rays' shutter times on a moving scene."""
+    from ..accel.trace1 import tri_intersect1
     from ..accel.trace2 import tri_intersect2, TILE
 
     n = origin.shape[0]
     dev = origin.device
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
                                                device=dev), (n,))
+    motion = meta.has_motion
+    if motion and time is None:
+        time = torch.zeros((n,), dtype=torch.float32, device=dev)
     if sort_key is None:
         sort_key = _first_block_key(scene, origin, direction)
     key = torch.where(t_max <= 0.0, 0xFFFFFFFF, sort_key)
@@ -257,9 +283,18 @@ def _pallas_dispatch(scene, meta, origin, direction, t_max,
     o = torch.nn.functional.pad(origin_s, (0, 0, 0, pad))
     d = torch.nn.functional.pad(direction_s, (0, 0, 0, pad), value=1.0)
     tm = torch.nn.functional.pad(tmax_s, (0, pad))    # t_max 0: pads miss
+    tme = torch.nn.functional.pad(time[perm], (0, pad)) if motion else None
     am_alpha = 0
     if meta.alpha_cull_mask and not any_hit:
         am_alpha = 2 if alpha_shadow else 1
+
+    def run(prefix, tmr, amask):
+        sub = _subset_scene(scene, prefix)
+        if "pk_l1_base" in sub:
+            return tri_intersect2(sub, o, d, tmr, any_hit=any_hit,
+                                  amask=amask, time=tme)
+        return tri_intersect1(sub, o, d, tmr, any_hit=any_hit, amask=amask,
+                              time=tme)
 
     runs = []
     if tri_tables in ("all", "opaque"):
@@ -267,17 +302,16 @@ def _pallas_dispatch(scene, meta, origin, direction, t_max,
     if tri_tables in ("all", "alpha") and meta.alpha_block_k \
             and "pka_tri" in scene:
         runs.append(("pka_", am_alpha))
-    hit = tri_intersect2(_subset_scene(scene, runs[0][0]), o, d, tm,
-                         any_hit=any_hit, amask=runs[0][1])
+    hit = run(runs[0][0], tm, runs[0][1])
     for tables, amk in runs[1:]:
         # the later (small) table only needs strictly closer hits, and an
         # any-hit pass needs nothing once occluded
         tm2 = torch.where(hit["valid"], 0.0 if any_hit else hit["t"], tm)
-        h2 = tri_intersect2(_subset_scene(scene, tables), o, d, tm2,
-                            any_hit=any_hit, amask=amk)
+        h2 = run(tables, tm2, amk)
         closer = h2["valid"] & (~hit["valid"] | (h2["t"] < hit["t"]))
         merged = dict(t=torch.where(closer, h2["t"], hit["t"]),
                       tri=torch.where(closer, h2["tri"], hit["tri"]),
+                      inst=torch.where(closer, h2["inst"], hit["inst"]),
                       valid=hit["valid"] | h2["valid"])
         if "solid" in h2:
             merged["solid"] = h2["solid"] | hit.get("solid", False)
@@ -290,10 +324,16 @@ def _pallas_dispatch(scene, meta, origin, direction, t_max,
     t, idx, valid = unsort(hit["t"]), unsort(hit["tri"]), unsort(hit["valid"])
     solid = unsort(hit["solid"]) if "solid" in hit else None
     kind = torch.where(valid, SHAPE_TRI, -1)
+    if meta.n_inst:
+        inst = unsort(hit["inst"])
+        is_i = valid & (inst >= 0)
+        idx = torch.where(is_i, inst * meta.n_obj_tri + idx, idx)
+        kind = torch.where(is_i, SHAPE_ITRI, kind)
 
     if analytic and (meta.n_sph or meta.n_quad):
-        meta2 = dataclasses.replace(meta, n_tri=0, accel="brute")
-        other = _intersect(scene, meta2, origin, direction, t_max)
+        meta2 = dataclasses.replace(meta, n_tri=0, accel="brute", n_inst=0,
+                                    n_obj_tri=0)
+        other = _intersect(scene, meta2, origin, direction, t_max, time)
         better = other["valid"] & (~valid | (other["t"] < t))
         t = torch.where(better, other["t"], t)
         kind = torch.where(better, other["kind"], kind)
@@ -306,9 +346,11 @@ def _pallas_dispatch(scene, meta, origin, direction, t_max,
     return out
 
 
-def _intersect(scene, meta, origin, direction, t_max):
+def _intersect(scene, meta, origin, direction, t_max, time=None):
     if meta.accel == "pallas":
-        return _pallas_dispatch(scene, meta, origin, direction, t_max)
+        return _pallas_dispatch(scene, meta, origin, direction, t_max,
+                                time=time)
+    motion = meta.has_motion and time is not None
     n = origin.shape[0]
     dev = origin.device
     best_t = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
@@ -325,17 +367,23 @@ def _intersect(scene, meta, origin, direction, t_max):
         best_kind = torch.where(better, kind, best_kind)
         best_idx = torch.where(better, base + cmin, best_idx)
 
+    def vel(name, c0, c1):
+        return scene[name][c0:c1] if motion else None
+
     # chunk width: [N, C] test temporaries of ~1M elements on the CPU
     # (cache-sized), ~4M on a card
     chunk = max(_CHUNK, (1 << (22 if origin.is_cuda else 20)) // max(n, 1))
     for c0 in range(0, meta.n_tri, chunk):
-        v = scene["tri_v"][c0:min(c0 + chunk, meta.n_tri)]
-        t, valid = _tri_hits(origin, direction, v[:, 0], v[:, 1], v[:, 2])
+        c1 = min(c0 + chunk, meta.n_tri)
+        v = scene["tri_v"][c0:c1]
+        t, valid = _tri_hits(origin, direction, v[:, 0], v[:, 1], v[:, 2],
+                             vel=vel("tri_vel", c0, c1), time=time)
         fold(t, valid, SHAPE_TRI, c0)
     for c0 in range(0, meta.n_sph, chunk):
         c1 = min(c0 + chunk, meta.n_sph)
         t, valid = _sph_hits(origin, direction, scene["sph_c"][c0:c1],
-                             scene["sph_r"][c0:c1])
+                             scene["sph_r"][c0:c1],
+                             vel=vel("sph_vel", c0, c1), time=time)
         fold(t, valid, SHAPE_SPH, c0)
     for c0 in range(0, meta.n_quad, chunk):
         c1 = min(c0 + chunk, meta.n_quad)
@@ -343,18 +391,43 @@ def _intersect(scene, meta, origin, direction, t_max):
             origin, direction, scene["quad_q"][c0:c1],
             scene["quad_n"][c0:c1], scene["quad_d"][c0:c1],
             scene["quad_u"][c0:c1], scene["quad_v"][c0:c1],
-            scene["quad_w"][c0:c1])
+            scene["quad_w"][c0:c1], vel=vel("quad_vel", c0, c1), time=time)
         fold(t, valid, SHAPE_QUAD, c0)
+    if meta.n_inst:
+        # run-time instances: the ray goes to each instance's object space
+        # (direction unnormalized, so t stays the world parameter) and
+        # tests the model's object-space triangles there
+        from ..accel.trace2 import instance_rays
+        inv = scene["inst_inv"].reshape(-1, 12)
+        velo = _inst_velo(scene, inv) if motion else None
+        for i in range(meta.n_inst):
+            ii = torch.full((n,), i, dtype=torch.int64, device=dev)
+            o_l, d_l = instance_rays(inv, ii, origin, direction, velo,
+                                     time if motion else None)
+            base = int(scene["inst_base"][i])
+            end = min(base + int(scene["inst_count"][i]), meta.n_obj_tri)
+            for c0 in range(base, end, chunk):
+                v = scene["otri_v"][c0:min(c0 + chunk, end)]
+                t, valid = _tri_hits(o_l, d_l, v[:, 0], v[:, 1], v[:, 2])
+                fold(t, valid, SHAPE_ITRI, i * meta.n_obj_tri + c0)
     return dict(t=best_t, kind=best_kind, idx=best_idx, valid=best_kind >= 0)
 
 
-def intersect(scene, meta, origin, direction, t_max, device=None):
-    """Closest hit for a ray batch [N]: dict(t, kind, idx, valid).  Runs on
-    the GPU unless device="cpu"."""
+def _inst_velo(scene, inv):
+    """Object-space velocities [I,3] of the instances: inv_lin @ vel."""
+    m = inv.reshape(-1, 3, 4)[:, :, :3]
+    return (m * scene["inst_vel"][:, None, :]).sum(-1)
+
+
+def intersect(scene, meta, origin, direction, t_max, time=None, device=None):
+    """Closest hit for a ray batch [N]: dict(t, kind, idx, valid).  time
+    [N]: shutter times on a moving scene.  Runs on the GPU unless
+    device="cpu"."""
     dev = resolve_device(device)
     return _intersect(to_device(scene, dev), meta, origin.to(dev),
                       direction.to(dev),
-                      torch.as_tensor(t_max, dtype=torch.float32).to(dev))
+                      torch.as_tensor(t_max, dtype=torch.float32).to(dev),
+                      None if time is None else time.to(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -395,7 +468,22 @@ def _ref_tangent(ns):
     return safe_normalize(torch.cross(up.expand_as(ns), ns, dim=-1))
 
 
-def make_interaction(scene, meta, origin, direction, hit,
+def _instance_triangles(scene, meta, idx, time=None):
+    """World-space vertices [N,3,3] of the instanced-triangle hits idx
+    (= inst * n_obj_tri + object triangle), at the rays' times when the
+    scene moves, with the clamped (instance, object triangle) ids."""
+    iid = torch.clamp(idx // meta.n_obj_tri, 0, scene["inst_fwd"].shape[0] - 1)
+    oid = torch.clamp(idx % meta.n_obj_tri, 0, scene["otri_v"].shape[0] - 1)
+    fwd = scene["inst_fwd"][iid]                             # [N,3,4]
+    ov = scene["otri_v"][oid]                                # [N,3,3]
+    ov_w = torch.einsum("nij,nkj->nki", fwd[:, :, :3], ov) + fwd[:, None, :, 3]
+    if time is not None:
+        # a moving instance only translates: normals are unchanged
+        ov_w = ov_w + (scene["inst_vel"][iid] * time[:, None])[:, None, :]
+    return ov_w, iid, oid
+
+
+def make_interaction(scene, meta, origin, direction, hit, time=None,
                      lite: bool = False):
     """Surface interaction for a hit batch: dict(valid, t, p_raw, p, n, ns,
     tangent, uv, mat_id, light_id, med_id, kind, idx).
@@ -410,11 +498,14 @@ def make_interaction(scene, meta, origin, direction, hit,
 
     lite=True skips authored-tangent interpolation and normal mapping (the
     ONB tangent is still produced): the alpha restart chain consumes only
-    p_raw / n / uv / mat_id, none of which depend on either."""
+    p_raw / n / uv / mat_id, none of which depend on either.  time [N]:
+    moving primitives are taken at the ray's shutter time."""
     t = hit["t"]
     idx = hit["idx"]
     kind = hit["kind"]
     p_raw = fma(t[:, None], direction, origin)   # rounded as a fused mul-add
+    motion = meta.has_motion and time is not None
+    want_tan = meta.has_tangents and not lite
 
     # --- triangle (one packed row gather: verts 9, normals 9, uvs 6, prop 4)
     pk_row = scene["tri_pack"][_rows(idx, scene["tri_pack"])]
@@ -422,6 +513,42 @@ def make_interaction(scene, meta, origin, direction, hit,
     tn = pk_row[:, 9:18].reshape(-1, 3, 3)
     tuv = pk_row[:, 18:24].reshape(-1, 3, 2)
     tprop = pk_row[:, 24:28].to(torch.int64)
+    ttan = scene["tri_tan"][_rows(idx, scene["tri_tan"])] if want_tan \
+        else None
+    if motion:
+        tvel = scene["tri_vel"][_rows(idx, scene["tri_vel"])]
+        tv = tv + (tvel * time[:, None])[:, None, :]
+    if meta.n_inst:
+        # instanced-triangle hits: gather the object-space data, take it
+        # to world space, then run the triangle math (kind folds to TRI)
+        is_itri = kind == SHAPE_ITRI
+        ov_w, iid, oid = _instance_triangles(scene, meta, idx,
+                                             time if motion else None)
+        on_w = safe_normalize(torch.einsum("nij,nkj->nki",
+                                           scene["inst_nrm"][iid],
+                                           scene["otri_n"][oid]))
+        m3 = is_itri[:, None, None]
+        tv = torch.where(m3, ov_w, tv)
+        tn = torch.where(m3, on_w, tn)
+        tuv = torch.where(m3, scene["otri_uv"][oid], tuv)
+        if want_tan:
+            otan_w = torch.einsum("nij,nkj->nki",
+                                  scene["inst_fwd"][iid][:, :, :3],
+                                  scene["otri_tan"][oid])
+            ttan = torch.where(m3, otan_w, ttan)
+        tprop = torch.where(is_itri[:, None],
+                            scene["otri_prop"][oid].to(torch.int64), tprop)
+        # per-instance area lights
+        lbase = scene["inst_slot_base"][iid].to(torch.int64)
+        lslot = lbase + (oid - scene["inst_base"][iid].to(torch.int64))
+        ilight = torch.where(
+            (lbase >= 0) & is_itri,
+            scene["ilight_map"][_rows(lslot, scene["ilight_map"])]
+            .to(torch.int64), -1)
+        tprop = torch.cat([tprop[:, 0:1],
+                           torch.where(is_itri, ilight, tprop[:, 1])[:, None],
+                           tprop[:, 2:]], 1)
+        kind = torch.where(is_itri, SHAPE_TRI, kind)
     dxr, dyr, dzr = unpack3(direction)
     bu, bv, bw, (e1x, e1y, e1z), (e2x, e2y, e2z) = _tri_barycentrics(
         origin, direction, tv)
@@ -436,8 +563,7 @@ def make_interaction(scene, meta, origin, direction, hit,
     nsy = torch.where(flip_ns, -nsy, nsy)
     nsz = torch.where(flip_ns, -nsz, nsz)
     _, (fbx, fby, fbz) = sonb_from_normal(nsx, nsy, nsz)
-    if meta.has_tangents and not lite:
-        ttan = scene["tri_tan"][_rows(idx, scene["tri_tan"])]
+    if want_tan:
         trx = bu * ttan[:, 1, 0] + bv * ttan[:, 2, 0] + bw * ttan[:, 0, 0]
         try_ = bu * ttan[:, 1, 1] + bv * ttan[:, 2, 1] + bw * ttan[:, 0, 1]
         trz = bu * ttan[:, 1, 2] + bv * ttan[:, 2, 2] + bw * ttan[:, 0, 2]
@@ -460,6 +586,8 @@ def make_interaction(scene, meta, origin, direction, hit,
     # --- sphere
     si = _rows(idx, scene["sph_c"])
     sc = scene["sph_c"][si]
+    if motion:
+        sc = sc + scene["sph_vel"][si] * time[:, None]
     sprop = scene["sph_prop"][si].to(torch.int64)
     ns_s = safe_normalize(p_raw - sc)
     p_s = offset_ray(p_raw, ns_s)
@@ -469,6 +597,8 @@ def make_interaction(scene, meta, origin, direction, hit,
     # --- quad
     qi = _rows(idx, scene["quad_q"])
     qq_p = scene["quad_q"][qi]
+    if motion:
+        qq_p = qq_p + scene["quad_vel"][qi] * time[:, None]
     qn = scene["quad_n"][qi]
     qprop = scene["quad_prop"][qi].to(torch.int64)
     flip_q = vdot_k(direction, qn) > 0
@@ -515,7 +645,7 @@ def make_interaction(scene, meta, origin, direction, hit,
     right = p_raw.new_tensor([1.0, 0.0, 0.0]).expand_as(p_raw)
     # miss lanes: with t = BIG_F32 the hit point overflows; sanitize them
     return dict(
-        valid=ok, t=t, kind=kind, idx=idx,
+        valid=ok, t=t, kind=kind, idx=hit["idx"],
         p_raw=torch.where(okn, p_raw, 0.0),
         p=torch.where(okn, pick(p_t, p_s, p_q), 0.0),
         n=torch.where(okn, pick(ng_t, ns_s, qn), up),
@@ -539,6 +669,15 @@ def _chain_interaction(scene, meta, origin, direction, hit):
     tv = row[:, 0:9].reshape(-1, 3, 3)
     tuv = row[:, 18:24].reshape(-1, 3, 2)
     mat = row[:, 24].to(torch.int64)
+    if meta.n_inst:
+        # instanced hits: object-space uv, world-space vertices
+        is_i = hit["kind"] == SHAPE_ITRI
+        ov_w, _, oid = _instance_triangles(scene, meta, hit["idx"])
+        m3 = is_i[:, None, None]
+        tv = torch.where(m3, ov_w, tv)
+        tuv = torch.where(m3, scene["otri_uv"][oid], tuv)
+        mat = torch.where(is_i, scene["otri_prop"][oid][:, 0].to(torch.int64),
+                          mat)
     bu, bv, bw, (e1x, e1y, e1z), (e2x, e2y, e2z) = _tri_barycentrics(
         origin, direction, tv)
     uv = sbary_mix(bu[:, None], bv[:, None], bw[:, None], tuv[:, 0],
@@ -562,7 +701,7 @@ MAX_RESTARTS = 64    # safety net against degenerate geometry, not a budget
 
 
 def _occluded(scene, meta, origin, direction, t_max, rand_key=None,
-              stats: dict | None = None, compact: bool = True):
+              stats: dict | None = None, compact: bool = True, time=None):
     """The shadow predicate on device tensors (see `occluded`).  `stats`,
     when given, accumulates "calls" and "restarts" (chain iterations run).
     compact=False keeps every restart at full width (the tests hold the
@@ -571,9 +710,10 @@ def _occluded(scene, meta, origin, direction, t_max, rand_key=None,
         # opaque scene: pure any-hit
         if meta.accel == "pallas":
             return _pallas_dispatch(scene, meta, origin, direction,
-                                    t_max - SHADOW_EPS, any_hit=True)["valid"]
+                                    t_max - SHADOW_EPS, any_hit=True,
+                                    time=time)["valid"]
         return _intersect(scene, meta, origin, direction,
-                          t_max - SHADOW_EPS)["valid"]
+                          t_max - SHADOW_EPS, time)["valid"]
 
     n = origin.shape[0]
     dev = origin.device
@@ -591,45 +731,47 @@ def _occluded(scene, meta, origin, direction, t_max, rand_key=None,
         occ0 = _pallas_dispatch(scene, meta, origin, direction,
                                 t_max - SHADOW_EPS, any_hit=True,
                                 tri_tables="opaque", analytic=not ana_alpha,
-                                sort_key=key0)["valid"]
+                                sort_key=key0, time=time)["valid"]
 
-        def chain_isect(o, d, t_rem, key):
+        def chain_isect(o, d, t_rem, key, tme):
             # with micro-masked tables each dispatch resolves definitely-
             # opaque hits in the traversal ("solid" lanes: occluded, no
             # restart) and skips definitely-transparent ones, so the chain
             # iterates only on hits that need the exact texture test
             return _pallas_dispatch(scene, meta, o, d, t_rem,
                                     tri_tables="alpha", analytic=ana_alpha,
-                                    sort_key=key, alpha_shadow=True)
+                                    sort_key=key, alpha_shadow=True, time=tme)
 
-        def chain_inter(h, o, d):
+        def chain_inter(h, o, d, tme):
             if not ana_alpha:
                 return _chain_interaction(scene, meta, o, d, h)
-            return make_interaction(scene, meta, o, d, h, lite=True)
+            return make_interaction(scene, meta, o, d, h, time=tme,
+                                    lite=True)
     else:
         # no split tables: the restart chain runs over the whole scene
         occ0 = torch.zeros((n,), dtype=torch.bool, device=dev)
         key0 = None
 
-        def chain_isect(o, d, t_rem, key):
-            return _intersect(scene, meta, o, d, t_rem)
+        def chain_isect(o, d, t_rem, key, tme):
+            return _intersect(scene, meta, o, d, t_rem, tme)
 
-        def chain_inter(h, o, d):
-            return make_interaction(scene, meta, o, d, h, lite=True)
+        def chain_inter(h, o, d, tme):
+            return make_interaction(scene, meta, o, d, h, time=tme,
+                                    lite=True)
 
-    def body(o, d, t_rem, live, lane, key, rkey, it_):
+    def body(o, d, t_rem, live, lane, key, rkey, it_, tme):
         """One restart for the lanes given: (o, t_rem, newly occluded,
         live) after it.  `lane` is each lane's index in the caller's batch:
         the BLEND random number is keyed on it, so gathering the live lanes
         changes no result."""
         # finished lanes trace zero-length rays (sorted last, no work)
-        h = chain_isect(o, d, torch.where(live, t_rem, 0.0), key)
+        h = chain_isect(o, d, torch.where(live, t_rem, 0.0), key, tme)
         # definite occlusion found in the traversal: these lanes carry no
         # candidate hit (valid False), they are done
         solid_k = h.get("solid")
         if solid_k is None:
             solid_k = torch.zeros_like(live)
-        inter = chain_inter(h, o, d)
+        inter = chain_inter(h, o, d, tme)
         mat_ids = _rows(inter["mat_id"], scene["mat_type"])
         mode = scene["mat_alpha_mode"][mat_ids]
         cutoff = scene["mat_alpha_cutoff"][mat_ids]
@@ -662,14 +804,15 @@ def _occluded(scene, meta, origin, direction, t_max, rand_key=None,
                                                device=dev) - SHADOW_EPS,
                                (n,))
     per_lane_key = isinstance(rand_key, torch.Tensor) and rand_key.ndim > 0
-    o, d, key, rkey = origin, direction, key0, rand_key
+    o, d, key, rkey, tme = origin, direction, key0, rand_key, time
     lane = torch.arange(n, dtype=torch.int64, device=dev)
     live = ~occ0
     occ = occ0.clone()
     it_ = 0
     # data-dependent loop: one host sync per restart (the .item() below)
     while it_ < MAX_RESTARTS and bool(live.any().item()):
-        o, t_rem, newly, live = body(o, d, t_rem, live, lane, key, rkey, it_)
+        o, t_rem, newly, live = body(o, d, t_rem, live, lane, key, rkey, it_,
+                                     tme)
         # lane < n always; clamped so a CUDA scatter can never fault
         occ[torch.clamp(lane, 0, n - 1)] |= newly
         it_ += 1
@@ -683,6 +826,7 @@ def _occluded(scene, meta, origin, direction, t_max, rand_key=None,
                 o, d, t_rem, lane = o[take], d[take], t_rem[take], lane[take]
                 key = key[take] if key is not None else None
                 rkey = rkey[take] if per_lane_key else rkey
+                tme = tme[take] if tme is not None else None
                 live = live[take]
     if stats is not None:
         stats["calls"] = stats.get("calls", 0) + 1
@@ -691,7 +835,7 @@ def _occluded(scene, meta, origin, direction, t_max, rand_key=None,
 
 
 def occluded(scene, meta, origin, direction, t_max, rand_key=None,
-             device=None):
+             time=None, device=None):
     """Shadow predicate: is anything solid hit in [SHADOW_EPS, t_max -
     SHADOW_EPS)?
 
@@ -712,4 +856,4 @@ def occluded(scene, meta, origin, direction, t_max, rand_key=None,
     return _occluded(to_device(scene, dev), meta, origin.to(dev),
                      direction.to(dev),
                      torch.as_tensor(t_max, dtype=torch.float32).to(dev),
-                     rand_key)
+                     rand_key, time=None if time is None else time.to(dev))

@@ -3,8 +3,9 @@ pathtracing_tpu/scene/lights.py).
 
 A typed light table with branch-free per-type math selected by masks and
 a CDF-based power (or uniform) light sampler.  Kinds in this package:
-uniform infinite, distant, point, and area lights on triangles, quads and
-spheres.  Texture-backed kinds (env maps, emissive textures) come with
+uniform infinite, distant, point, and area lights on triangles, quads,
+spheres and the triangles of run-time instances; moving shapes and point
+lights are sampled at the ray's shutter time.  Texture-backed kinds (env maps, emissive textures) come with
 textures; the builder refuses them.
 
 Conventions: delta lights (distant/point) are never MIS-weighted; infinite
@@ -22,7 +23,8 @@ from ..core.math import (fcos, fsin, fsqrt, vdot, safe_normalize,
                          BIG_F32, pack3, scross, ssafe_normalize, sdot,
                          unpack3)
 from .types import (LIGHT_UNIFORM_INF, LIGHT_ENV_TEX, LIGHT_DISTANT,
-                    LIGHT_POINT, LIGHT_AREA, SHAPE_TRI, SHAPE_SPH)
+                    LIGHT_POINT, LIGHT_AREA, SHAPE_TRI, SHAPE_SPH,
+                    SHAPE_ITRI)
 
 INV_4PI = 1.0 / (4.0 * math.pi)
 
@@ -57,10 +59,17 @@ def light_pmf(scene, meta, idx):
     return torch.where(total > 0, power / total, 1.0)
 
 
-def _sample_shape(scene, meta, kind, sidx, uv2):
-    """Uniform point sample on a triangle (sqrt warp), sphere or quad.
-    Returns (p, n, uv)."""
-    tv = scene["tri_v"][_clip_rows(sidx, scene["tri_v"])]
+def _sample_shape(scene, meta, kind, sidx, uv2, time=None):
+    """Uniform point sample on a triangle (sqrt warp), sphere, quad or
+    instanced triangle (sidx = inst * n_obj_tri + object triangle: the
+    object-space triangle pushed through the instance transform).  Moving
+    shapes are sampled at the ray time.  Returns (p, n, uv)."""
+    motion = meta.has_motion and time is not None
+    ti = _clip_rows(sidx, scene["tri_v"])
+    tv = scene["tri_v"][ti]
+    if motion:
+        tv = tv + (scene["tri_vel"][_clip_rows(sidx, scene["tri_vel"])]
+                   * time[:, None])[:, None, :]
     tuv = scene["tri_uv"][_clip_rows(sidx, scene["tri_uv"])]
     su = fsqrt(torch.clamp(uv2[..., 0], min=0.0))
     b1 = 1.0 - su
@@ -78,6 +87,8 @@ def _sample_shape(scene, meta, kind, sidx, uv2):
 
     si = _clip_rows(sidx, scene["sph_c"])
     c = scene["sph_c"][si]
+    if motion:
+        c = c + scene["sph_vel"][si] * time[:, None]
     r = scene["sph_r"][si]
     z = 1.0 - 2.0 * uv2[..., 0]
     rr = fsqrt(torch.clamp(1.0 - z * z, min=0.0))
@@ -87,7 +98,10 @@ def _sample_shape(scene, meta, kind, sidx, uv2):
     uv_s = sphere_uv(dir_s)
 
     qi = _clip_rows(sidx, scene["quad_q"])
-    p_q = (scene["quad_q"][qi] + uv2[..., 0:1] * scene["quad_u"][qi]
+    qq = scene["quad_q"][qi]
+    if motion:
+        qq = qq + scene["quad_vel"][qi] * time[:, None]
+    p_q = (qq + uv2[..., 0:1] * scene["quad_u"][qi]
            + uv2[..., 1:2] * scene["quad_v"][qi])
     n_q = scene["quad_n"][qi]
 
@@ -96,6 +110,27 @@ def _sample_shape(scene, meta, kind, sidx, uv2):
     p = torch.where(is_t, p_t, torch.where(is_s, p_s, p_q))
     n = torch.where(is_t, n_t, torch.where(is_s, dir_s, n_q))
     uv = torch.where(is_t, uv_t, torch.where(is_s, uv_s, uv2))
+    if meta.n_inst:
+        ii = torch.clamp(sidx // meta.n_obj_tri, 0,
+                         scene["inst_fwd"].shape[0] - 1)
+        oi = torch.clamp(sidx % meta.n_obj_tri, 0,
+                         scene["otri_v"].shape[0] - 1)
+        fwd = scene["inst_fwd"][ii]                          # [N,3,4]
+        wv = torch.einsum("nij,nkj->nki", fwd[:, :, :3],
+                          scene["otri_v"][oi]) + fwd[:, None, :, 3]
+        if motion:
+            wv = wv + (scene["inst_vel"][ii] * time[:, None])[:, None, :]
+        p_i = (b0[:, None] * wv[:, 0] + b1[:, None] * wv[:, 1]
+               + b2[:, None] * wv[:, 2])
+        n_i = safe_normalize(torch.cross(wv[:, 1] - wv[:, 0],
+                                         wv[:, 2] - wv[:, 0], dim=-1))
+        ouv = scene["otri_uv"][oi]
+        uv_i = (b0[:, None] * ouv[:, 0] + b1[:, None] * ouv[:, 1]
+                + b2[:, None] * ouv[:, 2])
+        is_i = (kind == SHAPE_ITRI)[:, None]
+        p = torch.where(is_i, p_i, p)
+        n = torch.where(is_i, n_i, n)
+        uv = torch.where(is_i, uv_i, uv)
     return p, n, uv
 
 
@@ -155,7 +190,12 @@ def light_sample(scene, meta, idx, ref_p, u_cell, uv2, time=None):
     # distant: jittered fixed direction
     dist_dir = safe_normalize(lvec + sph_dir * 0.02)
     p_a, n_a, uv_a = _sample_shape(scene, meta, shape[..., 0],
-                                   shape[..., 1], uv2)
+                                   shape[..., 1], uv2, time)
+    if meta.has_light_motion and time is not None:
+        # a moving point light sits at position + velocity * time
+        lvec = torch.where((ltype == LIGHT_POINT)[..., None],
+                           lvec + scene["light_vel"][lid] * time[:, None],
+                           lvec)
 
     is_delta = (ltype == LIGHT_DISTANT) | (ltype == LIGHT_POINT)
     to_inf = ((ltype == LIGHT_UNIFORM_INF) | (ltype == LIGHT_ENV_TEX)

@@ -18,10 +18,23 @@ every table padded to >= 1 row so gathers stay well-formed:
   light_type[L], light_color[L,3], light_vec[L,3], light_shape[L,2],
   light_flags[L], light_area[L], light_power[L], light_cdf[L],
   light_total_power[1], inf_idx[LI]
-  pk_*  two-level traversal tables (accel/trace2.py); when some but not
-        all triangles have an alpha material, pk_* covers the opaque ones
-        and pka_* the alpha ones, with pka_mask the per-slot micro-mask
-        words (alphamask.py)
+  tri_vel [T,3], sph_vel [S,3], quad_vel [Q,3], light_vel [L,3]  linear
+        velocities (position at ray time t is position + velocity * t)
+  run-time instances (only when meta.n_inst > 0):
+  otri_v / otri_n / otri_tan [O,3,3], otri_uv [O,3,2], otri_prop [O,4]
+        object-space triangles of the instanced models, each model once
+  inst_fwd / inst_inv [I,3,4] object-to-world / world-to-object affine,
+  inst_nrm [I,3,3] inverse transpose (normals), inst_base / inst_count [I]
+        the instance's range of otri_*, inst_vel [I,3],
+  inst_slot_base [I], ilight_map [*]  light id of a hit on (instance i,
+        object triangle o) = ilight_map[inst_slot_base[i] + o - base_i]
+  pk_*  traversal tables: the two-level ones (accel/trace2.py, with
+        "pk_l1_base") or the single-level ones (accel/trace1.py); when
+        some but not all triangles have an alpha material, pk_* covers
+        the opaque ones and pka_* the alpha ones, with pka_mask the
+        per-slot micro-mask words (alphamask.py)
+A hit on a run-time instance has kind SHAPE_ITRI and idx = instance *
+meta.n_obj_tri + object triangle.
 """
 from __future__ import annotations
 
@@ -38,7 +51,7 @@ LIGHT_AREA = 4
 SHAPE_TRI = 0
 SHAPE_SPH = 1
 SHAPE_QUAD = 2
-SHAPE_ITRI = 3   # instanced triangle (not in this package yet)
+SHAPE_ITRI = 3   # triangle of a run-time instance
 
 ALPHA_OPAQUE = 0
 ALPHA_BLEND = 1
@@ -49,9 +62,8 @@ ALPHA_MASK = 2
 class SceneMeta:
     """Same fields as the reference package's SceneMeta, so a scene built
     there carries across (convert.from_numpy_scene).  Fields for features
-    this package does not run yet (media, run-time instances, motion,
-    environment and emissive textures) must hold their "absent" values
-    here."""
+    this package does not run yet (media, environment and emissive
+    textures) must hold their "absent" values here."""
     n_tri: int = 0
     n_sph: int = 0
     n_quad: int = 0
@@ -66,8 +78,8 @@ class SceneMeta:
     camera_medium: int = -1
     has_alpha: bool = False
     light_sampler: str = "power"  # "power" | "uniform"
-    accel: str = "brute"          # "pallas" (two-level kernel) | "brute"
-    block_k: int = 0              # K2: triangles per child block
+    accel: str = "brute"          # "pallas" (traversal kernels) | "brute"
+    block_k: int = 0              # triangles per (child) block of pk_*
     block_g: int = 16             # G: child blocks per L1 superblock
     block_pops: int = 1
     alpha_block_k: int = 0

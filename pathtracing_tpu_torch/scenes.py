@@ -193,8 +193,11 @@ def sanmiguel_analog(resolution=(1920, 1080), n_tris=10_500_000,
         grid with plateau "buildings" (local occlusion, deep paths),
         textured (1K base + normal map);
       * `foliage` instances of a 96-triangle alpha-MASK shrub model,
-        re-emitted as world triangles at build time (alpha-tested shadow
-        rays through the pka_* table split);
+        added with runtime="auto": re-emitted as world triangles at build
+        time by default, kept as run-time instances (the shrub stored
+        once, instanced two-level alpha tables) with PT_FLATTEN_MAX=0 in
+        the environment (alpha-tested shadow rays through the pka_* table
+        split either way);
       * a glass and a metal sphere;
       * emissive lamp meshes on the walls (per-triangle area lights);
       * a distant sun + uniform sky.
@@ -255,7 +258,8 @@ def sanmiguel_analog(resolution=(1920, 1080), n_tris=10_500_000,
                             [-s * sc, 0, c * sc, pz[k]],
                             [0, 0, 0, 1]], np.float32)
             # runtime="auto": the builder re-emits this 240K-triangle
-            # foliage as world triangles at build time
+            # foliage as world triangles at build time unless
+            # PT_FLATTEN_MAX says otherwise
             b.add_model_instance(shrub, t, runtime="auto")
 
         # ---- glass / metal props in view

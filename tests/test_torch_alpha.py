@@ -171,12 +171,23 @@ def _rays(n=2048, seed=3):
 
 @pytest.fixture(scope="module")
 def card_scenes():
-    return dict(
-        jax=_card_scene(jbuilder, accel="brute"),
-        split=_card_scene(tbuilder, accel="pallas", device="cpu"),
-        brute=_card_scene(tbuilder, accel="brute", device="cpu"),
-        split_blend=_card_scene(tbuilder, blend=True, accel="pallas",
-                                device="cpu"))
+    """The card scene: the JAX brute build, the port's brute build and its
+    split tables, forced onto the two-level kernel with TWOLEVEL_MIN = 0
+    (920 triangles would go to the single-level one, which has its own
+    tests in test_torch_trace1.py)."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tbuilder, "TWOLEVEL_MIN", 0)
+    try:
+        out = dict(
+            jax=_card_scene(jbuilder, accel="brute"),
+            split=_card_scene(tbuilder, accel="pallas", device="cpu"),
+            brute=_card_scene(tbuilder, accel="brute", device="cpu"),
+            split_blend=_card_scene(tbuilder, blend=True, accel="pallas",
+                                    device="cpu"))
+    finally:
+        mp.undo()
+    assert "pk_l1_base" in out["split"][0] and "pka_l1_base" in out["split"][0]
+    return out
 
 
 def _t(*arrays):
@@ -433,16 +444,14 @@ def test_torch_model_instances_flatten_like_jax():
         np.testing.assert_array_equal(ts[k].numpy(), np.asarray(js[k]), k)
 
 
-def test_torch_unported_features_still_refused():
+def test_torch_unported_features_still_refused(monkeypatch):
     b = tbuilder.SceneBuilder()
     v, f = _quad_model()
     mid = b.add_model(v, f)
-    with pytest.raises(NotImplementedError, match="instanced mode"):
-        b.add_model_instance(mid, runtime=True)
-    with pytest.raises(NotImplementedError, match="motion"):
-        b.add_model_instance(mid, velocity=(1.0, 0.0, 0.0))
-    with pytest.raises(NotImplementedError, match="motion"):
-        b.add_mesh(v, f, velocity=(0.0, 1.0, 0.0))
+    # run-time instances and motion are ported: they build
+    b.add_model_instance(mid, runtime=True)
+    b.add_model_instance(mid, velocity=(1.0, 0.0, 0.0))
+    b.add_mesh(v, f, velocity=(0.0, 1.0, 0.0))
     with pytest.raises(NotImplementedError, match="media"):
         b.add_medium((0.1,) * 3, (0.1,) * 3)
     with pytest.raises(NotImplementedError, match="media"):
@@ -451,14 +460,21 @@ def test_torch_unported_features_still_refused():
         b.add_env_light(0)
     with pytest.raises(NotImplementedError, match="emissive texture"):
         b.add_quad([0, 0, 0], [1, 0, 0], [0, 1, 0], em_tex=0)
+    # an emissive model under "auto" stays a run-time instance with its own
+    # area lights, and so does an "auto" total above the flatten limit
     lamp = b.add_model(v, f, emission=(5.0, 5.0, 5.0))
-    with pytest.raises(NotImplementedError, match="emissive model"):
-        b.add_model_instance(lamp, runtime="auto")
-    # an "auto" total above the flatten limit would stay run-time instances
-    big_f = np.zeros((tbuilder.FLATTEN_MAX // 4 + 1, 3), np.int32)
-    big = b.add_model(v, big_f)
-    for _ in range(4):
-        b.add_model_instance(big, runtime="auto")
-    b.set_camera([0, 0, -5], [0, 0, 0], 0.8, (4, 4))
-    with pytest.raises(NotImplementedError, match="run-time instances"):
-        b.build(device="cpu")
+    b.add_model_instance(lamp, runtime="auto")
+    b.add_model_instance(mid, runtime="auto")
+    b.set_camera([0, 0, -5], [0, 0, 0], 0.8, (4, 4), shutter=(0.0, 1.0))
+    scene, _, meta = b.build(device="cpu")
+    assert meta.n_inst == 2 and meta.has_motion      # mid's "auto" flattened
+    assert meta.n_lights == len(f) and "ilight_map" in scene
+    with pytest.raises(NotImplementedError):
+        b.build(accel="bvh", device="cpu")
+    b2 = tbuilder.SceneBuilder()
+    mid2 = b2.add_model(v, f)
+    for _ in range(3):
+        b2.add_model_instance(mid2, runtime="auto")
+    b2.set_camera([0, 0, -5], [0, 0, 0], 0.8, (4, 4))
+    monkeypatch.setattr(tbuilder, "FLATTEN_MAX", 2 * len(f))
+    assert b2.build(device="cpu")[2].n_inst == 3

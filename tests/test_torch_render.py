@@ -1,8 +1,9 @@
 """End-to-end parity of pathtracing_tpu_torch's renders with the JAX
 package: the San-Miguel-analog slices, untextured and faithful (carried
 across with convert.from_numpy_scene, and built by the port's own builder
-on its two-level traversal path), the committed goldens, and the import
-guard."""
+on its two-level traversal path: these small scenes are forced onto it
+with TWOLEVEL_MIN = 0, the single-level path has its own tests in
+test_torch_trace1.py), the committed goldens, and the import guard."""
 import dataclasses
 import subprocess
 import sys
@@ -22,8 +23,24 @@ from pathtracing_tpu_torch.accel import trace2
 from pathtracing_tpu_torch.core.rng import SamplerConfig as TSampler
 from pathtracing_tpu_torch.integrators.path import RenderConfig as TConfig
 from pathtracing_tpu_torch.integrators.render import render_image as t_render
+from pathtracing_tpu_torch.scene import builder as tbuilder
 
 torch.set_num_threads(2)
+
+
+def _own_two_level(**kw):
+    """The port's own build of sanmiguel_analog forced onto the two-level
+    tables (sets of 65,536 triangles or fewer go to the single-level
+    kernel by default)."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tbuilder, "TWOLEVEL_MIN", 0)
+    try:
+        own = tscenes.sanmiguel_analog(accel="pallas", device="cpu", **kw)
+    finally:
+        mp.undo()
+    assert "pk_l1_base" in own[0]
+    assert "pka_tri" not in own[0] or "pka_l1_base" in own[0]
+    return own
 
 GOLDEN_DIR = Path(__file__).parent / "goldens"
 
@@ -47,9 +64,7 @@ def _cfgs(regenerate):
 def slice_scenes():
     jscene = jscenes.sanmiguel_analog(resolution=(32, 32), n_tris=8_000,
                                       faithful=False, accel="brute")
-    own = tscenes.sanmiguel_analog(resolution=(32, 32), n_tris=8_000,
-                                   faithful=False, accel="pallas",
-                                   device="cpu")
+    own = _own_two_level(resolution=(32, 32), n_tris=8_000, faithful=False)
     return jscene, _carry(*jscene), own
 
 
@@ -63,8 +78,20 @@ def faithful_scenes():
     carried = _carry(*jscene)
     # the carried scene runs the masked split-table path too
     jpallas = dataclasses.replace(jscene[2], accel="pallas")
-    carried_split = _carry(jscene[0], jscene[1], jpallas)
-    own = tscenes.sanmiguel_analog(accel="pallas", device="cpu", **kw)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tbuilder, "TWOLEVEL_MIN", 0)
+    try:
+        # no pk_* tables in the brute JAX scene: the rebuilt tables take
+        # the builder's rule, here forced to two-level like `own`
+        carried_split = convert.from_numpy_scene(
+            {k: np.asarray(v) for k, v in jscene[0].items()},
+            {k: (np.asarray(v) if k != "resolution" else v)
+             for k, v in jscene[1].items()},
+            {f.name: getattr(jpallas, f.name)
+             for f in dataclasses.fields(jpallas)}, device="cpu")
+    finally:
+        mp.undo()
+    own = _own_two_level(**kw)
     return jscene, carried, carried_split, own
 
 
@@ -172,17 +199,27 @@ def test_torch_slice_render_matches_jax(slice_scenes, regenerate):
     assert trace2.tri_intersect2.launches == 0
 
 
-def test_torch_carried_pallas_scene_rebuilds_tables():
+@pytest.mark.parametrize("two_level", [False, True])
+def test_torch_carried_pallas_scene_rebuilds_tables(two_level, monkeypatch):
     """A JAX scene on its Pallas path carries across with the port's own
-    two-level tables (same SAH order => same slot ids)."""
+    tables of the same level (same SAH order => same slot ids): 12,000
+    triangles go to the single-level tables by default, and to the
+    two-level ones when both builders are told to (PT_TWOLEVEL_MIN there,
+    TWOLEVEL_MIN here)."""
+    if two_level:
+        monkeypatch.setenv("PT_TWOLEVEL_MIN", "0")
+        monkeypatch.setattr(tbuilder, "TWOLEVEL_MIN", 0)
     js, jc, jm = jscenes.sanmiguel_analog(resolution=(8, 8), n_tris=12_000,
                                           faithful=False)
-    assert jm.accel == "pallas"
+    assert jm.accel == "pallas" and ("pk_l1_base" in js) == two_level
     scene, cam, meta = _carry(js, jc, jm)
     own = tscenes.sanmiguel_analog(resolution=(8, 8), n_tris=12_000,
                                    faithful=False, device="cpu")[0]
     assert meta.accel == "pallas"
-    for k in ("pk_slot2tri", "pk_l1_base", "pk_blk_lo", "pk_tri"):
+    assert ("pk_l1_base" in scene) == two_level == ("pk_l1_base" in own)
+    keys = ("pk_slot2tri", "pk_blk_lo", "pk_tri") + (
+        ("pk_l1_base",) if two_level else ("pk_blkbox",))
+    for k in keys:
         assert torch.equal(scene[k], own[k]), k
 
 
@@ -219,6 +256,33 @@ def test_torch_goldens(name):
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
 
+def test_torch_render_stats_count_the_drain_tail(monkeypatch):
+    """render(stats=) with regenerate: "iterations" counts the drain's
+    bounce iterations, "deep_bounces" the lane bounces at or past
+    path._DEEP_BOUNCE and "deep_rehits" those whose closest hit lies nearer
+    than path._REHIT_T; the image does not depend on them."""
+    from pathtracing_tpu_torch.integrators import path as tpath
+    from pathtracing_tpu_torch.integrators.render import render
+    scene, cam, meta = tscenes.cornell_box(resolution=(12, 12), device="cpu")
+    cfg = TConfig(spp=2, max_depth=6, integrator="path", regenerate=True,
+                  sampler=TSampler(x_samples=2, y_samples=1, seed=5))
+    st = {}
+    film = render(scene, cam, meta, cfg, device="cpu", stats=st)
+    assert st["iterations"] >= 6 and st["n_rays"] > 288
+    assert st["deep_bounces"] == 0 and st["deep_rehits"] == 0   # depth 6 < 20
+    monkeypatch.setattr(tpath, "_DEEP_BOUNCE", 1)
+    st1 = {}
+    film1 = render(scene, cam, meta, cfg, device="cpu", stats=st1)
+    assert st1["iterations"] == st["iterations"]
+    assert 0 < st1["deep_bounces"] < st["n_rays"]
+    assert st1["deep_rehits"] == 0              # no hit nearer than 1e-4
+    monkeypatch.setattr(tpath, "_REHIT_T", 1e30)    # every hit counts
+    st2 = {}
+    render(scene, cam, meta, cfg, device="cpu", stats=st2)
+    assert 0 < st2["deep_rehits"] <= st2["deep_bounces"] == st1["deep_bounces"]
+    assert torch.equal(film["rgb"], film1["rgb"])
+
+
 def test_torch_entry_points_need_a_device_choice():
     """Without a GPU, public entry points raise unless device='cpu'."""
     if torch.cuda.is_available():
@@ -231,17 +295,21 @@ def test_torch_entry_points_need_a_device_choice():
 
 
 def test_torch_faithful_scene_refused():
-    """The faithful scene builds now (its foliage instances are re-emitted
-    as world triangles); what stays refused is keeping them as run-time
-    instances."""
+    """The faithful scene builds (its foliage instances are re-emitted as
+    world triangles by default) and a model can be kept as a run-time
+    instance; what stays refused is participating media."""
     scene, _, meta = tscenes.sanmiguel_analog(resolution=(8, 8), n_tris=100,
                                               foliage=2, device="cpu")
     assert meta.has_alpha and meta.n_inst == 0 and meta.n_tri > 100 + 2 * 96
     b = tscenes.SceneBuilder()
     mv, mf, _ = tscenes._sm_foliage_model(np.random.default_rng(3))
     shrub = b.add_model(mv, mf)
+    b.add_model_instance(shrub, runtime=True)
+    b.set_camera([0, 1, -5], [0, 1, 0], 0.8, (4, 4))
+    _, _, meta = b.build(device="cpu")
+    assert meta.n_inst == 1 and meta.n_obj_tri == 96 and meta.n_tri == 0
     with pytest.raises(NotImplementedError):
-        b.add_model_instance(shrub, runtime=True)
+        b.add_medium((0.1,) * 3, (0.1,) * 3)
 
 
 def test_torch_package_imports_no_jax():

@@ -408,96 +408,24 @@ def test_torch_trace2_kernel_matches_plain_on_card():
             assert torch.equal(got[k], ref[k]), (amask, k)
 
 
-_HOST_SHIM = r"""
-#include <cmath>
-#include <cstdint>
-#include <cstddef>
-#include <cstring>
-struct float4 { float x, y, z, w; };
-struct int4 { int x, y, z, w; };
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __restrict__
-struct dim3_ { int x; };
-static dim3_ blockIdx, threadIdx, blockDim;
-inline float4 __ldg(const float4* p) { return *p; }
-inline int4 __ldg(const int4* p) { return *p; }
-inline float __int_as_float(int i) {
-  float f;
-  std::memcpy(&f, &i, 4);
-  return f;
-}
-inline int __ffsll(long long x) { return __builtin_ffsll(x); }
-"""
-
-_HOST_LAUNCH = r"""
-extern "C" void trace2_host(const float* orig, const float* dirs,
-                            const float* tmax, int n, const float* l1box,
-                            int m1, const int* l1_base, const float* l2box,
-                            const float* tri, const int* mask, int k2, int g,
-                            int any_hit, int amask, float* out_t,
-                            int* out_slot) {
-  blockDim.x = 1;
-  threadIdx.x = 0;
-  for (int i = 0; i < n; ++i) {
-    blockIdx.x = i;
-#define HOST_CALL(AMASK)                                                    \
-    trace2_kernel<AMASK>(orig, dirs, tmax, n, (const float4*)l1box, m1,     \
-                         l1_base, (const float4*)l2box, (const float4*)tri, \
-                         (const int4*)mask, k2, g, any_hit, out_t,          \
-                         out_slot, nullptr, nullptr)
-    if (amask == 0) HOST_CALL(0);
-    else if (amask == 1) HOST_CALL(1);
-    else HOST_CALL(2);
-#undef HOST_CALL
-  }
-}
-"""
-
-
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
     """csrc/trace2.cu compiled as plain C++ (one loop iteration per CUDA
     thread, no FMA contraction), so the kernel's traversal logic runs on
     the CPU: the card's compiler is not available here."""
-    import ctypes
     import shutil
-    import subprocess
+    from pathtracing_tpu_torch.accel import cubuild
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source as host code")
-    src = trace2._CSRC.read_text()
-    src = src.replace("#include <cuda_runtime.h>", "")
-    src = _HOST_SHIM + src[:src.index('extern "C"')] + _HOST_LAUNCH
-    d = tmp_path_factory.mktemp("trace2_host")
-    (d / "t2.cpp").write_text(src)
-    subprocess.run(["g++", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-o", str(d / "t2.so"), str(d / "t2.cpp")], check=True,
-                   capture_output=True, timeout=120)
-    lib = ctypes.CDLL(str(d / "t2.so"))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.trace2_host.argtypes = [P, P, P, I, P, I, P, P, P, P, I, I, I, I,
-                                P, P]
+    lib = trace2.bind(cubuild.host_library(
+        "trace2", tmp_path_factory.mktemp("trace2_host")))
 
     def run(tabs, o, d, t_max, any_hit, amask=0):
-        n = len(o)
-        out_t = np.empty(n, np.float32)
-        out_s = np.empty(n, np.int32)
-        m1 = tabs["pk_l1box"].shape[0]
-        g = tabs["pk_l2box"].shape[0] // m1
-        k2 = tabs["pk_tri"].shape[0] // tabs["pk_l2box"].shape[0]
-        a = [np.ascontiguousarray(x, dt) for x, dt in
-             ((o, np.float32), (d, np.float32), (t_max, np.float32))]
-        lib.trace2_host(*(x.ctypes.data for x in a), n,
-                        tabs["pk_l1box"].ctypes.data, m1,
-                        tabs["pk_l1_base"].ctypes.data,
-                        tabs["pk_l2box"].ctypes.data,
-                        tabs["pk_tri"].ctypes.data,
-                        tabs["pk_mask"].ctypes.data if amask else None,
-                        k2, g, int(any_hit), amask,
-                        out_t.ctypes.data, out_s.ctypes.data)
-        return out_t, out_s
+        t, key, _ = trace2._launch_kernel(
+            _port_tables(tabs), torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(np.ascontiguousarray(t_max, np.float32)),
+            any_hit, False, amask, host_lib=lib)
+        return t.numpy(), key.numpy()
     return run
 
 
