@@ -5,9 +5,10 @@
 
 Phases (any failure exits non-zero; the last stdout line is the JSON
 device summary only when every phase passed):
-  1. build both CUDA kernels (csrc/trace2.cu, the two-level traversal K1,
-     and csrc/trace1.cu, the single-level traversal K2; one nvcc each,
-     started together) and print each instance's registers;
+  1. build the three CUDA sources (csrc/trace2.cu, the two-level traversal
+     K1, csrc/trace1.cu, the single-level traversal K2, and csrc/leaf.cu,
+     the leaf micro-benchmark K4; one nvcc each, started together) and
+     print each instance's registers;
   2. hold every kernel mode against its plain PyTorch version on the card,
      no flip allowed:
      a. K1 and K2 closest hit and any-hit on a 200K-triangle soup (K2: cut
@@ -43,10 +44,13 @@ device summary only when every phase passed):
      scene of run-time instances, a moving mesh, a moving instance) must
      agree on more than 99% of pixel values to rtol=1e-4, atol=1e-5 (the
      faithful miniature at depth 2: its normal map amplifies one-ulp
-     differences, so its depth-4 agreement is printed, not held), and the
+     differences, so its depth-4 agreement is printed, not held), the
      shadow predicate on ~8K rays through the foliage of the small
      faithful scene, flattened and with run-time-instanced foliage, must
-     be equal lane for lane (MASK mode is deterministic);
+     be equal lane for lane (MASK mode is deterministic), and, with
+     integrator="volpath", spheres_medium and a medium bounded by a
+     4,992-triangle mesh (through K2, and through K1 with TWOLEVEL_MIN = 0
+     and PT_WINDOW=2) must agree like the other small renders;
   4. the legacy path: sanmiguel_analog(faithful=False) at 1920x1080, path
      tracing, depth 32, 1 spp, regenerate=True, one frame through the
      public render(); launches > 0, image finite with a positive mean;
@@ -64,10 +68,32 @@ device summary only when every phase passed):
      beside phase 5's;
   7. path B: sanmiguel_analog(n_tris=60,000, foliage=600), same settings,
      one frame: K2 in its four plain modes;
-  8. print the kernel table JSON, the card's name and power limit, and the
-     device summary.
-Writes chiprun_out/sanmiguel_{legacy,faithful,tlas,small}.ppm and the whole
-output to chiprun_out/chip_smoke.log.
+     h. (after phase 5's frame) K1's new modes on the faithful scene's
+        10.5M-triangle opaque tables with 65,280 bounce rays: the schedules
+        (window 2 / 4 with pops = 2 * window, pair, pops 1 / 4) against the
+        window=1, pops=1 walk, the visit caps 1 / 2 / 16 with their
+        frontier outputs against the plain capped walk (the same two
+        checks run on the 200K soup against the brute force, on the
+        instanced and moving soups and on path A's instanced alpha
+        tables), the multipass driver (caps 16, 8, 8 then uncapped) against
+        one pass, and the new modes' times and bounds;
+  5b. path C: the faithful frame again under PT_MULTIPASS=16,8,8 and
+     PT_WINDOW=4 (the multipass driver on the mask-free opaque passes, the
+     window walk on the alpha passes); its rays per sample, image mean and
+     iterations are printed beside phase 5's;
+  8. path D: spheres_medium at 1920x1080, integrator="volpath", depth 64,
+     1 spp, regenerate=True (its own five analytic prims: no kernel; the
+     volpath kernel launches come from phase 3's small renders of a medium
+     bounded by a 4,992-triangle mesh, through K2 and through K1);
+  9. K4 (csrc/leaf.cu, tools/bench_leaf.py): every mode against its plain
+     version at n_iter=16, then the JAX tool's defaults (K2=256,
+     n_iter=2000) with microseconds per child test, and the plain versions'
+     and the library product's times;
+  10. print the kernel table JSON, the card's name and power limit, and
+     the device summary.
+Writes chiprun_out/sanmiguel_{legacy,faithful,multipass,tlas,small}.ppm,
+chiprun_out/spheres_medium.ppm and the whole output to
+chiprun_out/chip_smoke.log.
 
 The script imports nothing of JAX.  Tolerances: a kernel and its plain
 version share the arithmetic (the kernels are built without FMA
@@ -96,11 +122,21 @@ FOLIAGE = 2500              # shrub instances (96 alpha triangles each)
 N_TRIS_SMALL = 60_000       # path B: the courtyard at the size of one
 FOLIAGE_SMALL = 600         # imported model, on the single-level kernel
 FP32_PEAK = 67e12           # H100 SXM fp32 (non-tensor) FLOP/s
+TF32_PEAK = 495e12          # H100 SXM dense TF32 tensor-core FLOP/s
+BF16_PEAK = 989e12          # H100 SXM dense bf16 tensor-core FLOP/s
 HBM_RATE = 3.35e12          # H100 SXM HBM3 bytes/s
 SLAB_FLOPS = 20             # one ray/box slab test
 MT_FLOPS = 45               # one ray/triangle Moller-Trumbore test
 MASK_FLOPS = 20             # one alpha-cell lookup (affine map, bit tests)
 MASK_BYTES = 32             # mask words of one slot
+MXU_POST_FLOPS = 14         # K4: post-processing of one (ray, triangle) pair
+MULTIPASS = (16, 8, 8)      # path C's PT_MULTIPASS schedule
+LEAF_K2, LEAF_ITERS = 256, 2000    # K4's defaults (the JAX tool's)
+# K1 schedules held against the window=1, pops=1 walk (results must not
+# change) and the visit caps held against the plain capped walk
+SCHEDULES = (dict(window=2, pops=4), dict(window=4, pops=8),
+             dict(pair=True), dict(pops=1), dict(pops=4))
+CAPS = (1, 2, 16)
 
 
 def _sync_time(fn, reps=20):
@@ -400,7 +436,8 @@ def _measure(mod, scene, o, d, t_max, label, modes, prune=True,
 
 
 def _launch_counts():
-    """{"trace2[mode]" / "trace1[mode]": launches} of both kernels."""
+    """{"trace2[mode]" / "trace1[mode]": launches} of both traversal
+    kernels, by mode (the modes partition the launches)."""
     from pathtracing_tpu_torch.accel import trace1, trace2
     out = {f"trace2[{k}]": v
            for k, v in trace2.tri_intersect2.launches_by_mode.items()}
@@ -409,10 +446,25 @@ def _launch_counts():
     return out
 
 
+def _schedule_counts():
+    """{"trace2[capped|frontier|window2|window4|pair|pops<p>]": launches}:
+    K1's launches by schedule (a capped launch with frontier outputs
+    counts under both) and {"leaf[mode]": launches} of K4."""
+    from pathtracing_tpu_torch.accel import trace2
+    from pathtracing_tpu_torch.tools import bench_leaf
+    out = {f"trace2[{k}]": v
+           for k, v in trace2.tri_intersect2.launches_by_schedule.items()}
+    out.update({f"leaf[{k}]": v
+                for k, v in bench_leaf.leaf_run.launches_by_mode.items()})
+    return out
+
+
 def _reset_counts():
     from pathtracing_tpu_torch.accel import trace1, trace2
+    from pathtracing_tpu_torch.tools import bench_leaf
     trace1.reset_launches()
     trace2.reset_launches()
+    bench_leaf.reset_launches()
 
 
 def _card_vs_cpu(render_image, scene, cam, meta, cfg, label, min_frac=0.99,
@@ -425,7 +477,7 @@ def _card_vs_cpu(render_image, scene, cam, meta, cfg, label, min_frac=0.99,
     _reset_counts()
     got = render_image(scene, cam, meta, cfg, device="cuda").cpu()
     if counts is not None:       # launches of the card render, by mode
-        for k, v in _launch_counts().items():
+        for k, v in {**_launch_counts(), **_schedule_counts()}.items():
             counts[k] = counts.get(k, 0) + v
     want = render_image(scene, cam, meta, cfg, device="cpu")
     close = torch.isclose(got, want, rtol=1e-4, atol=1e-5)
@@ -575,6 +627,9 @@ def _frame(render, filmmod, scene, cam, meta, cfg, label, ppm, warm=False):
     calls = stats.get("occluded_calls", 0)
     restarts = stats.get("chain_restarts", 0) / calls if calls else 0.0
     warm_txt = f"{warm_s:.2f}s" if warm else "none"
+    if total != sum(counts.values()):
+        raise RuntimeError("per-mode launch counts do not add up")
+    counts.update(_schedule_counts())
     used = {k: v for k, v in counts.items() if v}
     rps = stats["n_rays"] / (w * h)
     print(f"[render] {label}: {w}x{h} 1spp regen: warm {warm_txt} timed "
@@ -588,12 +643,11 @@ def _frame(render, filmmod, scene, cam, meta, cfg, label, ppm, warm=False):
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     filmmod.write_ppm(film, (w, h), out_dir / ppm)
-    if total != sum(counts.values()):
-        raise RuntimeError("per-mode launch counts do not add up")
     if not finite or not mean > 0.0:
         raise RuntimeError(f"bad image: mean={mean} finite={finite}")
     return counts, dict(rays_per_sample=rps, mean=mean, seconds=frame_s,
-                        samples_per_s=w * h / frame_s)
+                        samples_per_s=w * h / frame_s,
+                        iterations=stats["iterations"])
 
 
 def _need(counts, keys, label):
@@ -801,6 +855,245 @@ def _profile_frame(render, scene, cam, meta, cfg):
               flush=True)
 
 
+def _diff_counts(got, ref, closest, amask=0, frontier=False):
+    """Lanes where two K1 results differ: valid always; t, tri and inst
+    for a closest walk; solid under amask 2; e_next / b_next with a
+    frontier."""
+    keys = ["valid"] + (["t", "tri", "inst"] if closest else [])
+    if amask == 2:
+        keys.append("solid")
+    if frontier:
+        keys += ["e_next", "b_next"]
+    return {k: int((got[k] != ref[k]).sum()) for k in keys}
+
+
+def _compare_schedules(scene, o, d, t_max, label, amasks=(0,), **kw):
+    """K1's schedules (window 2 / 4 with pops = 2 * window, pair, pops 1
+    and 4) against its window=1, pops=1 walk: a schedule changes the order
+    of the work, never the result, so no lane may differ (closest: t, tri,
+    inst, valid; any-hit: valid; amask 2: also solid)."""
+    from pathtracing_tpu_torch.accel import trace2
+    for amask in amasks:
+        for any_hit in ((False, True) if amask == 0 else (False,)):
+            base = trace2.tri_intersect2(scene, o, d, t_max, any_hit=any_hit,
+                                         amask=amask, **kw)
+            for sched in SCHEDULES:
+                got = trace2.tri_intersect2(scene, o, d, t_max,
+                                            any_hit=any_hit, amask=amask,
+                                            **sched, **kw)
+                diff = _diff_counts(got, base, not any_hit, amask)
+                print(f"[schedule] {label} amask={amask} any_hit={any_hit} "
+                      f"{sched} vs window=1 pops=1: hits "
+                      f"{int(base['valid'].sum())}, lanes differing {diff}",
+                      flush=True)
+                if any(diff.values()):
+                    raise RuntimeError(f"K1 schedule {sched} changed the "
+                                       f"result on {label}")
+
+
+def _compare_caps(scene, o, d, t_max, label, prune=True, **kw):
+    """K1's capped walk with frontier outputs (caps 1, 2, 16) against the
+    plain capped walk: t, tri, inst, valid (closest; valid only for
+    any-hit, whose occluder is whichever the walk found first), e_next and
+    b_next must agree on every lane."""
+    from pathtracing_tpu_torch.accel import trace2
+    for any_hit in (False, True):
+        for cap in CAPS:
+            got = trace2.tri_intersect2(scene, o, d, t_max, any_hit=any_hit,
+                                        max_visits=cap, frontier=True, **kw)
+            ref = trace2.tri_intersect2_plain(scene, o, d, t_max,
+                                              any_hit=any_hit, prune=prune,
+                                              max_visits=cap, frontier=True,
+                                              **kw)
+            diff = _diff_counts(got, ref, not any_hit, frontier=True)
+            print(f"[cap] {label} any_hit={any_hit} max_visits={cap} vs "
+                  f"{'culled' if prune else 'brute'} plain capped walk: "
+                  f"hits {int(ref['valid'].sum())} unresolved "
+                  f"{int((ref['e_next'] < 3e38).sum())}, lanes differing "
+                  f"{diff}", flush=True)
+            if any(diff.values()):
+                raise RuntimeError(f"K1 max_visits={cap} disagrees with the "
+                                   f"plain capped walk on {label}")
+
+
+def _measure_schedules(scene, o, d, t_max, label):
+    """Time, bound and plain-version time of K1's new modes on these rays
+    (closest hit): the capped walk (cap 16) without and with its frontier
+    outputs, window 2 / 4 and pair at the main path's pops=4, and pops 4
+    alone.  The plain version of a schedule is the uncapped plain walk
+    (schedules do not change the function); the capped rows' is the plain
+    capped walk.  Returns rows keyed trace2[capped] ... trace2[pops4]."""
+    import torch
+    from pathtracing_tpu_torch.accel import trace2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace2.tri_intersect2_plain(scene, o, d, t_max)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rows = {}
+    for name, kw in (("capped", dict(max_visits=16)),
+                     ("frontier", dict(max_visits=16, frontier=True)),
+                     ("window2", dict(window=2, pops=4)),
+                     ("window4", dict(window=4, pops=4)),
+                     ("pair", dict(pair=True, pops=4)),
+                     ("pops4", dict(pops=4))):
+        ms = _sync_time(lambda: trace2.tri_intersect2(scene, o, d, t_max,
+                                                      **kw))
+        b_ms, b_by = _bound_ms(trace2, scene, o, d, t_max, **kw)
+        p_ms = plain_ms
+        if "max_visits" in kw:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trace2.tri_intersect2_plain(scene, o, d, t_max, **kw)
+            torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t0) * 1e3
+        rows[f"trace2[{name}]"] = dict(max_abs_err=0.0, ms=ms, plain_ms=p_ms,
+                                       bound_ms=b_ms, bound_by=b_by,
+                                       schedule=str(kw))
+        print(f"[kernel] {label} {name} {kw}: {ms:.3f} ms, plain {p_ms:.1f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return rows
+
+
+def _multipass_check(scene, o, d, t_max, label):
+    """The multipass driver (scene/intersect.py::_multipass2, caps
+    MULTIPASS then an uncapped pass) against one uncapped K1 pass: valid
+    and t equal on every ray; tri may differ only between two triangles
+    at the same t (the driver keeps a pass's hit only when strictly
+    closer).  Closest and any-hit (valid only)."""
+    import torch
+    from pathtracing_tpu_torch.accel import trace2
+    from pathtracing_tpu_torch.scene.intersect import _multipass2
+    for any_hit in (False, True):
+        one = trace2.tri_intersect2(scene, o, d, t_max, any_hit=any_hit)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mp = _multipass2(scene, o, d, t_max, any_hit, None, MULTIPASS)
+        torch.cuda.synchronize()
+        mp_ms = (time.perf_counter() - t0) * 1e3
+        one_ms = _sync_time(lambda: trace2.tri_intersect2(
+            scene, o, d, t_max, any_hit=any_hit), reps=5)
+        v_diff = int((mp["valid"] != one["valid"]).sum())
+        t_diff = 0 if any_hit else int((mp["t"] != one["t"]).sum())
+        tri_diff = 0 if any_hit else int((mp["tri"] != one["tri"]).sum())
+        print(f"[multipass] {label} any_hit={any_hit} visits={MULTIPASS}: "
+              f"{mp_ms:.1f} ms (host clock, 4 passes + re-sorts) vs one pass "
+              f"{one_ms:.3f} ms; hits {int(one['valid'].sum())}, valid "
+              f"differing {v_diff}, t differing {t_diff}, tri differing "
+              f"{tri_diff} (only where two triangles tie in t)", flush=True)
+        if v_diff or t_diff:
+            raise RuntimeError(f"the multipass driver disagrees with one "
+                               f"pass on {label}")
+
+
+def _leaf_phase():
+    """K4: build leaf.cu, hold every mode against its plain version at a
+    small n_iter (the vpu modes bit for bit; the tensor-core modes within
+    the tolerances below), then run the JAX tool's defaults through the
+    port's entry point with the launch counts set to 0 just before and
+    read just after, and time the plain versions and the library product.
+    Returns (rows keyed leaf[mode], launches by mode)."""
+    import torch
+    from pathtracing_tpu_torch.tools import bench_leaf as bl
+    k2 = LEAF_K2
+    tabs = bl.kernel_tables(bl.make_inputs(k2), "cuda")
+    # vpu*: the same float32 operations in the same order (no FMA
+    # contraction), so equal; mxu_hi: 3xTF32 against an f32 product, a few
+    # f32 ulps of det/t*det; mxu_3x / mxu_1x: bf16 operands, the tensor
+    # cores sum the exact products in another order than the plain loop
+    tol = dict(mxu_hi=1e-4, mxu_3x=1e-3, mxu_1x=1e-3)
+    abs_err = {}
+    for mode in bl.MODES:
+        got = bl.leaf_run(mode, tabs, k2, 16)
+        ref = bl.leaf_plain(mode, tabs, k2, 16)
+        err = bl.max_rel_err(got, ref)
+        abs_err[mode] = float((got - ref).abs().max())
+        print(f"[leaf] {mode} n_iter=16 vs plain: max rel err {err:.3e} "
+              f"(allowed {tol.get(mode, 0.0):.0e}); hits "
+              f"{int((ref < 1e29).sum())}/128", flush=True)
+        if not err <= tol.get(mode, 0.0):
+            raise RuntimeError(f"leaf mode {mode} disagrees with its plain "
+                               f"version")
+    torch.cuda.synchronize()
+    _reset_counts()
+    res = bl.bench(k2, LEAF_ITERS,
+                   printer=lambda x: print(f"[leaf] {x}", flush=True))
+    torch.cuda.synchronize()
+    counts = _schedule_counts()
+    # the product of the tensor-core modes as one torch.matmul call each
+    rays = tabs["rays"]
+    o, dd = rays[0:3].T, rays[3:6].T
+    a = torch.stack([dd[:, 0], dd[:, 1], dd[:, 2], o[:, 0], o[:, 1], o[:, 2],
+                     o[:, 1] * dd[:, 2] - o[:, 2] * dd[:, 1],
+                     o[:, 2] * dd[:, 0] - o[:, 0] * dd[:, 2],
+                     o[:, 0] * dd[:, 1] - o[:, 1] * dd[:, 0],
+                     torch.ones_like(o[:, 0])] + [torch.zeros_like(o[:, 0])] * 6,
+                    1).contiguous()
+    b = tabs["trib"]
+    ah, bh = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    al = (a - ah.float()).to(torch.bfloat16)
+    bl_ = (b - bh.float()).to(torch.bfloat16)
+    lib = {"mxu_hi": lambda: torch.matmul(a, b),
+           "mxu_3x": lambda: (torch.matmul(ah, bh).float()
+                              + torch.matmul(ah, bl_).float()
+                              + torch.matmul(al, bh).float()),
+           "mxu_1x": lambda: torch.matmul(ah, bh)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+    for mode in bl.MODES:
+        r = res[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bl.leaf_plain(mode, tabs, k2, LEAF_ITERS)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        pairs = 128 * k2 * (LEAF_ITERS // 16 * 16 if mode == "vpu_while"
+                            else LEAF_ITERS)
+        if mode.startswith("mxu"):
+            passes = 1 if mode == "mxu_1x" else 3
+            ops = passes * 2 * 128 * 16 * 4 * k2 * LEAF_ITERS
+            peak = TF32_PEAK if mode == "mxu_hi" else BF16_PEAK
+            bound = max(ops / peak, pairs * MXU_POST_FLOPS / FP32_PEAK) * 1e3
+            lib_ms = _sync_time(lib[mode], reps=200) * LEAF_ITERS
+            lib_txt = (f"library: {LEAF_ITERS} x one torch.matmul of the "
+                       f"[128,16] x [16,{4 * k2}] product at this precision "
+                       f"({lib_ms / LEAF_ITERS * 1e3:.2f} us each)")
+        else:
+            ops_ms = pairs * MT_FLOPS / FP32_PEAK * 1e3
+            streamed = (LEAF_ITERS if mode in ("vpu_dma", "vpu_while")
+                        else 1) * k2 * 48
+            bound = max(ops_ms, (streamed + 128 * 32) / HBM_RATE * 1e3)
+            lib_ms = None
+            lib_txt = "library: none (no PyTorch call runs a ray/triangle test)"
+        rows[f"leaf[{mode}]"] = dict(
+            max_abs_err=abs_err[mode], ms=r["ms"], plain_ms=plain_ms,
+            bound_ms=bound, bound_by="operations", library_ms=lib_ms,
+            us_per_child=r["us_per_child"], library=lib_txt,
+            max_rel_err_vs_vpu=r["err_vs_vpu"])
+        print(f"[kernel] leaf {mode}: {r['ms']:.3f} ms per run of "
+              f"{LEAF_ITERS} child tests ({r['us_per_child']:.3f} us/child), "
+              f"plain {plain_ms:.1f} ms, bound {bound:.4f} ms (operations), "
+              f"{lib_txt}", flush=True)
+    return rows, counts
+
+
+def _medium_mesh_scene(two_level, window=None, device="cpu"):
+    """Small volpath scene whose medium is bounded by a triangle mesh: a
+    5,000-triangle sphere mesh without a material (medium=fog inside)
+    over a diffuse floor, a diffuse sphere, an area light and a sky.
+    two_level: build its tables with TWOLEVEL_MIN = 0 (K1), else the
+    default rule (K2)."""
+    from pathtracing_tpu_torch import scenes
+    from pathtracing_tpu_torch.scene import builder as builder_mod
+    saved = builder_mod.TWOLEVEL_MIN
+    if two_level:
+        builder_mod.TWOLEVEL_MIN = 0
+    try:
+        return scenes.medium_mesh(resolution=(48, 48), device=device)
+    finally:
+        builder_mod.TWOLEVEL_MIN = saved
+
+
 class _Tee:
     """stdout that also lands in a file, so a long output is kept whole."""
 
@@ -843,8 +1136,10 @@ def main() -> int:
     from pathtracing_tpu_torch.native.loader import native_available
     from pathtracing_tpu_torch.scene import builder
     from pathtracing_tpu_torch.scene.intersect import _subset_scene
+    from pathtracing_tpu_torch.scene.intersect import _multipass_visits
     from pathtracing_tpu_torch.scenes import (cornell_box, sanmiguel_analog,
-                                              textured_quad)
+                                              spheres_medium, textured_quad)
+    from pathtracing_tpu_torch.tools import bench_leaf
     from pathtracing_tpu_torch.sensor import film as filmmod
 
     dev = torch.device("cuda")
@@ -870,9 +1165,13 @@ def main() -> int:
     cubuild.build_all()
     trace2.build_kernel()
     trace1.build_kernel()
-    print(f"[build] trace2.cu + trace1.cu built+loaded in "
+    bench_leaf.build_kernel()
+    print(f"[build] trace2.cu + trace1.cu + leaf.cu built+loaded in "
           f"{time.perf_counter() - t0:.2f}s ({cubuild.BUILD_SECONDS})",
           flush=True)
+    for line in cubuild.BUILD_LOG.get("leaf", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build] leaf {line.strip()}", flush=True)
     for stem in ("trace2", "trace1"):
         for name, line in cubuild.kernel_resources(stem):
             print(f"[build] {stem} {name}: {line}", flush=True)
@@ -890,6 +1189,11 @@ def main() -> int:
     soup["tri_v"] = torch.from_numpy(tri_v).to(dev)
     _compare(trace2, soup, o, d, big, "K1 soup 200K tris x 64K rays",
              prune=False)
+    # K1's new modes: schedules against the window=1 walk (itself held to
+    # the brute force just above), caps against the brute capped walk
+    _compare_schedules(soup, o, d, big, "K1 soup 200K tris x 64K rays")
+    _compare_caps(soup, o, d, big, "K1 soup 200K tris x 64K rays",
+                  prune=False)
     soup = on_card(trace1.build_tri_blocks(tri_v[:65536])[0])
     soup["tri_v"] = torch.from_numpy(tri_v[:65536]).to(dev)
     _compare(trace1, soup, o, d, big, "K2 soup 65,536 tris x 64K rays",
@@ -926,18 +1230,25 @@ def main() -> int:
     tabs = on_card(trace2.build_tri_blocks2_inst(*iargs, g=32)[0])
     r = _measure(trace2, tabs, o, d, big, "K1 instanced soup (300 instances "
                  "+ 20K world tris)", ("closest", "any_hit"), brute_rays=8192)
+    _compare_schedules(tabs, o, d, big, "K1 instanced soup")
+    _compare_caps(tabs, o, d, big, "K1 instanced soup")
     kern["trace2[inst_closest]"] = r["closest"]
     kern["trace2[inst_any_hit]"] = r["any_hit"]
     tabs = on_card(trace2.build_tri_blocks2_inst(
         *iargs, g=32, tri_vel=wvel, inst_vel=ivel, shutter=shut)[0])
     r = _measure(trace2, tabs, o, d, big, "K1 instanced + motion soup",
                  ("closest", "any_hit"), brute_rays=8192, time=times)
+    _compare_schedules(tabs, o, d, big, "K1 instanced + motion soup",
+                       time=times)
+    _compare_caps(tabs, o, d, big, "K1 instanced + motion soup", time=times)
     kern["trace2[inst_motion_closest]"] = r["closest"]
     kern["trace2[inst_motion_any_hit]"] = r["any_hit"]
     tabs = on_card(trace2.build_tri_blocks2(mv, g=32, tri_vel=mvel,
                                             shutter=shut)[0])
     r = _measure(trace2, tabs, o, d, big, "K1 motion soup 60K tris",
                  ("closest", "any_hit"), brute_rays=8192, time=times)
+    _compare_schedules(tabs, o, d, big, "K1 motion soup", time=times)
+    _compare_caps(tabs, o, d, big, "K1 motion soup", time=times)
     kern["trace2[motion_closest]"] = r["closest"]
     kern["trace2[motion_any_hit]"] = r["any_hit"]
     tabs = on_card(trace1.build_tri_blocks_inst(*iargs)[0])
@@ -1042,7 +1353,33 @@ def main() -> int:
                         "= 0 (two-level tables with velocities)")):
         _card_vs_cpu(render_image, *_pyramid_scene(kind), cfg_c,
                      f"{what} 48x48", counts=small_counts)
-    print(f"[card-vs-cpu] launches of the five small card renders: "
+    # volpath: the scene's own analytic prims (no kernel), then a medium
+    # bounded by a 4,992-triangle mesh through K2 and through K1 (K1's
+    # render under PT_WINDOW=2: the only launches of that schedule)
+    cfg_v = RenderConfig(spp=4, max_depth=4, integrator="volpath",
+                         regenerate=True,
+                         sampler=SamplerConfig(x_samples=2, y_samples=2,
+                                               seed=7))
+    cfg_vm = dataclasses.replace(cfg_v, spp=2, sampler=SamplerConfig(
+        x_samples=2, y_samples=1, seed=7))
+    _card_vs_cpu(render_image, *spheres_medium(resolution=(48, 48),
+                                               device="cpu"), cfg_v,
+                 "volpath spheres_medium 48x48")
+    vol_counts = {}
+    _card_vs_cpu(render_image, *_medium_mesh_scene(False), cfg_vm,
+                 "volpath medium bounded by a 4,992-tri mesh, K2, 48x48",
+                 counts=vol_counts)
+    os.environ["PT_WINDOW"] = "2"
+    _card_vs_cpu(render_image, *_medium_mesh_scene(True), cfg_vm,
+                 "volpath medium bounded by a 4,992-tri mesh, K1 "
+                 "(TWOLEVEL_MIN = 0, PT_WINDOW=2), 48x48", counts=vol_counts)
+    del os.environ["PT_WINDOW"]
+    # (volpath's shadow rays march with closest-hit passes: no any-hit)
+    _need(vol_counts, ("trace1[closest]", "trace2[closest]",
+                       "trace2[window2]"), "the volpath mesh renders")
+    for k, v in vol_counts.items():
+        small_counts[k] = small_counts.get(k, 0) + v
+    print(f"[card-vs-cpu] launches of the small card renders: "
           f"{ {k: v for k, v in small_counts.items() if v} }", flush=True)
     _need(small_counts, ("trace1[inst_closest]", "trace1[inst_any_hit]",
                          "trace1[motion_closest]", "trace1[motion_any_hit]",
@@ -1120,6 +1457,45 @@ def main() -> int:
         _sections_frame(render, scene, cam, meta, cfg)
     if args.profile:
         _profile_frame(render, scene, cam, meta, cfg)
+
+    # ---- 2h. K1's new modes on the 10.5M-triangle faithful tables
+    ob, db = _bounce_rays(scene, nr)
+    tb_ = torch.full((nr,), 1e30, device=dev)
+    label = (f"K1 faithful {meta.n_tri - n_alpha:,}-tri opaque tables x {nr} "
+             f"bounce rays")
+    _compare_schedules(scene, ob, db, tb_, label)
+    _compare_caps(scene, ob, db, tb_, label)
+    m1pad = -(-scene["pk_l1box"].shape[0] // 128) * 128
+    print(f"[multipass] opaque tables: {scene['pk_l1box'].shape[0]} L1s, "
+          f"m1pad {m1pad} (the driver runs at <= 8192)", flush=True)
+    _multipass_check(scene, ob, db, tb_, label)
+    kern.update(_measure_schedules(scene, ob, db, tb_, label))
+    del ob, db, tb_
+
+    # ---- 5b. path C: the same frame under PT_MULTIPASS and PT_WINDOW
+    os.environ["PT_MULTIPASS"] = ",".join(str(v) for v in MULTIPASS)
+    os.environ["PT_WINDOW"] = "4"
+    if _multipass_visits() != MULTIPASS:
+        raise RuntimeError("PT_MULTIPASS was not read")
+    try:
+        path_c, mpw = _frame(render, filmmod, scene, cam, meta, cfg,
+                             f"path C d{DEPTH_FAITHFUL} (flattened foliage, "
+                             f"PT_MULTIPASS={os.environ['PT_MULTIPASS']} "
+                             f"PT_WINDOW=4)", "sanmiguel_multipass.ppm")
+    finally:
+        del os.environ["PT_MULTIPASS"], os.environ["PT_WINDOW"]
+    _need(path_c, ("trace2[capped]", "trace2[frontier]", "trace2[window4]",
+                   "trace2[amask1]", "trace2[amask2]"), "path C")
+    print(f"[path C vs flattened] rays/sample {mpw['rays_per_sample']:.3f} "
+          f"vs {flat['rays_per_sample']:.3f}; image mean {mpw['mean']:.5f} "
+          f"vs {flat['mean']:.5f}; bounce iterations {mpw['iterations']} vs "
+          f"{flat['iterations']}; frame {mpw['seconds']:.2f}s vs "
+          f"{flat['seconds']:.2f}s; camera samples/s "
+          f"{mpw['samples_per_s']:.1f} vs {flat['samples_per_s']:.1f}",
+          flush=True)
+    if not (abs(mpw["rays_per_sample"] / flat["rays_per_sample"] - 1) < 0.02
+            and abs(mpw["mean"] / flat["mean"] - 1) < 0.02):
+        raise RuntimeError("path C does not land beside the flattened frame")
     del scene
 
     # ---- 6. path A: the foliage kept as run-time instances
@@ -1137,6 +1513,9 @@ def main() -> int:
     r = _measure(trace2, alpha, of, df, tf_,
                  f"K1 instanced alpha tables ({FOLIAGE} expanded L1s, one "
                  f"stored shrub) x {nr} foliage rays", ("amask1", "amask2"))
+    _compare_schedules(alpha, of, df, tf_, "K1 path A instanced alpha tables",
+                       amasks=(0, 1, 2))
+    _compare_caps(alpha, of, df, tf_, "K1 path A instanced alpha tables")
     kern["trace2[inst_amask1]"] = r["amask1"]
     kern["trace2[inst_amask2]"] = r["amask2"]
     del alpha
@@ -1186,36 +1565,68 @@ def main() -> int:
     _need(path_b, [f"trace1[{m}]" for m in ("closest", "any_hit", "amask1",
                                             "amask2")], "path B")
 
-    # ---- 8. summary
+    del scene
+
+    # ---- 8. path D: volpath on the scene's own analytic prims
+    scene, cam, meta = spheres_medium(resolution=RES, device=dev)
+    cfg_d = RenderConfig(spp=1, max_depth=DEPTH_FAITHFUL, integrator="volpath",
+                         rays_per_batch=65536, regenerate=True)
+    path_d, _ = _frame(render, filmmod, scene, cam, meta, cfg_d,
+                       f"path D volpath spheres_medium d{DEPTH_FAITHFUL}",
+                       "spheres_medium.ppm")
+    del scene
+
+    # ---- 9. K4, the leaf micro-benchmark, through its own entry point
+    leaf_rows, leaf_counts = _leaf_phase()
+    kern.update(leaf_rows)
+
+    # ---- 10. summary
     # launches: of ONE full-width frame whose path runs the mode (the
     # faithful frame, else path A, else path B), or, for the modes that no
     # full-width scene of the package reaches, the sum over the five small
     # card renders (48x48, 4 spp, depth 3); launches_from says which
     frames = (("the faithful frame, 1080p depth 64", faithful),
+              ("the path C frame, 1080p depth 64", path_c),
               ("the path A frame, 1080p depth 64", path_a),
-              ("the path B frame, 1080p depth 64", path_b))
-    small_from = "the five small card renders together (48x48, 4 spp, " \
-        "depth 3): no full-width scene reaches this mode"
+              ("the path B frame, 1080p depth 64", path_b),
+              (f"the K4 run at its defaults (K2={LEAF_K2}, n_iter="
+               f"{LEAF_ITERS}; warm-up, timed runs and the n_iter=0 "
+               f"baseline)", leaf_counts))
+    small_from = "the small card renders together (48x48; volpath mesh " \
+        "renders 2 spp depth 4, the others 4 spp depth 3): no full-width " \
+        "scene reaches this mode"
     replaces = {"trace2": "pathtracing_tpu/accel/pallas_trace2.py:438",
-                "trace1": "pathtracing_tpu/accel/pallas_trace.py:289"}
+                "trace1": "pathtracing_tpu/accel/pallas_trace.py:289",
+                "leaf": "tools/bench_mxu_leaf.py:63"}
     rows = []
     for name in sorted(kern):
         stem = name.split("[")[0]
         n_launch, where = next(((c[name], w) for w, c in frames
                                 if c.get(name, 0) > 0),
                                (small_counts.get(name, 0), small_from))
-        if n_launch <= 0:
+        if n_launch <= 0 and name != "trace2[pair]":
             raise RuntimeError(f"{name} was never launched by a render")
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"pathtracing_tpu_torch/csrc/{stem}.cu",
-                     "replaces": replaces[stem],
-                     "launches": n_launch, "launches_from": where,
-                     "launches_faithful_path": faithful.get(name, 0),
-                     "launches_small_renders": small_counts.get(name, 0),
-                     "launches_legacy_path": legacy.get(name, 0),
-                     "launches_path_a": path_a.get(name, 0),
-                     "launches_path_b": path_b.get(name, 0),
-                     **kern[name], "library_ms": None})
+        if name == "trace2[pair]":
+            where = ("none: no entry point passes pair=True (the reference "
+                     "package's dispatch does not either); timed and held "
+                     "to the window=1 walk only")
+        row = {"name": name, "route": "cuda",
+               "source": f"pathtracing_tpu_torch/csrc/{stem}.cu",
+               "replaces": replaces[stem],
+               "launches": n_launch, "launches_from": where,
+               "launches_faithful_path": faithful.get(name, 0),
+               "launches_path_c": path_c.get(name, 0),
+               "launches_small_renders": small_counts.get(name, 0),
+               "launches_legacy_path": legacy.get(name, 0),
+               "launches_path_a": path_a.get(name, 0),
+               "launches_path_b": path_b.get(name, 0),
+               "launches_path_d": path_d.get(name, 0),
+               "library_ms": None}
+        row.update(kern[name])
+        if row["library_ms"] is None and "library" not in row:
+            row["library"] = ("none: no single PyTorch call traverses a "
+                              "BVH")
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card)

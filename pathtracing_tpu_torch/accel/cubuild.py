@@ -10,10 +10,12 @@ against the plain PyTorch versions.
 
 `host_library(stem)` compiles the same source as plain C++ with g++ (one
 loop iteration per CUDA thread, no FMA contraction), so a kernel's
-traversal logic can be checked where there is no GPU and no nvcc.  It
-needs the source to end in an `extern "C" int <stem>_launch(...)` whose
+traversal logic can be checked where there is no GPU and no nvcc.  A
+traversal source ends in an `extern "C" int <stem>_launch(...)` whose
 body launches through the `<STEM>_MODES` X-macro; the host build swaps
-the `<<<...>>>` launch for a loop over the rays.
+the `<<<...>>>` launch for a loop over the rays.  A source whose device
+code is guarded by `#ifdef __CUDACC__` (leaf.cu) provides its own host
+entry in the `#else` branch instead.
 """
 from __future__ import annotations
 
@@ -81,7 +83,7 @@ def load(stem: str):
         return _libs[stem]
 
 
-def build_all(stems=("trace2", "trace1")) -> float:
+def build_all(stems=("trace2", "trace1", "leaf")) -> float:
     """Build (if needed) and load every source, one nvcc each, all started
     together.  Returns the seconds spent."""
     t0 = time.perf_counter()
@@ -104,16 +106,27 @@ def build_all(stems=("trace2", "trace1")) -> float:
 
 
 def kernel_resources(stem: str) -> list:
-    """(kernel instance, resource line) pairs of the last build's
-    `-Xptxas -v` output: registers, stack, spills per template instance."""
-    out, name = [], "?"
+    """(function, resource line) pairs of the last build's `-Xptxas -v`
+    output, per template instance: the kernel's registers, and the stack
+    frame and spills of the kernel and of each out-of-line device function
+    (ptxas prints a "Used N registers" line per entry function and a
+    "Function properties" block per function)."""
+    def name_of(line):
+        m = re.search(r"(trace[12]_kernel|leaf_kernel|window_walk)"
+                      r"ILi(\d)ELb(\d)ELb(\d)E", line)
+        return (f"{m.group(1)} AMASK={m.group(2)} INST={m.group(3)} "
+                f"MOTION={m.group(4)}" if m else line.strip())
+
+    out, entry, func = [], "?", "?"
     for line in BUILD_LOG.get(stem, "").splitlines():
         if "Compiling entry" in line:
-            m = re.search(rf"{stem}_kernelILi(\d)ELb(\d)ELb(\d)E", line)
-            name = (f"AMASK={m.group(1)} INST={m.group(2)} "
-                    f"MOTION={m.group(3)}" if m else line.strip())
-        elif "registers" in line or "spill" in line:
-            out.append((name, line.strip()))
+            entry = func = name_of(line)
+        elif "Function properties for" in line:
+            func = name_of(line)
+        elif "registers" in line:
+            out.append((entry, line.strip()))
+        elif "spill" in line:
+            out.append((func, line.strip()))
     return out
 
 
@@ -131,6 +144,7 @@ struct int4 { int x, y, z, w; };
 #define __global__
 #define __device__
 #define __forceinline__ inline
+#define __noinline__
 #define __launch_bounds__(x)
 #define __restrict__
 struct dim3_ { int x; };
@@ -165,7 +179,7 @@ def host_library(stem: str, out_dir) -> ctypes.CDLL:
         r"(\w+_kernel<AMASK, INST, MOTION>)[\s\\]*<<<[^>]*>>>\(([^;]*?)\);",
         r"for (int i_ = 0; i_ < n; ++i_) { blockIdx.x = i_; \1(\2); }",
         src, flags=re.S)
-    if n_sub != 1:
+    if n_sub != 1 and "#ifdef __CUDACC__" not in src:
         raise RuntimeError(f"{stem}.cu: launch site not found")
     out_dir = Path(out_dir)
     cpp = out_dir / f"{stem}_host.cpp"

@@ -50,6 +50,17 @@ the hit's barycentrics.
              else             ->  a miss.
            Transparent hits are skipped.  The result does not depend on
            visit order, so kernel and plain version agree exactly.
+
+Visit cap and multipass resume state (max_visits, frontier; the
+reference's knobs of the same names): the walk stops after max_visits
+L1 visits of each RAY (the reference counts a 128-ray tile's visits: the
+per-ray walk has no tiles) and frontier=True adds, per ray, "e_next" /
+"b_next": the entry and index of the nearest L1 the capped walk entered
+but did not consume whose entry is below the ray's cull bound (BIG_F32 /
+0 when the ray is resolved).  scene/intersect.py::_multipass2 re-sorts
+unresolved rays by b_next between capped passes and ends with an
+uncapped one.  Schedules (pops, pair, window) change the order of the
+kernel's work, never its result.
 """
 from __future__ import annotations
 
@@ -63,6 +74,8 @@ from . import cubuild
 
 G_DEFAULT = 16      # child blocks per L1 superblock
 TILE = 128          # dispatch pads ray batches to a multiple of this
+RECULL_EVERY = 8    # the reference kernel's re-cull cadence (accepted, no-op)
+WIDEN = torch.tensor(1.0000005, dtype=torch.float32)   # the kernel's slab widening
 
 _CSRC = cubuild.source("trace2")
 
@@ -612,37 +625,85 @@ def _plain_slots(scene, origin, direction, t_max, prune=True, amask=0,
     return best.result()
 
 
+class _PairFolder:
+    """The plain version's visit of (ray, expanded L1) pairs, for any
+    table kind: each ray goes to the L1's source space (instanced tables),
+    the children of the physical L1 it enters (padded boxes; all of them
+    when prune is False) have their triangles tested there, and the hits
+    are folded into a PlainBest."""
+
+    def __init__(self, scene, origin, direction, t_max, time, amask,
+                 prune=True):
+        tri = scene["pk_tri"]
+        self.m2 = scene["pk_l2box"].shape[0]
+        self.k2 = tri.shape[0] // self.m2
+        self.tri = tri.view(self.m2, self.k2, 12)
+        self.mask = (scene["pk_mask"].view(self.m2, self.k2, 8) if amask
+                     else None)
+        self.l1_base = scene["pk_l1_base"].to(torch.int64)
+        self.g = self.m2 // self.l1_base.shape[0]
+        self.m1e = scene["pk_l1box"].shape[0]
+        self.inst_tab = "pk_blk_src" in scene
+        dev = origin.device
+        if self.inst_tab:
+            self.src = scene["pk_blk_src"].to(torch.int64)
+            self.inst = scene["pk_blk_inst"].to(torch.int64)
+        else:
+            self.src = torch.arange(self.m1e, device=dev)
+            self.inst = torch.full((self.m1e,), -1, dtype=torch.int64,
+                                   device=dev)
+        self.inv = scene.get("pk_inst_inv")
+        self.velo = scene.get("pk_inst_velo") if time is not None else None
+        self.l2lo, self.l2hi = _padded(scene["pk_l2box"])
+        self.o, self.d, self.t_max, self.time = origin, direction, t_max, time
+        self.amask, self.prune = amask, prune
+        self.budget = 1 << (26 if origin.is_cuda else 20)
+        self.cg = torch.arange(self.g, device=dev)
+
+    def fold(self, best, ray, e):
+        """Visit the pairs (ray [P], expanded L1 e [P])."""
+        g, k2, dev = self.g, self.k2, self.o.device
+        pchunk = max(1, self.budget // (8 * g))
+        qchunk = max(1, self.budget // (8 * k2))
+        for p0 in range(0, ray.shape[0], pchunk):
+            r, ee = ray[p0:p0 + pchunk], e[p0:p0 + pchunk]
+            tm = self.time[r] if self.time is not None else None
+            if self.inst_tab:
+                ol, dl = instance_rays(self.inv, self.inst[ee], self.o[r],
+                                       self.d[r], self.velo, tm)
+            else:
+                ol, dl = self.o[r], self.d[r]
+            child = self.l1_base[self.src[ee]][:, None] + self.cg[None]
+            if self.prune:
+                pi, ci = torch.nonzero(_enters(
+                    self.l2lo[child], self.l2hi[child], ol[:, None],
+                    dl[:, None], self.t_max[r][:, None])).unbind(1)
+            else:
+                pi = torch.arange(r.shape[0], device=dev).repeat_interleave(g)
+                ci = self.cg.repeat(r.shape[0])
+            for q0 in range(0, pi.shape[0], qchunk):
+                qp, qc = pi[q0:q0 + qchunk], ci[q0:q0 + qchunk]
+                rr = r[qp]
+                ch = child[qp, qc]
+                t, ok, u, v = _moller_trumbore(
+                    ol[qp], dl[qp], self.tri[ch], self.t_max[rr],
+                    tm[qp] if tm is not None else None)
+                best.update(rr, (ee[qp] * g + qc) * k2, t, ok, u, v,
+                            self.mask[ch] if self.amask else None)
+
+
 def _plain_slots_general(scene, origin, direction, t_max, prune, amask,
                          time):
     """_plain_slots for instanced and / or moving tables: per (ray,
     expanded L1) pair the ray goes to the L1's source space, then per
     child of the physical L1 the triangles are tested there."""
-    tri = scene["pk_tri"]
-    m2 = scene["pk_l2box"].shape[0]
-    k2 = tri.shape[0] // m2
-    tri = tri.view(m2, k2, 12)
-    mask = scene["pk_mask"].view(m2, k2, 8) if amask else None
-    l1_base = scene["pk_l1_base"].to(torch.int64)
-    g = m2 // l1_base.shape[0]
-    m1e = scene["pk_l1box"].shape[0]
-    inst_tab = "pk_blk_src" in scene
-    dev = origin.device
-    if inst_tab:
-        src = scene["pk_blk_src"].to(torch.int64)
-        inst = scene["pk_blk_inst"].to(torch.int64)
-    else:
-        src = torch.arange(m1e, device=dev)
-        inst = torch.full((m1e,), -1, dtype=torch.int64, device=dev)
-    velo = scene.get("pk_inst_velo") if time is not None else None
+    folder = _PairFolder(scene, origin, direction, t_max, time, amask, prune)
     l1lo, l1hi = _padded(scene["pk_l1box"])
-    l2lo, l2hi = _padded(scene["pk_l2box"])
+    m1e = folder.m1e
+    dev = origin.device
     n = origin.shape[0]
     best = PlainBest(n, dev, amask)
-    budget = 1 << (26 if origin.is_cuda else 20)
-    rchunk = max(1, budget // (4 * max(1, m1e)))
-    pchunk = max(1, budget // (8 * g))
-    qchunk = max(1, budget // (8 * k2))
-    cg = torch.arange(g, device=dev)
+    rchunk = max(1, folder.budget // (4 * max(1, m1e)))
     for r0 in range(0, n, rchunk):
         o_c, d_c = origin[r0:r0 + rchunk], direction[r0:r0 + rchunk]
         if prune:
@@ -653,33 +714,82 @@ def _plain_slots_general(scene, origin, direction, t_max, prune, amask,
             nr = o_c.shape[0]
             ray = torch.arange(nr, device=dev).repeat_interleave(m1e)
             e = torch.arange(m1e, device=dev).repeat(nr)
-        ray = ray + r0
-        for p0 in range(0, ray.shape[0], pchunk):
-            r, ee = ray[p0:p0 + pchunk], e[p0:p0 + pchunk]
-            tm = time[r] if time is not None else None
-            if inst_tab:
-                ol, dl = instance_rays(scene["pk_inst_inv"], inst[ee],
-                                       origin[r], direction[r], velo, tm)
-            else:
-                ol, dl = origin[r], direction[r]
-            child = l1_base[src[ee]][:, None] + cg[None]        # [P, G]
-            if prune:
-                pi, ci = torch.nonzero(_enters(
-                    l2lo[child], l2hi[child], ol[:, None], dl[:, None],
-                    t_max[r][:, None])).unbind(1)
-            else:
-                pi = torch.arange(r.shape[0], device=dev).repeat_interleave(g)
-                ci = cg.repeat(r.shape[0])
-            for q0 in range(0, pi.shape[0], qchunk):
-                qp, qc = pi[q0:q0 + qchunk], ci[q0:q0 + qchunk]
-                rr = r[qp]
-                ch = child[qp, qc]
-                t, ok, u, v = _moller_trumbore(
-                    ol[qp], dl[qp], tri[ch], t_max[rr],
-                    tm[qp] if tm is not None else None)
-                best.update(rr, (ee[qp] * g + qc) * k2, t, ok, u, v,
-                            mask[ch] if amask else None)
+        folder.fold(best, ray + r0, e)
     return best.result()
+
+
+def slab_entries(box, origin, inv, bound):
+    """The kernel's slab entry (csrc/trace_common.cuh::slab_entry) of every
+    box [M, 8] for every ray (origin, inv = 1 / guarded direction [R, 3]),
+    clipped to [SHADOW_EPS, bound [R]]: [R, M], BIG_F32 where the ray does
+    not enter the box.  Same float32 operations in the same order, so the
+    entries and their order are the kernel's bit for bit."""
+    lo, hi = box[None, :, 0:3], box[None, :, 4:7]
+    o, iv = origin[:, None, :], inv[:, None, :]
+    u0 = (lo - o) * iv
+    u1 = (hi - o) * iv
+    near, far = torch.fmin(u0, u1), torch.fmax(u0, u1)
+    tn = torch.fmax(torch.fmax(torch.fmax(near[..., 0], near[..., 1]),
+                               near[..., 2]),
+                    torch.tensor(SHADOW_EPS, dtype=torch.float32))
+    tf = torch.fmin(torch.fmin(torch.fmin(far[..., 0], far[..., 1]),
+                               far[..., 2]), bound[:, None])
+    return torch.where(tn <= tf * WIDEN, tn, BIG_F32)
+
+
+def _cull_bound(best, t_max):
+    """The kernel's cull bound per ray: the best hit so far (initially
+    t_max); amask 2: the nearer of the best mixed and opaque hits."""
+    bound = torch.minimum(best.t, t_max)
+    if best.amask == 2:
+        bound = torch.minimum(bound, best.t_opq)
+    return bound
+
+
+def _plain_capped(scene, origin, direction, t_max, max_visits, amask, time,
+                  any_hit, prune=True):
+    """The capped walk (module docstring) in plain form: each ray's entered
+    L1s in (entry, index) order with the kernel's entries, consumed while
+    the entry is within the widened cull bound and fewer than max_visits
+    were visited; all the triangles of a visited L1's entered children
+    (every child when prune is False) are tested (ties go to the least
+    key, so the order inside an L1 does not matter).  Returns (t, key,
+    e_next, b_next)."""
+    from ..scene.intersect import _inv_guard
+    n = origin.shape[0]
+    dev = origin.device
+    v = int(max_visits)
+    l1box = scene["pk_l1box"]
+    m1e = l1box.shape[0]
+    inv = _inv_guard(direction)
+    folder = _PairFolder(scene, origin, direction, t_max, time, amask, prune)
+    best = PlainBest(n, dev, amask)
+    # each ray's first v + 1 entered L1s in (entry, index) order: a stable
+    # sort of the entries keeps equal entries in index order
+    oe = torch.full((n, v + 1), BIG_F32, dtype=torch.float32, device=dev)
+    ob = torch.zeros((n, v + 1), dtype=torch.int64, device=dev)
+    keep = min(v + 1, m1e)
+    rchunk = max(1, folder.budget // (4 * max(1, m1e)))
+    for r0 in range(0, n, rchunk):
+        sl = slice(r0, r0 + rchunk)
+        e = slab_entries(l1box, origin[sl], inv[sl], t_max[sl])
+        es, bs = torch.sort(e, dim=1, stable=True)
+        oe[sl, :keep] = es[:, :keep]
+        ob[sl, :keep] = bs[:, :keep]
+    live = t_max > 0
+    for j in range(v):
+        bound = _cull_bound(best, t_max)
+        live = live & (oe[:, j] < BIG_F32) & (oe[:, j] <= bound * WIDEN)
+        ray = torch.nonzero(live).flatten()
+        if ray.numel() == 0:
+            break
+        folder.fold(best, ray, ob[ray, j])
+        if any_hit:                      # an occluder resolves the ray
+            live = live & (best.key < 0)
+    nxt = live & (oe[:, v] < _cull_bound(best, t_max))
+    e_next = torch.where(nxt, oe[:, v], BIG_F32)
+    b_next = torch.where(nxt, ob[:, v], 0)
+    return (*best.result(), e_next, b_next)
 
 
 # ---------------------------------------------------------------------------
@@ -705,7 +815,8 @@ def bind(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.trace2_launch.restype = I
     lib.trace2_launch.argtypes = [P, P, P, I, P, I, P, P, P, P, I, I, I, I,
-                                  P, P, P, P, P, P, P, P, P, P, P]
+                                  P, P, P, P, P, I, I, I, I,
+                                  P, P, P, P, P, P, P, P]
     return lib
 
 
@@ -726,11 +837,32 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def schedule_names(max_visits=None, frontier=False, window=1, pair=False,
+                   pops=1):
+    """The launch-count keys of a schedule: "capped" and "frontier" for a
+    capped walk and its resume outputs, then one of "window2" /
+    "window4", "pair" or "pops<p>" (p > 1) for the walk's order."""
+    names = []
+    if max_visits is not None:
+        names.append("capped")
+    if frontier:
+        names.append("frontier")
+    if window > 1:
+        names.append(f"window{window}")
+    elif pair:
+        names.append("pair")
+    elif pops > 1:
+        names.append(f"pops{pops}")
+    return names
+
+
 def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
-                   amask, time=None, host_lib=None):
+                   amask, time=None, host_lib=None, max_visits=None,
+                   frontier=False, window=1, pair=False, pops=1):
     """Launch the kernel on CUDA tensors.  host_lib: a cubuild.host_library
     build, run on CPU tensors instead (the kernel's logic where there is
-    no GPU; not counted as a launch)."""
+    no GPU; not counted as a launch).  Returns (t, key, extra): extra is
+    None, or a dict of the counter outputs and / or e_next / b_next."""
     if host_lib is None:
         build_kernel()
     dev = origin.device
@@ -783,6 +915,10 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
     out_slot = torch.empty((n,), dtype=torch.int32, device=dev)
     out_blk = (torch.empty((n,), dtype=torch.int32, device=dev) if inst
                else None)
+    out_en = out_bn = None
+    if frontier:
+        out_en = torch.empty((n,), dtype=torch.float32, device=dev)
+        out_bn = torch.empty((n,), dtype=torch.int32, device=dev)
     cnt = touched = None
     if counters:
         cnt = torch.zeros((n, 4), dtype=torch.int32, device=dev)
@@ -796,22 +932,31 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
         l1box.data_ptr(), m1, l1_base.data_ptr(),
         l2box.data_ptr(), tri.data_ptr(), _ptr(mask), k2, g,
         int(bool(any_hit)), int(amask), _ptr(src), _ptr(binst), _ptr(inv),
-        _ptr(velo), _ptr(time), out_t.data_ptr(), out_slot.data_ptr(),
-        _ptr(out_blk), _ptr(cnt), _ptr(touched), stream)
+        _ptr(velo), _ptr(time), int(max_visits or 0), int(window),
+        int(bool(pair)), int(pops), out_t.data_ptr(), out_slot.data_ptr(),
+        _ptr(out_blk), _ptr(out_en), _ptr(out_bn), _ptr(cnt), _ptr(touched),
+        stream)
     if rc != 0:
         raise RuntimeError(f"trace2 kernel launch failed (cudaError {rc})")
     if host_lib is None:
         tri_intersect2.launches += 1
         tri_intersect2.launches_by_mode[mode_name(
             any_hit, amask, inst, time is not None)] += 1
+        by_sched = tri_intersect2.launches_by_schedule
+        for k in schedule_names(max_visits, frontier, window, pair, pops):
+            by_sched[k] = by_sched.get(k, 0) + 1
+    extra = None
     if counters:
-        cnt = dict(counters=cnt, l1_touched=touched[:m1].bool(),
-                   leaf_touched=touched[m1:].bool())
+        extra = dict(counters=cnt, l1_touched=touched[:m1].bool(),
+                     leaf_touched=touched[m1:].bool())
+    if frontier:
+        extra = dict(extra or {}, e_next=out_en,
+                     b_next=out_bn.to(torch.int64))
     slot = out_slot.to(torch.int64)
     if inst:    # (expanded L1, offset) -> the plain version's key
         slot = torch.where(slot >= 0,
                            out_blk.to(torch.int64) * (g * k2) + slot, slot)
-    return out_t, slot, cnt
+    return out_t, slot, extra
 
 
 # ---------------------------------------------------------------------------
@@ -832,7 +977,11 @@ def _ray_args(origin, direction, t_max, time):
 
 
 def tri_intersect2(scene, origin, direction, t_max, any_hit: bool = False,
-                   counters: bool = False, amask: int = 0, time=None):
+                   counters: bool = False, amask: int = 0, time=None,
+                   max_visits: int | None = None, frontier: bool = False,
+                   window: int | None = None, pair: bool = False,
+                   pops: int = 1, recull_every: int = RECULL_EVERY,
+                   drain_cull: bool = True):
     """Closest (or any) hit of a ray batch against the two-level tables.
 
     origin/direction [N,3] f32, t_max [N] f32 (or a scalar), time [N] f32
@@ -841,21 +990,37 @@ def tri_intersect2(scene, origin, direction, t_max, any_hit: bool = False,
     docstring).  counters=True (CUDA only) adds "counters", per ray int32
     [N,4] (L1 table passes, L1 visits, leaf blocks tested, mask lookups),
     and "l1_touched" [M1] / "leaf_touched" [M2] bool, the (expanded) L1s
-    and the physical child blocks any ray visited."""
+    and the physical child blocks any ray visited.
+
+    max_visits caps each ray's L1 visits; frontier=True adds "e_next" [N]
+    f32 / "b_next" [N] int64, the resume state of the module docstring.
+    window (None = 1, or 2 / 4: the resident-window drain), pair (two L1
+    visits per loop iteration) and pops (children per drain step) are
+    schedules: they change the kernel's order of work, never its result,
+    and the plain version ignores them.  The reference kernel's
+    combinations it asserts against are refused (_check_schedule).
+    recull_every / drain_cull are the reference's names for its per-tile
+    re-cull of the entry table; the per-ray walk re-reads its bound at
+    every step, so they select nothing."""
     _check_mode(scene, any_hit, amask, time)
+    window = _check_schedule(max_visits, frontier, window, pair, pops,
+                             recull_every)
     origin, direction, t_max, time = _ray_args(origin, direction, t_max, time)
-    cnt = None
     if origin.is_cuda:
-        t, slot, cnt = _launch_kernel(scene, origin, direction, t_max,
-                                      any_hit, counters, amask, time)
+        t, slot, extra = _launch_kernel(
+            scene, origin, direction, t_max, any_hit, counters, amask, time,
+            max_visits=max_visits, frontier=frontier, window=window,
+            pair=pair, pops=pops)
     else:
         if counters:
             raise ValueError("counters come from the CUDA kernel only")
-        t, slot = _plain_slots(scene, origin, direction, t_max, amask=amask,
-                               time=time)
+        t, slot, e_next, b_next = _plain_walk(
+            scene, origin, direction, t_max, True, amask, time, any_hit,
+            max_visits, frontier)
+        extra = dict(e_next=e_next, b_next=b_next) if frontier else None
     res = _result(scene, t, slot, amask)
-    if cnt is not None:
-        res.update(cnt)
+    if extra is not None:
+        res.update(extra)
     return res
 
 
@@ -865,13 +1030,15 @@ MODES = tuple(mode_name(a, m, i, t) for i, t, a, m in (
     (0, 1, 0, 0), (0, 1, 1, 0), (1, 1, 0, 0), (1, 1, 1, 0)))
 tri_intersect2.launches = 0           # kernel launches, all modes
 tri_intersect2.launches_by_mode = {m: 0 for m in MODES}
+tri_intersect2.launches_by_schedule = {}   # schedule_names() -> launches
 
 
 def reset_launches():
-    """Set the kernel's launch counts (total and per mode) to 0."""
+    """Set the kernel's launch counts (total, per mode, per schedule) to 0."""
     tri_intersect2.launches = 0
     for k in tri_intersect2.launches_by_mode:
         tri_intersect2.launches_by_mode[k] = 0
+    tri_intersect2.launches_by_schedule.clear()
 
 
 def _check_mode(scene, any_hit, amask, time=None):
@@ -887,17 +1054,77 @@ def _check_mode(scene, any_hit, amask, time=None):
         raise ValueError("alpha masks and motion exclude each other")
 
 
+def _check_schedule(max_visits, frontier, window, pair, pops, recull_every):
+    """Refuse what the reference kernel asserts against
+    (pallas_trace2.py:1332-1356); returns the window (None -> 1).  Its
+    condition for the frontier outputs, the per-tile entry table that VMEM
+    holds only up to RECULL_MAX_M1PAD L1s, has no size limit here (the
+    per-ray walk needs no table): what stays of it is the caller switching
+    the table off with the sentinel cadence recull_every >= 2**29."""
+    window = 1 if window is None else int(window)
+    if window not in (1, 2, 4):
+        raise ValueError(f"window must be 1, 2 or 4, got {window!r}")
+    if max_visits is not None and int(max_visits) < 1:
+        raise ValueError(f"max_visits must be >= 1, got {max_visits!r}")
+    if int(pops) < 1:
+        raise ValueError(f"pops must be >= 1, got {pops!r}")
+    if pair and (max_visits is not None or frontier):
+        raise ValueError("pair visits are incompatible with a visit cap or "
+                         "frontier outputs")
+    if window > 1 and (pair or frontier or max_visits is not None):
+        raise ValueError("the window walk is incompatible with pair, a visit "
+                         "cap or frontier outputs")
+    if frontier and recull_every >= (1 << 29):
+        raise ValueError("frontier outputs need the entry table, which "
+                         "recull_every >= 2**29 switches off")
+    return window
+
+
+def _plain_walk(scene, origin, direction, t_max, prune, amask, time, any_hit,
+                max_visits, frontier):
+    """(t, key, e_next, b_next) of the plain version; e_next / b_next are
+    None without frontier, BIG_F32 / 0 on an uncapped walk (every ray is
+    resolved)."""
+    if max_visits is not None:
+        t, key, e_next, b_next = _plain_capped(
+            scene, origin, direction, t_max, max_visits, amask, time,
+            any_hit, prune)
+        return (t, key) + ((e_next, b_next) if frontier else (None, None))
+    t, key = _plain_slots(scene, origin, direction, t_max, prune, amask, time)
+    if not frontier:
+        return t, key, None, None
+    n = origin.shape[0]
+    return (t, key,
+            torch.full((n,), BIG_F32, dtype=torch.float32,
+                       device=origin.device),
+            torch.zeros((n,), dtype=torch.int64, device=origin.device))
+
+
 def tri_intersect2_plain(scene, origin, direction, t_max,
                          any_hit: bool = False, prune: bool = True,
-                         amask: int = 0, time=None):
+                         amask: int = 0, time=None,
+                         max_visits: int | None = None,
+                         frontier: bool = False, window: int | None = None,
+                         pair: bool = False, pops: int = 1,
+                         recull_every: int = RECULL_EVERY,
+                         drain_cull: bool = True):
     """The plain version on any device (the kernel's oracle on the card;
     never called on the render path).  prune=False tests every slot of
-    the table instead of the triangles of the entered child blocks.
-    any_hit changes nothing here: the nearest hit is also an occluder."""
+    the table instead of the triangles of the entered child blocks (in a
+    capped walk: every child of a visited L1).  Uncapped, any_hit changes nothing
+    here: the nearest hit is also an occluder; capped, an any-hit ray
+    stops after the visit that found an occluder, as the kernel's does.
+    window, pair and pops are checked and otherwise no-ops."""
     _check_mode(scene, any_hit, amask, time)
+    _check_schedule(max_visits, frontier, window, pair, pops, recull_every)
     origin, direction, t_max, time = _ray_args(origin, direction, t_max, time)
-    return _result(scene, *_plain_slots(scene, origin, direction, t_max,
-                                        prune, amask, time), amask)
+    t, key, e_next, b_next = _plain_walk(scene, origin, direction, t_max,
+                                         prune, amask, time, any_hit,
+                                         max_visits, frontier)
+    res = _result(scene, t, key, amask)
+    if frontier:
+        res.update(e_next=e_next, b_next=b_next)
+    return res
 
 
 def child_boxes_hold_triangles(scene, tri_v) -> bool:

@@ -7,8 +7,8 @@ camera, and `dataclasses.asdict(meta)`) and returns this package's
 (scene, cam, SceneMeta) on `device`.  Nothing of the JAX package is
 imported: the caller does the NumPy conversion.
 
-Geometry, material, texture and light tables carry over as they are,
-the run-time instance tables (otri_*, inst_*, ilight_map) and the
+Geometry, material, texture, light and media tables carry over as they
+are, the run-time instance tables (otri_*, inst_*, ilight_map) and the
 velocities (*_vel) included.  The reference's traversal tables are laid
 out for its TPU kernels, so for a meta.accel == "pallas" scene the
 tables (single- or two-level as the reference scene has them, plain or
@@ -42,15 +42,15 @@ _INST_KEYS = ("otri_v", "otri_n", "otri_uv", "otri_tan", "otri_prop",
               "inst_fwd", "inst_inv", "inst_nrm", "inst_base", "inst_count",
               "inst_slot_base", "inst_vel", "ilight_map")
 _MOTION_KEYS = ("tri_vel", "sph_vel", "quad_vel")
+# the media table: (key, shape of its one padding row when absent)
+_MEDIA_KEYS = (("med_sigma_a", (1, 3)), ("med_sigma_s", (1, 3)),
+               ("med_g", (1,)), ("med_le", (1, 3)))
 _CAM_KEYS = ("origin", "u", "v", "w", "half_wh", "defocus_radius",
              "focus_distance", "shutter")
 
 
 def _check_supported(f: dict):
-    unsupported = [k for k in ("n_media", "n_env", "has_emissive_tex")
-                   if f.get(k)]
-    if f.get("scene_medium", -1) >= 0 or f.get("camera_medium", -1) >= 0:
-        unsupported.append("medium")
+    unsupported = [k for k in ("n_env", "has_emissive_tex") if f.get(k)]
     if unsupported:
         raise NotImplementedError(
             f"scene uses features not ported yet: {unsupported}")
@@ -71,6 +71,10 @@ def from_numpy_scene(scene: dict, cam: dict, meta_fields: dict, device=None):
     if motion:
         arrays.update({k: np.asarray(scene[k], np.float32)
                        for k in _MOTION_KEYS})
+    for k, shape in _MEDIA_KEYS:
+        arrays[k] = (np.asarray(scene[k], np.float32) if k in scene
+                     else np.zeros(shape, np.float32))
+    arrays["med_sigma_t"] = arrays["med_sigma_a"] + arrays["med_sigma_s"]
     if meta_fields.get("has_light_motion"):
         arrays["light_vel"] = np.asarray(scene["light_vel"], np.float32)
     if "tri_pack" in scene:

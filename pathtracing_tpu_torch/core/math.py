@@ -57,6 +57,7 @@ fsqrt = _f64_on_cpu(torch.sqrt)
 fsin = _libm_on_cpu(torch.sin, "sinf_v")
 fcos = _libm_on_cpu(torch.cos, "cosf_v")
 fexp = _f64_on_cpu(torch.exp)
+flog = _f64_on_cpu(torch.log)
 facos = _f64_on_cpu(torch.arccos)
 fatan2 = _libm_on_cpu(torch.atan2, "atan2f_v")
 

@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel `_kernel2` of pathtracing_tpu/accel/pallas_trace2.py
 // (called through `pallas_tri_intersect2`): closest hit, any-hit, the alpha
-// micro-mask modes amask=1 and amask=2, run-time instances and linear motion.
+// micro-mask modes amask=1 and amask=2, run-time instances, linear motion,
+// the visit cap with its multipass resume state (max_visits, frontier) and
+// the pops / pair / window schedules.
 // The device functions it shares with the single-level kernel (trace1.cu)
 // live in trace_common.cuh.  It computes the same function: per ray the hit
 // with the least t in [SHADOW_EPS, t_max) over the SAH block tables built by
@@ -81,6 +83,34 @@
 // of the L1 table and ray sorting into coherent warps are the levers for a
 // later revision.
 //
+// Schedules (runtime arguments; none changes a result, only the order of
+// the work, because ties go to the least slot whatever the visit order):
+//   pops     children taken per drain step before the bound is read again
+//            (the main path passes meta.block_pops = 4);
+//   pair     two L1 visits per loop iteration, the second gated by the
+//            first's still-live test (pallas_trace2.py:876-916);
+//   window   2 or 4: the resident-window drain (pallas_trace2.py:918-1160):
+//            take the `window` nearest L1 entries that can still beat the
+//            bound, slab-test all their children (each in its own space),
+//            and drain the union nearest first; ties go to the L1 taken
+//            first (nearest entry, then least index), then the least child.
+//            The TPU's VMEM double buffering has no counterpart: children
+//            are read through the cache.
+//
+// Visit cap and multipass resume state (max_visits > 0, frontier outputs):
+// the walk stops after max_visits L1 visits.  On the TPU the cap counts a
+// 128-ray TILE's L1 visits (pallas_trace2.py:848-851); here the walk is one
+// thread per ray, so it counts EACH RAY's L1 visits.  The frontier
+// (e_next, b_next) is, per ray, the entry and index of the nearest L1 the
+// capped walk entered but did not consume whose entry is below the ray's
+// cull bound (ties to the least index): the next buffer entry if it beats
+// cull_bound(best), else one more front_fill from the cursor.  A ray that
+// is fully resolved (walk ended, or an any-hit ray that found an occluder)
+// gets BIG_F32 / 0.  Only the frontier of a capped pass differs from the
+// TPU's (it is per ray, not per tile); the multipass driver's final result
+// (scene/intersect.py::_multipass2) does not, since its last pass is
+// uncapped.
+//
 // Built with --fmad=false: FMA contraction would change Moller-Trumbore's
 // rounding and flip edge hits against the plain version.
 
@@ -88,23 +118,196 @@
 
 namespace {
 
+// The tables of one launch.
+struct Tabs {
+  const float4* l1box;
+  int m1;
+  const int* l1_base;
+  const float4* l2box;
+  const float4* tri;
+  const int4* tri_mask;
+  int k2, g;
+  const int* blk_src;
+  const int* blk_inst;
+  const float* inst_inv;
+  const float* inst_velo;
+  unsigned char* touched;
+};
+
+// The front-to-back L1 iterator: the buffer be / bi holds the FRONT_BUF
+// nearest entered L1s above the cursor and is refilled from the last of
+// them when used up.  Its position stays apart from the arrays, so it
+// lives in registers.
+struct Front {
+  int cnt, k;
+  bool more;   // the last fill was full: entries may remain above it
+};
+
+// True when an entry is available at be[f.k] (refilling with `bound` when
+// the buffer is used up); n_pass counts the table passes.
+__device__ __forceinline__ bool front_peek(Front& f, float* be, int* bi,
+                                           const Tabs& tb, const Ray& r,
+                                           float bound, int& n_pass) {
+  if (f.k < f.cnt) return true;
+  if (!f.more) return false;
+  const float ce = f.cnt ? be[f.cnt - 1] : -1.0f;
+  const int ci = f.cnt ? bi[f.cnt - 1] : -1;
+  ++n_pass;
+  f.cnt = front_fill(tb.l1box, tb.m1, r, bound, ce, ci, be, bi);
+  f.more = f.cnt == FRONT_BUF;
+  f.k = 0;
+  return f.cnt > 0;
+}
+
+// The ray of L1 entry b in its source space (object space of b's instance).
+template <bool INST, bool MOTION>
+__device__ __forceinline__ Ray l1_ray(const Tabs& tb, int b, const Ray& r,
+                                      float time) {
+  if (INST) {
+    const int inst = tb.blk_inst[b];
+    if (inst >= 0)
+      return instance_ray(tb.inst_inv + 12 * (size_t)inst,
+                          MOTION ? tb.inst_velo + 3 * (size_t)inst : nullptr,
+                          time, r);
+  }
+  return r;
+}
+
+// Visit L1 entry b: slab-test its G children and drain the entered ones
+// nearest first, `pops` per bound read.  True when an any-hit walk found
+// an occluder.
+template <int AMASK, bool INST, bool MOTION>
+__device__ __forceinline__ bool visit_l1(const Tabs& tb, int b, const Ray& r,
+                                         float time, float tmax0, int any_hit,
+                                         int pops, Best& best, int& n_leaf,
+                                         int& n_mask) {
+  if (tb.touched) tb.touched[b] = 1;
+  const int base = tb.l1_base[INST ? tb.blk_src[b] : b];
+  const Ray rl = l1_ray<INST, MOTION>(tb, b, r, time);
+  float ce[64];
+  unsigned long long mask = 0ull;
+  for (int c = 0; c < tb.g; ++c) {
+    const float e = slab_entry(tb.l2box + 2 * (base + c), rl,
+                               cull_bound<AMASK>(best));
+    ce[c] = e;
+    if (e < BIG_F32) mask |= 1ull << c;
+  }
+  while (mask) {
+    const float bnd = cull_bound<AMASK>(best) * WIDEN;
+    for (int p = 0; p < pops && mask; ++p) {
+      float em = BIG_F32;
+      int cm = -1;
+      for (unsigned long long m = mask; m; m &= m - 1) {
+        const int c = __ffsll((long long)m) - 1;
+        if (ce[c] < em) {
+          em = ce[c];
+          cm = c;
+        }
+      }
+      mask &= ~(1ull << cm);
+      if (em > bnd) {   // nearest first: nothing later helps
+        mask = 0ull;
+        break;
+      }
+      ++n_leaf;
+      if (tb.touched) tb.touched[tb.m1 + base + cm] = 1;
+      if (test_leaf<AMASK, INST, MOTION>(
+              tb.tri, tb.tri_mask, base + cm, tb.k2, b,
+              INST ? cm * tb.k2 : (base + cm) * tb.k2, rl, time, tmax0, best,
+              n_mask) && any_hit)
+        return true;
+    }
+  }
+  return false;
+}
+
+// What a walk leaves behind: the best hit and the counters.
+struct WalkOut {
+  Best best;
+  int n_pass, n_l1, n_leaf, n_mask;
+};
+
+// The resident-window walk (window 2 or 4; see the header).  Out of line,
+// with its inputs taken by value and its results returned: its child-entry
+// array stays out of the other walks' frame, and the kernel's best hit and
+// counters need no address (they would otherwise live in local memory on
+// every walk).
+template <int AMASK, bool INST, bool MOTION>
+__device__ __noinline__ WalkOut window_walk(const Tabs tb, const Ray r,
+                                            float time, float tmax0,
+                                            int any_hit, int window,
+                                            int pops) {
+  WalkOut o{{tmax0, NO_SLOT, tmax0, NO_SLOT}, 0, 0, 0, 0};
+  Best& best = o.best;
+  Front f{0, 0, true};
+  float be[FRONT_BUF];
+  int bi[FRONT_BUF];
+  int wb[4], wbase[4];
+  Ray wr[4];
+  float ce[256];   // window * G <= 4 * 64 child entries
+  while (true) {
+    const float bnd0 = cull_bound<AMASK>(best) * WIDEN;
+    int nw = 0;
+    while (nw < window &&
+           front_peek(f, be, bi, tb, r, cull_bound<AMASK>(best), o.n_pass) &&
+           be[f.k] <= bnd0)
+      wb[nw++] = bi[f.k++];
+    if (nw == 0) return o;
+    o.n_l1 += nw;
+    unsigned long long wm[4] = {0ull, 0ull, 0ull, 0ull};
+    const float cb = cull_bound<AMASK>(best);
+    for (int j = 0; j < nw; ++j) {
+      if (tb.touched) tb.touched[wb[j]] = 1;
+      wbase[j] = tb.l1_base[INST ? tb.blk_src[wb[j]] : wb[j]];
+      wr[j] = l1_ray<INST, MOTION>(tb, wb[j], r, time);
+      for (int c = 0; c < tb.g; ++c) {
+        const int q = j * tb.g + c;
+        const float e = slab_entry(tb.l2box + 2 * (wbase[j] + c), wr[j], cb);
+        ce[q] = e;
+        if (e < BIG_F32) wm[q >> 6] |= 1ull << (q & 63);
+      }
+    }
+    bool left = true;
+    while (left) {
+      const float bnd = cull_bound<AMASK>(best) * WIDEN;
+      for (int p = 0; p < pops; ++p) {
+        float em = BIG_F32;
+        int qm = -1;
+        for (int w = 0; w < 4; ++w)
+          for (unsigned long long m = wm[w]; m; m &= m - 1) {
+            const int q = 64 * w + __ffsll((long long)m) - 1;
+            if (ce[q] < em) {
+              em = ce[q];
+              qm = q;
+            }
+          }
+        if (qm < 0 || em > bnd) {   // drained, or nothing left can help
+          left = false;
+          break;
+        }
+        wm[qm >> 6] &= ~(1ull << (qm & 63));
+        const int j = qm / tb.g, c = qm - j * tb.g;
+        ++o.n_leaf;
+        if (tb.touched) tb.touched[tb.m1 + wbase[j] + c] = 1;
+        if (test_leaf<AMASK, INST, MOTION>(
+                tb.tri, tb.tri_mask, wbase[j] + c, tb.k2, wb[j],
+                INST ? c * tb.k2 : (wbase[j] + c) * tb.k2, wr[j], time,
+                tmax0, best, o.n_mask) && any_hit)
+          return o;
+      }
+    }
+  }
+}
+
 template <int AMASK, bool INST, bool MOTION>
 __global__ void __launch_bounds__(128)
 trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
-              const float* __restrict__ tmax, int n,
-              const float4* __restrict__ l1box, int m1,
-              const int* __restrict__ l1_base,
-              const float4* __restrict__ l2box,
-              const float4* __restrict__ tri,
-              const int4* __restrict__ tri_mask, int k2, int g, int any_hit,
-              const int* __restrict__ blk_src,
-              const int* __restrict__ blk_inst,
-              const float* __restrict__ inst_inv,
-              const float* __restrict__ inst_velo,
+              const float* __restrict__ tmax, int n, Tabs tb, int any_hit,
+              int max_visits, int window, int pair, int pops,
               const float* __restrict__ times,
               float* __restrict__ out_t, int* __restrict__ out_slot,
-              int* __restrict__ out_blk, int* __restrict__ counters,
-              unsigned char* __restrict__ touched) {
+              int* __restrict__ out_blk, float* __restrict__ out_en,
+              int* __restrict__ out_bn, int* __restrict__ counters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Ray r;
@@ -121,72 +324,48 @@ trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
   const float time = MOTION ? times[i] : 0.0f;
   Best best{tmax0, NO_SLOT, tmax0, NO_SLOT};
   int n_pass = 0, n_l1 = 0, n_leaf = 0, n_mask = 0;
+  float e_next = BIG_F32;
+  int b_next = 0;
 
   if (tmax0 > 0.0f) {
-    float cur_e = -1.0f;   // (entry, index) cursor: everything at or below
-    int cur_i = -1;        // it has been visited already
-    bool done = false;   // no L1 entry left that could beat best.t
-    bool stop = false;   // leave the buffer early (front reached / any-hit)
-    while (!done) {
+    if (window > 1) {
+      const WalkOut w = window_walk<AMASK, INST, MOTION>(tb, r, time, tmax0,
+                                                         any_hit, window,
+                                                         pops);
+      best = w.best;
+      n_pass = w.n_pass;
+      n_l1 = w.n_l1;
+      n_leaf = w.n_leaf;
+      n_mask = w.n_mask;
+    } else {
+      Front f{0, 0, true};
       float be[FRONT_BUF];
       int bi[FRONT_BUF];
-      ++n_pass;
-      const int cnt = front_fill(l1box, m1, r, cull_bound<AMASK>(best), cur_e,
-                                 cur_i, be, bi);
-      done = cnt < FRONT_BUF;
-      for (int k = 0; k < cnt && !stop; ++k) {
-        if (be[k] > cull_bound<AMASK>(best) * WIDEN) {   // front-to-back:
-          // nothing later helps
-          stop = true;
-          break;
-        }
-        ++n_l1;
-        if (touched) touched[bi[k]] = 1;
-        const int base = l1_base[INST ? blk_src[bi[k]] : bi[k]];
-        // the ray in the visited L1's source space
-        Ray rl = r;
-        if (INST) {
-          const int inst = blk_inst[bi[k]];
-          if (inst >= 0)
-            rl = instance_ray(inst_inv + 12 * (size_t)inst,
-                              MOTION ? inst_velo + 3 * (size_t)inst : nullptr,
-                              time, r);
-        }
-        float ce[64];
-        unsigned long long mask = 0ull;
-        for (int c = 0; c < g; ++c) {
-          const float e = slab_entry(l2box + 2 * (base + c), rl,
-                                     cull_bound<AMASK>(best));
-          ce[c] = e;
-          if (e < BIG_F32) mask |= 1ull << c;
-        }
-        while (mask) {
-          float em = BIG_F32;
-          int cm = -1;
-          for (unsigned long long m = mask; m; m &= m - 1) {
-            const int c = __ffsll((long long)m) - 1;
-            if (ce[c] < em) {
-              em = ce[c];
-              cm = c;
+      const int per_iter = pair ? 2 : 1;
+      bool live = true;
+      while (live) {
+        for (int j = 0; j < per_iter && live; ++j) {
+          if (max_visits > 0 && n_l1 >= max_visits) {   // capped: resume state
+            if (out_en &&
+                front_peek(f, be, bi, tb, r, cull_bound<AMASK>(best),
+                           n_pass) &&
+                be[f.k] < cull_bound<AMASK>(best)) {
+              e_next = be[f.k];
+              b_next = bi[f.k];
             }
-          }
-          mask &= ~(1ull << cm);
-          if (em > cull_bound<AMASK>(best) * WIDEN) break;
-          ++n_leaf;
-          if (touched) touched[m1 + base + cm] = 1;
-          if (test_leaf<AMASK, INST, MOTION>(
-                  tri, tri_mask, base + cm, k2, bi[k],
-                  INST ? cm * k2 : (base + cm) * k2, rl, time, tmax0, best,
-                  n_mask) && any_hit) {
-            stop = true;
-            break;
+            live = false;
+          } else if (!front_peek(f, be, bi, tb, r, cull_bound<AMASK>(best),
+                                 n_pass) ||
+                     be[f.k] > cull_bound<AMASK>(best) * WIDEN) {
+            live = false;   // front-to-back: no entry left can help
+          } else {
+            const int b = bi[f.k++];
+            ++n_l1;
+            live = !visit_l1<AMASK, INST, MOTION>(tb, b, r, time, tmax0,
+                                                  any_hit, pops, best,
+                                                  n_leaf, n_mask);
           }
         }
-      }
-      done = done || stop;
-      if (!done) {
-        cur_e = be[cnt - 1];
-        cur_i = bi[cnt - 1];
       }
     }
   }
@@ -195,6 +374,10 @@ trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
   out_t[i] = hit ? best.t : BIG_F32;
   out_slot[i] = solid ? -2 : (hit ? best.slot : -1);
   if (INST) out_blk[i] = hit ? best.blk : -1;
+  if (out_en) {
+    out_en[i] = e_next;
+    out_bn[i] = b_next;
+  }
   if (counters) {
     counters[4 * i] = n_pass;
     counters[4 * i + 1] = n_l1;
@@ -211,6 +394,10 @@ trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
   X(3, 0, true, false) X(4, 1, true, false) X(5, 2, true, false) \
   X(6, 0, false, true) X(9, 0, true, true)
 
+// max_visits: 0 = uncapped.  out_en / out_bn: the frontier outputs (both or
+// neither).  The combinations the reference kernel asserts against are
+// refused: pair with a cap or a frontier; window > 1 with pair, a frontier
+// or a cap; window outside {1, 2, 4}.
 extern "C" int trace2_launch(const float* orig, const float* dirs,
                              const float* tmax, int n, const float* l1box,
                              int m1, const int* l1_base, const float* l2box,
@@ -218,16 +405,27 @@ extern "C" int trace2_launch(const float* orig, const float* dirs,
                              int any_hit, int amask, const int* blk_src,
                              const int* blk_inst, const float* inst_inv,
                              const float* inst_velo, const float* times,
+                             int max_visits, int window, int pair, int pops,
                              float* out_t, int* out_slot, int* out_blk,
-                             int* counters, unsigned char* touched,
-                             void* stream) {
+                             float* out_en, int* out_bn, int* counters,
+                             unsigned char* touched, void* stream) {
   if (n <= 0) return 0;
   const bool inst = blk_src != nullptr;
   const bool motion = times != nullptr;
+  const bool frontier = out_en != nullptr;
   if (amask < 0 || amask > 2 ||
       (amask && (any_hit || mask == nullptr || motion)) ||
       (inst && (!blk_inst || !inst_inv || !out_blk || (motion && !inst_velo))))
     return (int)cudaErrorInvalidValue;
+  if (g < 1 || g > 64 || max_visits < 0 || pops < 1 ||
+      frontier != (out_bn != nullptr) ||
+      (window != 1 && window != 2 && window != 4) ||
+      (pair && (max_visits || frontier)) ||
+      (window > 1 && (pair || max_visits || frontier)))
+    return (int)cudaErrorInvalidValue;
+  Tabs tb{(const float4*)l1box, m1, l1_base, (const float4*)l2box,
+          (const float4*)tri, (const int4*)mask, k2, g, blk_src, blk_inst,
+          inst_inv, inst_velo, touched};
   const int block = 128;
   const int grid = (n + block - 1) / block;
   switch (amask + 3 * (int)inst + 6 * (int)motion) {
@@ -235,10 +433,8 @@ extern "C" int trace2_launch(const float* orig, const float* dirs,
   case MODE:                                                                  \
     trace2_kernel<AMASK, INST, MOTION>                                        \
         <<<grid, block, 0, (cudaStream_t)stream>>>(                           \
-            orig, dirs, tmax, n, (const float4*)l1box, m1, l1_base,           \
-            (const float4*)l2box, (const float4*)tri, (const int4*)mask, k2,  \
-            g, any_hit, blk_src, blk_inst, inst_inv, inst_velo, times, out_t, \
-            out_slot, out_blk, counters, touched);                            \
+            orig, dirs, tmax, n, tb, any_hit, max_visits, window, pair, pops, \
+            times, out_t, out_slot, out_blk, out_en, out_bn, counters);       \
     break;
     TRACE2_MODES(TRACE2_CASE)
 #undef TRACE2_CASE

@@ -1,5 +1,6 @@
 // Device code shared by the two traversal kernels (csrc/trace2.cu, the
-// two-level walk, and csrc/trace1.cu, the single-level walk).
+// two-level walk, and csrc/trace1.cu, the single-level walk); the leaf
+// micro-benchmark (csrc/leaf.cu) runs the same leaf test.
 //
 // Replaces the in-kernel helpers of pathtracing_tpu/accel/_kernel_common.py
 // (entry_phase + make_select + make_recull -> front_fill / the cull bound,
@@ -136,8 +137,10 @@ __device__ __forceinline__ int alpha_cell(const int4* __restrict__ mask,
 // plain tables pass key0 = blk*k (the table slot) and ignore eblk; instanced
 // tables (INST) pass the expanded block and the offset of this block inside
 // it.  Returns true if any triangle was hit (any-hit callers stop there).
-// n_mask counts the mask lookups (AMASK != 0).
-template <int AMASK, bool INST, bool MOTION>
+// n_mask counts the mask lookups (AMASK != 0).  LDG: the rows are read
+// through the read-only cache (global memory); false for rows staged in
+// shared memory (the leaf micro-benchmark, leaf.cu).
+template <int AMASK, bool INST, bool MOTION, bool LDG = true>
 __device__ __forceinline__ bool test_leaf(const float4* __restrict__ tri,
                                           const int4* __restrict__ mask,
                                           int blk, int k, int eblk, int key0,
@@ -148,7 +151,9 @@ __device__ __forceinline__ bool test_leaf(const float4* __restrict__ tri,
   const int s0 = blk * k;
   for (int i = 0; i < k; ++i) {
     const float4* p = tri + 3 * (size_t)(s0 + i);
-    const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
+    const float4 a = LDG ? __ldg(p) : p[0];
+    const float4 b = LDG ? __ldg(p + 1) : p[1];
+    const float4 c = LDG ? __ldg(p + 2) : p[2];
     const float e1x = a.w, e1y = b.x, e1z = b.y;
     const float e2x = b.z, e2y = b.w, e2z = c.x;
     const float hx = r.dy * e2z - r.dz * e2y;

@@ -8,7 +8,10 @@ sorts them last so their kernel work is nil) and the loop stops when every
 lane is dead.  Random numbers are counter-based on (pixel, sample,
 dimension), so every render path draws identical streams.
 
-Integrators: "path" (MIS + next-event estimation) and "simple" (no NEE).
+Integrators: "path" (MIS + next-event estimation), "simple" (no NEE) and
+"volpath" (path with homogeneous participating media: lanes carry a medium
+id, distance sampling in the medium, phase-function scattering, shadow
+rays that march through medium boundaries).
 """
 from __future__ import annotations
 
@@ -21,8 +24,11 @@ from ..core.math import BIG_F32, SHADOW_EPS
 from ..core import rng as rngmod
 from ..core.rng import SamplerConfig, sample_1d, sample_2d
 from ..core.bsdf import (bsdf_sample, bsdf_eval_pdf, material_lanes,
-                         FLAG_SPECULAR)
+                         FLAG_SPECULAR, FLAG_TRANSMISSIVE)
 from ..core.filters import FilterConfig, mitchell
+from ..core.math import fma, vdot, vdot_k, offset_ray
+from ..core.medium import medium_sample, medium_tr
+from ..core.phase import hg_pdf, hg_sample
 from ..scene.intersect import _intersect, make_interaction, _occluded
 from ..scene import lights as L
 from ..scene.textures import texture_alpha, texture_eval
@@ -36,7 +42,10 @@ _D_LIGHT_UV = 2
 _D_SCATTER_U = 4
 _D_LIGHT_SELECT = 5
 _D_RR = 6
+_D_PHASE = 7
 _D_ENV_CELL = 9
+_D_MED_CHANNEL = 10
+_D_MED_DIST = 11
 _D_ALPHA = 12
 # drain-tail statistics of the regenerating tracer: a lane at or past
 # _DEEP_BOUNCE is deep, and a deep lane's closest hit nearer than _REHIT_T
@@ -48,11 +57,10 @@ _REHIT_T = 1e-4
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Same fields as the reference package's RenderConfig.  Not in this
-    package yet: integrator="volpath", differentiable=True and
-    compact_after (they raise)."""
+    package yet: differentiable=True and compact_after (they raise)."""
     spp: int = 16
     max_depth: int = 8
-    integrator: str = "path"        # simple | path
+    integrator: str = "path"        # simple | path | volpath
     sampler: SamplerConfig = SamplerConfig(kind="stratified",
                                            x_samples=4, y_samples=4)
     filter: FilterConfig = mitchell()
@@ -65,13 +73,12 @@ class RenderConfig:
 
 
 def _check_cfg(cfg: RenderConfig, meta):
-    if meta.n_media or meta.n_env or meta.has_emissive_tex:
+    if meta.n_env or meta.has_emissive_tex:
         raise NotImplementedError(
-            "scene uses features not ported yet (media, environment or "
-            "emissive textures)")
-    if cfg.integrator not in ("path", "simple"):
-        raise NotImplementedError(
-            f"integrator={cfg.integrator!r} comes with participating media")
+            "scene uses features not ported yet (environment or emissive "
+            "textures)")
+    if cfg.integrator not in ("path", "simple", "volpath"):
+        raise ValueError(f"unknown integrator {cfg.integrator!r}")
     if cfg.differentiable:
         raise NotImplementedError("differentiable rendering is not ported yet")
     if cfg.compact_after is not None:
@@ -110,20 +117,83 @@ def resolve_material(scene, meta, it):
 
 
 # ---------------------------------------------------------------------------
+# Transmittance marching
+# ---------------------------------------------------------------------------
+
+# A degenerate-geometry safety net, not a budget: the reference marches
+# until every lane has left its last boundary
+_MAX_MARCHES = 64
+
+
+def transmittance(scene, meta, origin, direction, dist, medium, active,
+                  time=None):
+    """March shadow rays through material-less medium boundaries,
+    accumulating the transmittance of each medium segment.  A surface with
+    a material blocks the ray.  Returns (Tr [N,3], blocked [N]).  One host
+    sync per march (the .item() below); finished lanes march zero-length
+    segments (t_max = 0: no kernel work)."""
+    n = origin.shape[0]
+    dev = origin.device
+    n_med = scene["med_sigma_t"].shape[0]
+
+    def med_tr(med, t):
+        sig = scene["med_sigma_t"][torch.clamp(med, 0, n_med - 1)]
+        return torch.where((med >= 0)[:, None], medium_tr(sig, t), 1.0)
+
+    o, rem, med = origin, dist, medium
+    tr = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    blocked = torch.zeros((n,), dtype=torch.bool, device=dev)
+    live = active
+    i = 0
+    while i < _MAX_MARCHES and bool(live.any().item()):
+        h = _intersect(scene, meta, o, direction,
+                       torch.where(live, rem, 0.0), time)
+        it = make_interaction(scene, meta, o, direction, h, time=time,
+                              lite=True)
+        seg = torch.where(h["valid"], h["t"], rem)
+        tr = torch.where(live[:, None], tr * med_tr(med, seg), tr)
+        hit_mat = h["valid"] & (it["mat_id"] >= 0)
+        blocked = blocked | (live & hit_mat)
+        go_on = live & h["valid"] & ~hit_mat
+        # the medium on the far side of the boundary
+        new_med = torch.where(vdot(direction, it["n"]) < 0.0, it["med_id"],
+                              -1)
+        med = torch.where(go_on, new_med, med)
+        # step past the boundary with a scale-robust offset (an absolute
+        # epsilon is below one ulp at large coordinates)
+        n_fwd = torch.where(vdot_k(direction, it["n"]) > 0, it["n"],
+                            -it["n"])
+        o = torch.where(go_on[:, None], offset_ray(it["p_raw"], n_fwd), o)
+        rem = torch.where(go_on, rem - h["t"], rem)
+        live = go_on & (rem > 0)
+        i += 1
+    return tr, blocked
+
+
+# ---------------------------------------------------------------------------
 # Next-event estimation
 # ---------------------------------------------------------------------------
 
 def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
-              alpha_salt, active, occ_stats=None, time=None):
-    """One-light next-event estimate from surface vertices.  alpha_salt
-    keys the shadow predicate's BLEND random numbers; occ_stats is handed
-    to it (scene/intersect.py::_occluded); time [N] is the rays' shutter
-    time (lights are sampled and shadow rays traced at it)."""
+              alpha_salt, active, occ_stats=None, time=None,
+              is_medium_vertex=None, medium=None, g_lanes=None,
+              volumetric: bool = False):
+    """One-light next-event estimate.  alpha_salt keys the shadow
+    predicate's BLEND random numbers; occ_stats is handed to it
+    (scene/intersect.py::_occluded); time [N] is the rays' shutter time
+    (lights are sampled and shadow rays traced at it).  Volumetric
+    (integrator "volpath"): is_medium_vertex [N] marks medium scatter
+    vertices, which take the HG phase function (asymmetry g_lanes) in
+    place of the BSDF and no backface rejection; shadow rays march through
+    the medium boundaries from `medium` (transmittance) in place of the
+    shadow predicate."""
     if meta.n_lights == 0:
         return torch.zeros_like(ray_dir)
 
     lidx, pmf, lvalid = L.sample_light_index(scene, meta, u_select)
     ref_p = it["p"]
+    if is_medium_vertex is not None:
+        ref_p = torch.where(is_medium_vertex[:, None], it["p_raw"], ref_p)
     ls = L.light_sample(scene, meta, lidx, ref_p, u_cell, uv_light, time)
 
     sdir = ls["dir"]
@@ -142,14 +212,25 @@ def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
     f, sampling_pdf = bsdf_eval_pdf(mat, ray_dir, it, sdir,
                                     present=meta.mats_present)
     f = f * torch.abs(cos_s)[:, None]
+    if is_medium_vertex is not None:
+        ph = hg_pdf(ray_dir, sdir, g_lanes)
+        f = torch.where(is_medium_vertex[:, None], ph[:, None], f)
+        sampling_pdf = torch.where(is_medium_vertex, ph, sampling_pdf)
+        surf_reject = ~is_medium_vertex & surf_reject
 
     dead = ((~lvalid) | (pmf <= 0) | surf_reject
             | torch.all(f == 0.0, dim=-1))
     active = active & ~dead
     # inactive lanes trace zero-length shadow rays (no kernel work)
     t_shadow = torch.where(active, t_shadow, 0.0)
-    vis = ~_occluded(scene, meta, ref_p, sdir, t_shadow,
-                     rand_key=alpha_salt, stats=occ_stats, time=time)
+    tr = None
+    if volumetric:
+        tr, blocked = transmittance(scene, meta, ref_p, sdir, t_shadow,
+                                    medium, active, time)
+        vis = ~blocked
+    else:
+        vis = ~_occluded(scene, meta, ref_p, sdir, t_shadow,
+                         rand_key=alpha_salt, stats=occ_stats, time=time)
 
     l_val = L.light_sample_L(scene, meta, lidx, ls, sdir)
     shape_pdf = L.light_sample_pdf(scene, meta, lidx, ls, ref_p, sdir)
@@ -163,6 +244,8 @@ def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
     contrib = torch.where(ls["is_delta"][:, None], contrib_delta,
                           torch.where((light_pdf > 0)[:, None], contrib_mis,
                                       0.0))
+    if tr is not None:
+        contrib = tr * contrib
     return torch.where((active & vis)[:, None], contrib, 0.0)
 
 
@@ -178,6 +261,8 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
     where each lane sits at its own depth).  occ_stats (a dict) accumulates
     the shadow predicate's "calls" and "restarts"."""
     simple = cfg.integrator == "simple"
+    volumetric = cfg.integrator == "volpath"
+    media = volumetric and meta.n_media > 0
     s = cfg.sampler
     present = meta.mats_present
 
@@ -213,6 +298,23 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
                                               tput * le * w[:, None], 0.0)
         alive = alive & hit["valid"]
 
+        # ---- participating medium segment: a scatter event inside the
+        # medium before the surface hit, or the segment's transmittance
+        if media:
+            med = state["medium"]
+            if meta.scene_medium >= 0:
+                med = torch.where(med < 0, meta.scene_medium, med)
+            in_medium = alive & (med >= 0)
+            mi = torch.clamp(med, 0, scene["med_sigma_t"].shape[0] - 1)
+            u_ch = sample_1d(s, px, py, sample_idx, dim(b, _D_MED_CHANNEL))
+            u_dist = sample_1d(s, px, py, sample_idx, dim(b, _D_MED_DIST))
+            scat, t_scat, w_med = medium_sample(
+                scene["med_sigma_t"][mi], scene["med_sigma_s"][mi], hit["t"],
+                u_ch, u_dist)
+            tput = torch.where(in_medium[:, None], tput * w_med, tput)
+            med_scatter = in_medium & scat
+            state = dict(state, medium=med)
+
         # ---- per-bounce randoms
         uv_scatter = sample_2d(s, px, py, sample_idx, dim(b, _D_SCATTER_UV))
         uv_light = sample_2d(s, px, py, sample_idx, dim(b, _D_LIGHT_UV))
@@ -224,9 +326,14 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
         alpha_salt = rngmod.hash_u32(sample_idx, b, s.seed)
 
         mat = resolve_material(scene, meta, it)
+        if volumetric:
+            mi = torch.clamp(state["medium"], 0, scene["med_g"].shape[0] - 1)
+            g_lanes = scene["med_g"][mi]
+            vol = dict(medium=state["medium"], g_lanes=g_lanes,
+                       volumetric=True)
 
         # ---- emitter hit
-        surf = alive
+        surf = alive & ~med_scatter if media else alive
         emit_l = L.area_light_L(scene, meta, it["light_id"], it["n"],
                                 it["uv"], d)
         has_emit = (surf & (it["light_id"] >= 0)
@@ -246,6 +353,24 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
         radiance = radiance + torch.where(has_emit[:, None],
                                           tput * emit_l * w_emit[:, None],
                                           0.0)
+
+        # ---- medium scatter vertex: NEE with the phase function, the
+        # medium's emission, and a phase-sampled direction
+        if media:
+            uv_phase = sample_2d(s, px, py, sample_idx, dim(b, _D_PHASE))
+            scat_p = fma(t_scat[:, None], d, o)
+            it_med = dict(it, p=scat_p, p_raw=scat_p)
+            nee_med = sample_ld(scene, meta, cfg, d, it_med, mat, u_select,
+                                uv_light, u_cell, alpha_salt, med_scatter,
+                                occ_stats, time,
+                                is_medium_vertex=torch.ones_like(med_scatter),
+                                **vol)
+            radiance = radiance + torch.where(med_scatter[:, None],
+                                              tput * nee_med, 0.0)
+            n_rays = n_rays + med_scatter.sum()
+            radiance = radiance + torch.where(med_scatter[:, None],
+                                              tput * scene["med_le"][mi], 0.0)
+            new_dir_med, _ = hg_sample(d, g_lanes, uv_phase)
 
         boundary = surf & (it["mat_id"] < 0)       # material-less surface
         can_scatter = surf & (it["mat_id"] >= 0)
@@ -282,8 +407,11 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
         # ---- NEE from the surface
         if not simple:
             nee_active = scattered & ~new_spec
+            vkw = dict(is_medium_vertex=torch.zeros_like(nee_active),
+                       **vol) if volumetric else {}
             nee = sample_ld(scene, meta, cfg, d, it, mat, u_select, uv_light,
-                            u_cell, alpha_salt, nee_active, occ_stats, time)
+                            u_cell, alpha_salt, nee_active, occ_stats, time,
+                            **vkw)
             radiance = radiance + torch.where(nee_active[:, None],
                                               tput * nee, 0.0)
             n_rays = n_rays + nee_active.sum()
@@ -300,16 +428,36 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
         tput_new = tput * f * (cos_wi / torch.clamp(pdf, min=1e-18))[:, None]
         tput = torch.where(scattered[:, None], tput_new, tput)
 
+        # ---- medium handoff: the medium on the side the ray goes on to
+        if volumetric:
+            transmissive = (flags & FLAG_TRANSMISSIVE) > 0
+            med_next = torch.where(vdot(wi, it["n"]) < 0.0, it["med_id"], -1)
+            carry = ~transmissive & (vdot(d, it["ns"]) <= 0.0)
+            med_next = torch.where(carry, state["medium"], med_next)
+            med_boundary = torch.where(vdot(d, it["n"]) < 0.0, it["med_id"],
+                                       -1)
+            medium = torch.where(scattered, med_next,
+                                 torch.where(boundary, med_boundary,
+                                             state["medium"]))
+        else:
+            medium = state["medium"]
+
         # ---- next ray state
         o_next = torch.where(scattered[:, None], new_origin,
                              torch.where(boundary[:, None], it["p_raw"], o))
         d_next = torch.where(scattered[:, None], wi, d)
         spec = torch.where(scattered, new_spec,
-                           torch.where(boundary, True, state["spec"]))
+                           torch.where(boundary, not volumetric,
+                                       state["spec"]))
+        if media:       # a medium scatter overrides the surface's results
+            o_next = torch.where(med_scatter[:, None], scat_p, o_next)
+            d_next = torch.where(med_scatter[:, None], new_dir_med, d_next)
+            spec = torch.where(med_scatter, False, spec)
 
         # ---- Russian roulette
-        rr_depth = state["rr_depth"] + scattered.to(torch.int64)
-        rr_on = scattered & (rr_depth > cfg.rr_start)
+        did_scatter = scattered | med_scatter if media else scattered
+        rr_depth = state["rr_depth"] + did_scatter.to(torch.int64)
+        rr_on = did_scatter & (rr_depth > cfg.rr_start)
         rr_prob = torch.clamp(torch.max(tput, dim=-1).values, max=0.95)
         rr_kill = rr_on & (u_rr >= rr_prob)
         tput = torch.where((rr_on & ~rr_kill)[:, None],
@@ -317,16 +465,18 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
                            tput)
 
         alive = alive & ~absorbed & ~rr_kill
-        alive = alive & (scattered | boundary)
+        alive = alive & (did_scatter | boundary)
         alive = alive & (torch.sum(tput, dim=-1) > 0.0)
         return dict(o=o_next, d=d_next, tput=tput, radiance=radiance,
                     prev_pdf=new_prev_pdf, spec=spec, alive=alive,
-                    rr_depth=rr_depth, n_rays=n_rays, t_hit=hit["t"])
+                    medium=medium, rr_depth=rr_depth, n_rays=n_rays,
+                    t_hit=hit["t"])
 
     return bounce
 
 
-def _fresh_state(o, d, n):
+def _fresh_state(o, d, n, medium):
+    """Camera-ray lane state; medium: the camera's medium id."""
     dev = o.device
     return dict(o=o, d=d,
                 tput=torch.ones((n, 3), dtype=torch.float32, device=dev),
@@ -334,6 +484,7 @@ def _fresh_state(o, d, n):
                 prev_pdf=torch.ones((n,), dtype=torch.float32, device=dev),
                 spec=torch.ones((n,), dtype=torch.bool, device=dev),
                 alive=torch.ones((n,), dtype=torch.bool, device=dev),
+                medium=torch.full((n,), medium, dtype=torch.int64, device=dev),
                 rr_depth=torch.zeros((n,), dtype=torch.int64, device=dev),
                 n_rays=torch.zeros((), dtype=torch.int64, device=dev))
 
@@ -342,7 +493,7 @@ def _trace(scene, meta, cfg, origin, direction, time, px, py, sample_idx,
            with_stats=False):
     _check_cfg(cfg, meta)
     n = origin.shape[0]
-    state = _fresh_state(origin, direction, n)
+    state = _fresh_state(origin, direction, n, meta.camera_medium)
     bounce = _make_bounce(scene, meta, cfg, px, py,
                           time if meta.has_motion else None, sample_idx, n)
     b = 0
@@ -397,7 +548,7 @@ def _trace_regen(scene, cam, meta, cfg, pixel_idx, waves, sample_offset,
     motion = meta.has_motion
     qi = torch.arange(k, dtype=torch.int64, device=dev)
     px, py, sidx, o0, d0, tme = fresh(qi)
-    st = _fresh_state(o0, d0, k)
+    st = _fresh_state(o0, d0, k, meta.camera_medium)
     head = torch.tensor(k, dtype=torch.int64, device=dev)
     b = torch.zeros((k,), dtype=torch.int64, device=dev)
     out = torch.zeros((q_total, 3), dtype=torch.float32, device=dev)
@@ -441,6 +592,7 @@ def _trace_regen(scene, cam, meta, cfg, pixel_idx, waves, sample_offset,
             prev_pdf=torch.where(take, 1.0, st["prev_pdf"]),
             spec=torch.where(take, True, st["spec"]),
             alive=alive | take,
+            medium=torch.where(take, meta.camera_medium, st["medium"]),
             rr_depth=torch.where(take, 0, st["rr_depth"]),
             n_rays=st["n_rays"])
         b = torch.where(take, 0, b)

@@ -44,8 +44,20 @@ FLATTEN_MAX = 4_000_000   # runtime="auto" instances above this many
                           # build(), overrides it (0 keeps them all)
 TWOLEVEL_MIN = 65536      # triangle sets above this many go to the
                           # two-level tables, the others to the single-level
-                          # ones (tests set 0 to force small sets onto the
-                          # two-level kernel)
+                          # ones; PT_TWOLEVEL_MIN, read at build(),
+                          # overrides it (tests set 0 to force small sets
+                          # onto the two-level kernel)
+
+
+def twolevel_min() -> int:
+    """PT_TWOLEVEL_MIN, else TWOLEVEL_MIN (read when tables are built)."""
+    return int(os.environ.get("PT_TWOLEVEL_MIN", TWOLEVEL_MIN))
+
+
+def alpha_masks_on() -> bool:
+    """PT_ALPHA_MASK=0 builds no alpha micro-masks (and so no in-traversal
+    alpha tests: meta.alpha_cull_mask stays False)."""
+    return os.environ.get("PT_ALPHA_MASK", "1") != "0"
 
 
 def _lum(c):
@@ -149,8 +161,8 @@ def build_traversal_tables(tri_v, tri_uv, tri_mat, pool, mat_alpha_mode,
 
     def masks_of(uv, mat, is_alpha):
         """int32 [n,7] mask words, zero rows on opaque triangles; None on
-        a moving scene or without alpha triangles."""
-        if motion or not is_alpha.any():
+        a moving scene, without alpha triangles or with PT_ALPHA_MASK=0."""
+        if motion or not is_alpha.any() or not alpha_masks_on():
             return None
         t1 = time.perf_counter()
         ids = np.nonzero(is_alpha)[0]
@@ -169,7 +181,7 @@ def build_traversal_tables(tri_v, tri_uv, tri_mat, pool, mat_alpha_mode,
         if mask_words is not None:
             kw["tri_mask"] = mask_words[ids]
         if two_level is None:
-            two_level = len(ids) > TWOLEVEL_MIN
+            two_level = len(ids) > twolevel_min()
         if two_level:
             arrays, bk = build_tri_blocks2(tri_v[ids], g=block_g, **kw)
         else:
@@ -281,6 +293,8 @@ class SceneBuilder:
                       for k in ("q", "u", "v", "prop", "vel")}
         self._has_motion = False
         self._lights = []
+        self._med = dict(sa=[], ss=[], g=[], le=[])
+        self.scene_medium = -1
         self.camera = None
         self.light_sampler = "power"
 
@@ -347,14 +361,12 @@ class SceneBuilder:
     def add_sphere(self, center, radius, material=-1, medium=-1,
                    emission=None, em_tex=-1, one_sided=False,
                    velocity=(0.0, 0.0, 0.0)) -> int:
-        if medium >= 0:
-            _refuse("participating media")
         idx = len(self._sph["r"])
         lid = self._maybe_area_light(SHAPE_SPH, idx, emission, em_tex,
                                      one_sided)
         self._sph["c"].append(np.asarray(center, np.float32))
         self._sph["r"].append(float(radius))
-        self._sph["prop"].append([material, lid, -1])
+        self._sph["prop"].append([material, lid, medium])
         self._sph["vel"].append(np.asarray(velocity, np.float32))
         self._has_motion |= _moves(velocity)
         return idx
@@ -362,15 +374,13 @@ class SceneBuilder:
     def add_quad(self, q, u, v, material=-1, medium=-1, emission=None,
                  em_tex=-1, one_sided=False,
                  velocity=(0.0, 0.0, 0.0)) -> int:
-        if medium >= 0:
-            _refuse("participating media")
         idx = len(self._quad["q"])
         lid = self._maybe_area_light(SHAPE_QUAD, idx, emission, em_tex,
                                      one_sided)
         self._quad["q"].append(np.asarray(q, np.float32))
         self._quad["u"].append(np.asarray(u, np.float32))
         self._quad["v"].append(np.asarray(v, np.float32))
-        self._quad["prop"].append([material, lid, -1])
+        self._quad["prop"].append([material, lid, medium])
         self._quad["vel"].append(np.asarray(velocity, np.float32))
         self._has_motion |= _moves(velocity)
         return idx
@@ -382,9 +392,9 @@ class SceneBuilder:
         """Flatten a triangle mesh into the global triangle table; emissive
         meshes get one area light per triangle above the power cull.
         transform: optional 4x4 object-to-world, applied here.  velocity:
-        linear motion of the whole mesh over the shutter."""
-        if medium >= 0:
-            _refuse("participating media")
+        linear motion of the whole mesh over the shutter.  medium: the
+        medium on the side the normals face away from (-1: none); a
+        material-less mesh with a medium bounds a volume."""
         vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
         indices = np.asarray(indices, np.int32).reshape(-1, 3)
         if transform is not None:
@@ -431,7 +441,7 @@ class SceneBuilder:
         props = np.empty((f, 4), np.int64)
         props[:, 0] = material
         props[:, 1] = lids
-        props[:, 2] = -1
+        props[:, 2] = medium
         props[:, 3] = 1 if has_tan else 0
         self._tri["prop"].extend(props)
         self._tri["vel"].extend(np.broadcast_to(
@@ -469,10 +479,21 @@ class SceneBuilder:
 
     add_env_light_from_file = add_function_inf_light = add_env_light
 
-    def add_medium(self, *args, **kwargs):
-        _refuse("participating media")
+    # -- media ---------------------------------------------------------------
 
-    set_scene_medium = add_medium
+    def add_medium(self, sigma_a, sigma_s, g=0.0, density=1.0,
+                   le=(0, 0, 0), le_density=1.0) -> int:
+        """A homogeneous medium (absorption and scattering coefficients,
+        Henyey-Greenstein g, emitted radiance); returns its id."""
+        self._med["sa"].append(np.asarray(sigma_a, np.float32) * density)
+        self._med["ss"].append(np.asarray(sigma_s, np.float32) * density)
+        self._med["g"].append(float(g))
+        self._med["le"].append(np.asarray(le, np.float32) * le_density)
+        return len(self._med["g"]) - 1
+
+    def set_scene_medium(self, medium_id: int):
+        """The medium of the space outside every medium boundary."""
+        self.scene_medium = medium_id
 
     # -- models & instancing ------------------------------------------------
 
@@ -481,8 +502,6 @@ class SceneBuilder:
                   emission=None, em_tex=-1) -> int:
         """Register a reusable model; instance it with add_model_instance.
         Content-identical registrations share one model id."""
-        if medium >= 0:
-            _refuse("participating media")
         if em_tex >= 0:
             _refuse("an emissive texture")
         h = hashlib.sha256()
@@ -493,7 +512,7 @@ class SceneBuilder:
                 arr = np.ascontiguousarray(np.asarray(a))
                 h.update(str(arr.shape).encode())
                 h.update(arr.tobytes())
-        key = (h.hexdigest(), int(material),
+        key = (h.hexdigest(), int(material), int(medium),
                tuple(np.asarray(emission).tolist())
                if emission is not None else None)
         if key in self._model_dedup:
@@ -501,7 +520,7 @@ class SceneBuilder:
         self._models.append(dict(vertices=vertices, indices=indices,
                                  normals=normals, uvs=uvs,
                                  tangents=tangents, material=material,
-                                 emission=emission))
+                                 medium=medium, emission=emission))
         self._model_dedup[key] = len(self._models) - 1
         return self._model_dedup[key]
 
@@ -528,7 +547,7 @@ class SceneBuilder:
             return self.add_mesh(m["vertices"], m["indices"],
                                  normals=m["normals"], uvs=m["uvs"],
                                  tangents=m["tangents"],
-                                 material=m["material"],
+                                 material=m["material"], medium=m["medium"],
                                  emission=m["emission"], transform=transform,
                                  velocity=velocity)
         if runtime is not True and runtime != "auto":
@@ -556,7 +575,7 @@ class SceneBuilder:
             props = np.empty((f, 4), np.int64)
             props[:, 0] = m["material"]
             props[:, 1] = -1
-            props[:, 2] = -1
+            props[:, 2] = m["medium"]
             props[:, 3] = 1 if has_tan else 0
             self._obj["prop"].extend(props)
             self._obj_range[model_id] = (first, f)
@@ -604,8 +623,8 @@ class SceneBuilder:
             m = self._models[e["model"]]
             self.add_mesh(m["vertices"], m["indices"], normals=m["normals"],
                           uvs=m["uvs"], tangents=m["tangents"],
-                          material=m["material"], transform=e["tf4"],
-                          velocity=e["vel"])
+                          material=m["material"], medium=m["medium"],
+                          transform=e["tf4"], velocity=e["vel"])
         flat = set(autos)
         keep = [i for i in range(len(self._inst)) if i not in flat]
         remap = {old: new for new, old in enumerate(keep)}
@@ -621,15 +640,13 @@ class SceneBuilder:
                    focus_angle=0.0, focus_distance=0.0,
                    shutter=(0.0, 0.0), medium=-1):
         """Pinhole / thin-lens camera; fov in radians, half_width =
-        tan(fov/2)."""
-        if medium >= 0:
-            _refuse("participating media")
+        tan(fov/2).  medium: the medium the camera sits in (-1: none)."""
         self.camera = dict(look_from=np.asarray(look_from, np.float32),
                            look_at=np.asarray(look_at, np.float32),
                            fov=float(fov), resolution=tuple(resolution),
                            focus_angle=float(focus_angle),
                            focus_distance=float(focus_distance),
-                           shutter=tuple(shutter))
+                           shutter=tuple(shutter), medium=int(medium))
 
     # -- packing -----------------------------------------------------------
 
@@ -826,10 +843,15 @@ class SceneBuilder:
             light_cdf=pad(cdf, (1,), fill=1.0),
             light_total_power=np.asarray([total_power], np.float32),
             inf_idx=pad(inf_idx, (1,), np.int32, -1),
+            med_sigma_a=pad(self._med["sa"], (1, 3)),
+            med_sigma_s=pad(self._med["ss"], (1, 3)),
+            med_g=pad(self._med["g"], (1,)),
+            med_le=pad(self._med["le"], (1, 3)),
             scene_lo=np.asarray(lo, np.float32),
             scene_hi=np.asarray(hi, np.float32),
             **self.textures.pack(),
         )
+        arrays["med_sigma_t"] = arrays["med_sigma_a"] + arrays["med_sigma_s"]
         has_motion = self._has_motion
         has_light_motion = any(_moves(lt.get("vel", 0.0)) for lt in lights)
         if has_motion:
@@ -871,6 +893,7 @@ class SceneBuilder:
         block_k = alpha_block_k = 0
         alpha_cull_mask = False
         block_g = int(os.environ.get("PT_BLOCK_G", 32))
+        block_pops = int(os.environ.get("PT_POPS", 4))
         n_inst_tris = sum(i["count"] for i in self._inst)
         if accel == "auto":
             small = nt + ns + nq + n_inst_tris < 4096
@@ -904,8 +927,12 @@ class SceneBuilder:
                  for k, v in arrays.items()}
         meta = SceneMeta(
             n_tri=nt, n_sph=ns, n_quad=nq, n_mat=nm, n_lights=len(lights),
-            n_inf=len(inf_idx), light_sampler=self.light_sampler,
-            accel=accel, block_k=block_k, block_g=block_g, block_pops=4,
+            n_inf=len(inf_idx), n_media=len(self._med["g"]),
+            scene_medium=self.scene_medium,
+            camera_medium=(self.camera or {}).get("medium", -1),
+            light_sampler=self.light_sampler,
+            accel=accel, block_k=block_k, block_g=block_g,
+            block_pops=block_pops,
             alpha_block_k=alpha_block_k, mats_present=mats_present,
             has_alpha=has_alpha, has_motion=has_motion,
             has_light_motion=has_light_motion, n_inst=n_inst,

@@ -22,6 +22,7 @@ relies on XLA clamping out-of-range gathers, a CUDA gather faults.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -240,6 +241,82 @@ def _subset_scene(scene, prefix):
     return sub
 
 
+def _multipass_visits():
+    """Per-pass L1-visit caps of the multipass driver; () disables it.
+    PT_MULTIPASS overrides MULTIPASS_VISITS: "0", "off" or "" off, "a,b,c"
+    a schedule.  Read at every dispatch (the reference package reads it
+    when it traces)."""
+    env = os.environ.get("PT_MULTIPASS")
+    if env is not None:
+        env = env.strip()
+        if env in ("0", "off", ""):
+            return ()
+        return tuple(int(x) for x in env.split(","))
+    return MULTIPASS_VISITS
+
+
+# Off by default, as in the reference package, which measured it as a dead
+# end on its TPU kernel (pathtracing_tpu/scene/intersect.py:331-341).
+MULTIPASS_VISITS = ()
+# The reference takes the multipass driver only when its per-tile entry
+# table fits VMEM (pallas_trace2.RECULL_MAX_M1PAD); the same condition
+# keeps the two packages on the same path under the same switches.
+RECULL_MAX_M1PAD = 8192
+
+
+def _multipass2(sub, o, d, tm, any_hit, time, visits):
+    """Multipass traversal of a two-level table set (the reference's
+    `_multipass2`): capped kernel passes (max_visits = visits[i]) that
+    report each ray's resume state, then one uncapped pass.  Between
+    passes the unresolved rays (resume entry below their running bound;
+    for any-hit, not occluded yet) are re-sorted by (b_next << 3) | octant,
+    so rays that need the same L1 next travel together, and their t_max is
+    tightened to the running best; the resolved ones get t_max = 0.  A
+    pass's hit replaces the running one only when strictly closer, so the
+    result equals one uncapped pass up to which of two triangles at the
+    same t is reported."""
+    from ..accel.trace2 import tri_intersect2
+
+    n = o.shape[0]
+    dev = o.device
+    res = dict(t=torch.full((n,), BIG_F32, dtype=torch.float32, device=dev),
+               tri=torch.full((n,), -1, dtype=torch.int64, device=dev),
+               inst=torch.full((n,), -1, dtype=torch.int64, device=dev),
+               valid=torch.zeros((n,), dtype=torch.bool, device=dev))
+    octant = ((d[:, 0] > 0).to(torch.int64)
+              | ((d[:, 1] > 0).to(torch.int64) << 1)
+              | ((d[:, 2] > 0).to(torch.int64) << 2))
+    o_s, d_s, t_s, time_s = o, d, tm, time
+    ip = None                       # inverse of the current permutation
+    for v in list(visits) + [None]:
+        last = v is None
+        hit = tri_intersect2(sub, o_s, d_s, t_s, any_hit=any_hit,
+                             time=time_s, max_visits=v, frontier=not last)
+        if ip is not None:          # back to the caller's ray order
+            hit = {k: x[ip] for k, x in hit.items()}
+        bound = torch.where(res["valid"], res["t"], tm)
+        closer = hit["valid"] & (hit["t"] < bound)
+        res = dict(t=torch.where(closer, hit["t"], res["t"]),
+                   tri=torch.where(closer, hit["tri"], res["tri"]),
+                   inst=torch.where(closer, hit["inst"], res["inst"]),
+                   valid=res["valid"] | closer)
+        if last:
+            break
+        bound = torch.where(res["valid"], res["t"], tm)
+        unresolved = (hit["e_next"] < bound) & (bound > 0.0)
+        if any_hit:
+            unresolved = unresolved & ~res["valid"]
+        key = torch.where(unresolved, (hit["b_next"] << 3) | octant,
+                          0xFFFFFFFF)
+        perm = torch.argsort(key, stable=True)
+        ip = torch.argsort(perm)
+        o_s = o[perm]
+        d_s = d[perm]
+        t_s = torch.where(unresolved, bound, 0.0)[perm]
+        time_s = time[perm] if time is not None else None
+    return res
+
+
 def _pallas_dispatch(scene, meta, origin, direction, t_max,
                      any_hit: bool = False, tri_tables: str = "all",
                      analytic: bool = True, sort_key=None,
@@ -259,11 +336,16 @@ def _pallas_dispatch(scene, meta, origin, direction, t_max,
     and pays the slab pre-pass once (keys order work, they never change
     results).  When meta.alpha_cull_mask, the pka_* run tests the
     per-triangle alpha micro-masks in the traversal: closest passes drop
-    definitely-transparent hits (amask=1); alpha_shadow=True runs the
-    shadow walk (amask=2), whose result carries "solid" for lanes a
-    definitely-opaque hit occludes outright.  A hit on a run-time instance
-    comes back as kind SHAPE_ITRI, idx = inst * n_obj_tri + object
-    triangle.  time [N]: the rays' shutter times on a moving scene."""
+    definitely-transparent hits (amask=1; PT_AMASK_CLOSEST=0 turns this
+    off); alpha_shadow=True runs the shadow walk (amask=2), whose result
+    carries "solid" for lanes a definitely-opaque hit occludes outright.
+    Two-level runs pass pops=meta.block_pops, and the switches the
+    reference package reads at the same point: PT_MULTIPASS (the multipass
+    driver, on mask-free runs whose L1 count pads to at most
+    RECULL_MAX_M1PAD) and PT_WINDOW (the resident-window drain).  A hit on
+    a run-time instance comes back as kind SHAPE_ITRI, idx = inst *
+    n_obj_tri + object triangle.  time [N]: the rays' shutter times on a
+    moving scene."""
     from ..accel.trace1 import tri_intersect1
     from ..accel.trace2 import tri_intersect2, TILE
 
@@ -286,13 +368,23 @@ def _pallas_dispatch(scene, meta, origin, direction, t_max,
     tme = torch.nn.functional.pad(time[perm], (0, pad)) if motion else None
     am_alpha = 0
     if meta.alpha_cull_mask and not any_hit:
-        am_alpha = 2 if alpha_shadow else 1
+        if alpha_shadow:
+            am_alpha = 2
+        elif os.environ.get("PT_AMASK_CLOSEST", "1") != "0":
+            am_alpha = 1
 
     def run(prefix, tmr, amask):
         sub = _subset_scene(scene, prefix)
         if "pk_l1_base" in sub:
+            m1pad = -(-sub["pk_l1box"].shape[0] // 128) * 128
+            visits = _multipass_visits()
+            if visits and m1pad <= RECULL_MAX_M1PAD and not amask:
+                return _multipass2(sub, o, d, tmr, any_hit, tme, visits)
+            wdw = os.environ.get("PT_WINDOW")
             return tri_intersect2(sub, o, d, tmr, any_hit=any_hit,
-                                  amask=amask, time=tme)
+                                  amask=amask, time=tme,
+                                  pops=meta.block_pops,
+                                  window=int(wdw) if wdw else None)
         return tri_intersect1(sub, o, d, tmr, any_hit=any_hit, amask=amask,
                               time=tme)
 

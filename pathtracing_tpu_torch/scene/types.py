@@ -18,6 +18,10 @@ every table padded to >= 1 row so gathers stay well-formed:
   light_type[L], light_color[L,3], light_vec[L,3], light_shape[L,2],
   light_flags[L], light_area[L], light_power[L], light_cdf[L],
   light_total_power[1], inf_idx[LI]
+  med_sigma_a/s/t [D,3], med_g [D], med_le [D,3]  homogeneous media
+        (absorption, scattering, extinction, HG asymmetry, emission);
+        prop column 2 of a shape is the medium on the side its normal
+        faces away from (-1: none)
   tri_vel [T,3], sph_vel [S,3], quad_vel [Q,3], light_vel [L,3]  linear
         velocities (position at ray time t is position + velocity * t)
   run-time instances (only when meta.n_inst > 0):
@@ -62,8 +66,8 @@ ALPHA_MASK = 2
 class SceneMeta:
     """Same fields as the reference package's SceneMeta, so a scene built
     there carries across (convert.from_numpy_scene).  Fields for features
-    this package does not run yet (media, environment and emissive
-    textures) must hold their "absent" values here."""
+    this package does not run yet (environment and emissive textures)
+    must hold their "absent" values here."""
     n_tri: int = 0
     n_sph: int = 0
     n_quad: int = 0

@@ -69,6 +69,78 @@ def mat_test(resolution=(440, 720), rows=11, cols=18, spacing=2.2,
     return b.build(device=device)
 
 
+def spheres_medium(resolution=(128, 128), device=None):
+    """Homogeneous-medium probe: a glass sphere filled with fog and a
+    diffuse sphere on a floor under an area light, in a thin scene-wide
+    haze (render with integrator="volpath")."""
+    b = SceneBuilder()
+    fog = b.add_medium(sigma_a=(0.02, 0.02, 0.02),
+                       sigma_s=(0.15, 0.15, 0.15), g=0.0)
+    white = b.add_diffuse((0.73, 0.73, 0.73), roughness=1.0)
+    glass = b.add_dielectric(ior=1.5, roughness=0.0)
+    b.add_quad([-50, 0, -50], [100, 0, 0], [0, 0, 100], material=white)
+    b.add_sphere([0, 2, 0], 2.0, material=glass, medium=fog)
+    b.add_sphere([-5, 1.5, 2], 1.5, material=white)
+    b.add_quad([-3, 10, -3], [6, 0, 0], [0, 0, 6], material=white,
+               emission=(20, 20, 20))
+    b.add_uniform_inf_light((0.05, 0.07, 0.1))
+    b.set_scene_medium(
+        b.add_medium(sigma_a=(0.001, 0.001, 0.001),
+                     sigma_s=(0.01, 0.01, 0.01), g=0.0))
+    b.set_camera(look_from=[0, 4, -14], look_at=[0, 2, 0],
+                 fov=math.radians(35.0), resolution=resolution)
+    return b.build(device=device)
+
+
+def sphere_mesh(center, radius, n_lat=40, n_lon=64):
+    """(vertices [V,3], indices [F,3]) of a latitude-longitude sphere with
+    outward-facing winding: 2 * n_lon * (n_lat - 1) triangles."""
+    theta = np.linspace(0.0, np.pi, n_lat + 1)[1:-1]
+    phi = np.linspace(0.0, 2.0 * np.pi, n_lon, endpoint=False)
+    ring = np.stack([np.sin(theta)[:, None] * np.cos(phi)[None],
+                     np.repeat(np.cos(theta)[:, None], n_lon, 1),
+                     np.sin(theta)[:, None] * np.sin(phi)[None]], -1)
+    v = np.concatenate([[[0.0, 1.0, 0.0]], ring.reshape(-1, 3),
+                        [[0.0, -1.0, 0.0]]])
+    top, bot = 0, len(v) - 1
+    j = np.arange(n_lon)
+    jn = (j + 1) % n_lon
+    faces = [np.stack([np.full(n_lon, top), 1 + jn, 1 + j], -1)]
+    for i in range(n_lat - 2):
+        a, b = 1 + i * n_lon, 1 + (i + 1) * n_lon
+        faces += [np.stack([a + j, a + jn, b + j], -1),
+                  np.stack([a + jn, b + jn, b + j], -1)]
+    last = 1 + (n_lat - 2) * n_lon
+    faces.append(np.stack([last + j, last + jn, np.full(n_lon, bot)], -1))
+    f = np.concatenate(faces).astype(np.int32)
+    vw = (v * radius + np.asarray(center)).astype(np.float32)
+    # outward winding: flip the faces whose normal points at the center
+    e = np.cross(vw[f[:, 1]] - vw[f[:, 0]], vw[f[:, 2]] - vw[f[:, 0]])
+    inward = (e * (vw[f].mean(1) - np.asarray(center))).sum(-1) < 0
+    f[inward] = f[inward][:, [0, 2, 1]]
+    return vw, f
+
+
+def medium_mesh(resolution=(48, 48), n_lat=40, n_lon=64, device=None):
+    """A medium bounded by a triangle mesh: a 4,992-triangle sphere mesh
+    with no material and medium=fog inside it (so its triangles go
+    through the traversal kernels) beside a diffuse sphere, on a floor
+    under an area light and a sky (render with integrator="volpath")."""
+    b = SceneBuilder()
+    fog = b.add_medium(sigma_a=(0.05, 0.05, 0.05),
+                       sigma_s=(0.4, 0.3, 0.2), g=0.3)
+    white = b.add_diffuse((0.73, 0.73, 0.73), roughness=1.0)
+    b.add_quad([-20, 0, -20], [40, 0, 0], [0, 0, 40], material=white)
+    b.add_mesh(*sphere_mesh((0.0, 2.0, 0.0), 2.0, n_lat, n_lon), medium=fog)
+    b.add_sphere([-4, 1, 1], 1.0, material=white)
+    b.add_quad([-2, 8, -2], [4, 0, 0], [0, 0, 4], material=white,
+               emission=(15, 15, 15))
+    b.add_uniform_inf_light((0.1, 0.1, 0.12))
+    b.set_camera(look_from=[0, 3, -10], look_at=[0, 2, 0],
+                 fov=math.radians(40.0), resolution=resolution)
+    return b.build(device=device)
+
+
 def textured_quad(resolution=(128, 128), device=None):
     """Texture/alpha feature probe: an alpha-MASK checker cutout on an
     analytic quad over a diffuse floor, in a uniform dome."""

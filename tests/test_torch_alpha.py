@@ -448,14 +448,12 @@ def test_torch_unported_features_still_refused(monkeypatch):
     b = tbuilder.SceneBuilder()
     v, f = _quad_model()
     mid = b.add_model(v, f)
-    # run-time instances and motion are ported: they build
+    # run-time instances, motion and media are ported: they build
     b.add_model_instance(mid, runtime=True)
     b.add_model_instance(mid, velocity=(1.0, 0.0, 0.0))
     b.add_mesh(v, f, velocity=(0.0, 1.0, 0.0))
-    with pytest.raises(NotImplementedError, match="media"):
-        b.add_medium((0.1,) * 3, (0.1,) * 3)
-    with pytest.raises(NotImplementedError, match="media"):
-        b.add_sphere([0, 0, 0], 1.0, medium=0)
+    fog = b.add_medium((0.1,) * 3, (0.1,) * 3)
+    b.add_sphere([0, 0, 0], 1.0, medium=fog)
     with pytest.raises(NotImplementedError):
         b.add_env_light(0)
     with pytest.raises(NotImplementedError, match="emissive texture"):

@@ -297,7 +297,7 @@ def test_torch_entry_points_need_a_device_choice():
 def test_torch_faithful_scene_refused():
     """The faithful scene builds (its foliage instances are re-emitted as
     world triangles by default) and a model can be kept as a run-time
-    instance; what stays refused is participating media."""
+    instance; what stays refused is an environment-map light."""
     scene, _, meta = tscenes.sanmiguel_analog(resolution=(8, 8), n_tris=100,
                                               foliage=2, device="cpu")
     assert meta.has_alpha and meta.n_inst == 0 and meta.n_tri > 100 + 2 * 96
@@ -309,7 +309,7 @@ def test_torch_faithful_scene_refused():
     _, _, meta = b.build(device="cpu")
     assert meta.n_inst == 1 and meta.n_obj_tri == 96 and meta.n_tri == 0
     with pytest.raises(NotImplementedError):
-        b.add_medium((0.1,) * 3, (0.1,) * 3)
+        b.add_env_light(np.ones((4, 8, 3), np.float32))
 
 
 def test_torch_package_imports_no_jax():
