@@ -7,8 +7,10 @@ Phases (any failure exits non-zero; the last stdout line is the JSON
 device summary only when every phase passed):
   1. build the three CUDA sources (csrc/trace2.cu, the two-level traversal
      K1, csrc/trace1.cu, the single-level traversal K2, and csrc/leaf.cu,
-     the leaf micro-benchmark K4; one nvcc each, started together) and
-     print each instance's registers;
+     the leaf micro-benchmark K4), one nvcc each, started together; print
+     each instance's registers, stack frame and spills, and K1's blocks
+     per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) unstaged and
+     for the window kernel;
   2. hold every kernel mode against its plain PyTorch version on the card,
      no flip allowed:
      a. K1 and K2 closest hit and any-hit on a 200K-triangle soup (K2: cut
@@ -91,6 +93,8 @@ device summary only when every phase passed):
      and the library product's times;
   10. print the kernel table JSON, the card's name and power limit, and
      the device summary.
+Every K1 mode is timed at pops 1 ("ms") and at the main path's pops 4
+("ms_pops4").
 Writes chiprun_out/sanmiguel_{legacy,faithful,multipass,tlas,small}.ppm,
 chiprun_out/spheres_medium.ppm and the whole output to
 chiprun_out/chip_smoke.log.
@@ -341,7 +345,9 @@ def _bound_ms(mod, scene, o, d, t_max, amask=0, any_hit=False, **kw):
         m2 = scene["pk_l2box"].shape[0]
         g = m2 // scene["pk_l1_base"].shape[0]
         k2 = scene["pk_tri"].shape[0] // m2
-        flops = (float(cnt[0]) * m1 * SLAB_FLOPS
+        # top-level slab tests: the kernel's own count (coarse unions and
+        # L1 entries of its front; the window walk: passes x m1)
+        flops = (float(cnt[4]) * SLAB_FLOPS
                  + float(cnt[1]) * g * SLAB_FLOPS
                  + float(cnt[2]) * k2 * MT_FLOPS
                  + float(cnt[3]) * MASK_FLOPS)
@@ -351,10 +357,13 @@ def _bound_ms(mod, scene, o, d, t_max, amask=0, any_hit=False, **kw):
             phys_seen = int(torch.unique(
                 scene["pk_blk_src"][res["l1_touched"]]).numel())
         leaf_seen = int(res["leaf_touched"].sum())
-        nbytes = (ray_bytes + m1 * (36 + (8 if inst else 0))
+        nc = -(-m1 // 8)                        # the coarse unions
+        nbytes = (ray_bytes + m1 * (36 + (8 if inst else 0)) + nc * 32
                   + phys_seen * g * 32 + (top_seen * 48 if inst else 0)
                   + leaf_seen * k2 * 48 + float(cnt[3]) * MASK_BYTES)
-        what = (f"L1 passes={cnt[0] / n:.2f} L1 visits={cnt[1] / n:.2f} "
+        what = (f"top refills={cnt[0] / n:.2f} top slab tests="
+                f"{cnt[4] / n:.1f} (flat scan: {cnt[0] / n * m1:.0f}) "
+                f"L1 visits={cnt[1] / n:.2f} "
                 f"leaf blocks={cnt[2] / n:.2f} (tri tests="
                 f"{cnt[2] / n * k2:.0f}) mask lookups={cnt[3] / n:.3f}; L1s "
                 f"visited {top_seen}/{m1} (physical {phys_seen}), child "
@@ -390,8 +399,9 @@ def _measure(mod, scene, o, d, t_max, label, modes, prune=True,
     each mode and compute each mode's own bound from its own counters.
     Returns {mode: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)};
     any_hit's max_abs_err is over the occlusion flags (its only output
-    that is compared)."""
+    that is compared); K1's modes add ms_pops4, the time at pops 4."""
     kernel, _ = _fns(mod)
+    k1 = hasattr(mod, "tri_intersect2")
     out = {}
     sub = {k: (v[:brute_rays] if v is not None else None)
            for k, v in kw.items() if k == "time"}
@@ -411,6 +421,9 @@ def _measure(mod, scene, o, d, t_max, label, modes, prune=True,
                                        **kw)
                 out[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                  bound_ms=b_ms, bound_by=b_by)
+                if k1:
+                    out[mode]["ms_pops4"] = _sync_time(lambda: kernel(
+                        scene, o, d, t_max, any_hit=anyh, pops=4, **kw))
     if "amask1" in modes or "amask2" in modes:
         if brute_rays:
             _compare_amask(mod, scene, o[:brute_rays], d[:brute_rays],
@@ -428,8 +441,20 @@ def _measure(mod, scene, o, d, t_max, label, modes, prune=True,
             out[f"amask{amask}"] = dict(max_abs_err=err, ms=ms,
                                         plain_ms=plain_ms, bound_ms=b_ms,
                                         bound_by=b_by)
+            if k1:
+                out[f"amask{amask}"]["ms_pops4"] = _sync_time(
+                    lambda: kernel(scene, o, d, t_max, amask=amask, pops=4,
+                                   **kw))
     for mode, r in out.items():
-        print(f"[kernel] {label} {mode}: {r['ms']:.3f} ms, plain "
+        p4 = ""
+        if k1:      # the group kernel's occupancy with these tables staged
+            smem = mod.staged_bytes(scene)
+            occ = mod.occupancy(mod.mode_name(
+                mode == "any_hit", int(mode[-1]) if "amask" in mode else 0,
+                "pk_blk_src" in scene, kw.get("time") is not None), smem=smem)
+            p4 = (f" (pops 4: {r['ms_pops4']:.3f} ms), {occ} blocks of 128 "
+                  f"per SM with {smem} B staged")
+        print(f"[kernel] {label} {mode}: {r['ms']:.3f} ms{p4}, plain "
               f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})", flush=True)
     return out
@@ -1162,7 +1187,7 @@ def main() -> int:
 
     # ---- 1. build (one nvcc per source, started together)
     t0 = time.perf_counter()
-    cubuild.build_all()
+    cubuild.build_all(("trace2", "trace1", "leaf"))
     trace2.build_kernel()
     trace1.build_kernel()
     bench_leaf.build_kernel()
@@ -1175,6 +1200,11 @@ def main() -> int:
     for stem in ("trace2", "trace1"):
         for name, line in cubuild.kernel_resources(stem):
             print(f"[build] {stem} {name}: {line}", flush=True)
+    for mode in trace2.MODES:
+        print(f"[occupancy] trace2 {mode}: group kernel "
+              f"{trace2.occupancy(mode)} blocks of 128 per SM unstaged "
+              f"(each [kernel] row gives it with its tables staged), window "
+              f"kernel {trace2.occupancy(mode, window=True)}", flush=True)
 
     kern = {}       # "trace2[mode]" / "trace1[mode]" -> measured numbers
 
@@ -1281,9 +1311,8 @@ def main() -> int:
           "children are far-point boxes", flush=True)
     o64, d64 = _bounce_rays(scene, nr)
     t64 = torch.full((nr,), 1e30, device=dev)
-    r = _measure(trace2, scene, o64, d64, t64,
-                 f"K1 {meta.n_tri:,}-tri tables x {nr} bounce rays",
-                 ("closest", "any_hit"))
+    label = f"K1 {meta.n_tri:,}-tri tables x {nr} bounce rays"
+    r = _measure(trace2, scene, o64, d64, t64, label, ("closest", "any_hit"))
     kern["trace2[closest]"] = r["closest"]
     kern["trace2[any_hit]"] = r["any_hit"]
     del o64, d64
@@ -1438,9 +1467,8 @@ def main() -> int:
         raise RuntimeError("an alpha child box does not hold its triangles")
     of, df = _foliage_rays(scene, nr)
     tf_ = torch.full((nr,), 1e30, device=dev)
-    r = _measure(trace2, alpha, of, df, tf_,
-                 f"K1 {n_alpha:,}-tri alpha tables x {nr} foliage rays",
-                 ("amask1", "amask2"))
+    label = f"K1 {n_alpha:,}-tri alpha tables x {nr} foliage rays"
+    r = _measure(trace2, alpha, of, df, tf_, label, ("amask1", "amask2"))
     kern["trace2[amask1]"] = r["amask1"]
     kern["trace2[amask2]"] = r["amask2"]
     del alpha

@@ -8,14 +8,21 @@ nvcc per source at the same time.  Everything is built with --fmad=false:
 FMA contraction would change Moller-Trumbore's rounding and flip edge hits
 against the plain PyTorch versions.
 
-`host_library(stem)` compiles the same source as plain C++ with g++ (one
-loop iteration per CUDA thread, no FMA contraction), so a kernel's
-traversal logic can be checked where there is no GPU and no nvcc.  A
-traversal source ends in an `extern "C" int <stem>_launch(...)` whose
-body launches through the `<STEM>_MODES` X-macro; the host build swaps
-the `<<<...>>>` launch for a loop over the rays.  A source whose device
+`host_library(stem)` compiles the same source as plain C++ with g++ (no
+FMA contraction), so a kernel's traversal logic can be checked where
+there is no GPU and no nvcc.  A traversal source ends in an `extern "C"
+int <stem>_launch(...)` whose body launches through the `<STEM>_MODES`
+X-macro; the host build swaps a `<<<...>>>` launch for a loop over the
+rays (one loop iteration per CUDA thread).  A source that launches
+through group_walk.cuh's `launch_groups` (trace2.cu) gets that header's
+host branch instead: each ray's W lanes run as W std::threads meeting at
+a C++20 std::barrier in every group primitive.  A source whose device
 code is guarded by `#ifdef __CUDACC__` (leaf.cu) provides its own host
-entry in the `#else` branch instead.
+entry in the `#else` branch.
+
+`host_library`'s `defines` ({name: value}) are passed as -D flags, e.g.
+TRACE2_LANES (lanes per ray of trace2.cu's group walk); each set of
+defines is a library of its own.
 """
 from __future__ import annotations
 
@@ -31,7 +38,6 @@ from pathlib import Path
 
 _CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-_HEADER = _CSRC_DIR / "trace_common.cuh"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
                "-Xcompiler", "-fPIC"]
@@ -56,6 +62,34 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(r'#include "([\w.]+)"\n')
+
+
+def _inlined(path: Path) -> str:
+    """The text of a source with its `#include "..."` headers (from
+    csrc/) inlined, each once, `#pragma once` dropped."""
+    seen = set()
+
+    def text(p):
+        def sub(m):
+            if m.group(1) in seen:
+                return ""
+            seen.add(m.group(1))
+            return text(_CSRC_DIR / m.group(1))
+        return _INCLUDE.sub(sub, p.read_text().replace("#pragma once", ""))
+    return text(path)
+
+
+def _dflags(defines) -> list:
+    return [f"-D{k}={v}" for k, v in sorted((defines or {}).items())]
+
+
+def key(stem: str, defines=None) -> str:
+    """The name of a build: the stem, then its defines."""
+    return stem + "".join(f"_{k}{v}" for k, v in sorted(
+        (defines or {}).items()))
+
+
 def load(stem: str):
     """The ctypes library of csrc/<stem>.cu, compiled if not built yet."""
     with _guard:
@@ -65,7 +99,7 @@ def load(stem: str):
             return _libs[stem]
         t0 = time.perf_counter()
         src = source(stem)
-        tag = hashlib.sha256(src.read_bytes() + _HEADER.read_bytes()
+        tag = hashlib.sha256(_inlined(src).encode()
                              + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = _BUILD_DIR / f"{stem}_{tag}.so"
@@ -112,10 +146,12 @@ def kernel_resources(stem: str) -> list:
     (ptxas prints a "Used N registers" line per entry function and a
     "Function properties" block per function)."""
     def name_of(line):
-        m = re.search(r"(trace[12]_kernel|leaf_kernel|window_walk)"
-                      r"ILi(\d)ELb(\d)ELb(\d)E", line)
+        m = re.search(r"(trace[12]_kernel|trace2_window_kernel|leaf_kernel"
+                      r"|window_walk)ILi(\d)ELb(\d)ELb(\d)E(Li(\d+)E)?",
+                      line)
+        lanes = f" W={m.group(6)}" if m and m.group(6) else ""
         return (f"{m.group(1)} AMASK={m.group(2)} INST={m.group(3)} "
-                f"MOTION={m.group(4)}" if m else line.strip())
+                f"MOTION={m.group(4)}{lanes}" if m else line.strip())
 
     out, entry, func = [], "?", "?"
     for line in BUILD_LOG.get(stem, "").splitlines():
@@ -145,16 +181,22 @@ struct int4 { int x, y, z, w; };
 #define __device__
 #define __forceinline__ inline
 #define __noinline__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 struct dim3_ { int x; };
-static dim3_ blockIdx, threadIdx, blockDim;
+static thread_local dim3_ blockIdx, threadIdx, blockDim;
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
 inline float4 __ldg(const float4* p) { return *p; }
 inline int4 __ldg(const int4* p) { return *p; }
 inline float __ldg(const float* p) { return *p; }
+inline int __ldg(const int* p) { return *p; }
+inline int __float_as_int(float f) {
+  int i;
+  std::memcpy(&i, &f, 4);
+  return i;
+}
 inline float __int_as_float(int i) {
   float f;
   std::memcpy(&f, &i, 4);
@@ -164,16 +206,14 @@ inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 """
 
 
-def host_library(stem: str, out_dir) -> ctypes.CDLL:
-    """csrc/<stem>.cu (with trace_common.cuh inlined) compiled by g++ into
-    out_dir; `<stem>_launch` then runs the kernel body once per ray on the
-    calling thread."""
+def host_library(stem: str, out_dir, defines=None) -> ctypes.CDLL:
+    """csrc/<stem>.cu (its headers inlined) compiled by g++ into out_dir;
+    `<stem>_launch` then runs the kernel body on the CPU: once per ray on
+    the calling thread, or, through launch_groups, W lanes per ray on W
+    threads."""
     if shutil.which("g++") is None:
         raise RuntimeError("g++ not found")
-    header = _HEADER.read_text().replace("#pragma once", "")
-    header = header.replace("#include <cuda_runtime.h>", "")
-    src = source(stem).read_text().replace('#include "trace_common.cuh"',
-                                           header)
+    src = _inlined(source(stem)).replace("#include <cuda_runtime.h>", "")
     # kernel<...><<<grid, block, 0, stream>>>(args) -> a loop over the rays
     src, n_sub = re.subn(
         r"(\w+_kernel<AMASK, INST, MOTION>)[\s\\]*<<<[^>]*>>>\(([^;]*?)\);",
@@ -182,14 +222,16 @@ def host_library(stem: str, out_dir) -> ctypes.CDLL:
     if n_sub != 1 and "#ifdef __CUDACC__" not in src:
         raise RuntimeError(f"{stem}.cu: launch site not found")
     out_dir = Path(out_dir)
-    cpp = out_dir / f"{stem}_host.cpp"
+    name = key(stem, defines)
+    cpp = out_dir / f"{name}_host.cpp"
     cpp.write_text(_HOST_SHIM + "static void host_init_() { blockDim.x = 1; "
                    "threadIdx.x = 0; }\n" + src.replace(
                        "if (n <= 0) return 0;",
                        "if (n <= 0) return 0;\n  host_init_();", 1))
-    so = out_dir / f"{stem}_host.so"
-    res = subprocess.run(["g++", "-O2", "-ffp-contract=off", "-shared",
-                          "-fPIC", "-o", str(so), str(cpp)],
+    so = out_dir / f"{name}_host.so"
+    res = subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off",
+                          "-pthread", "-shared", "-fPIC", *_dflags(defines),
+                          "-o", str(so), str(cpp)],
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         raise RuntimeError(f"g++ failed on {stem}.cu as host code:\n"

@@ -75,6 +75,7 @@ from . import cubuild
 G_DEFAULT = 16      # child blocks per L1 superblock
 TILE = 128          # dispatch pads ray batches to a multiple of this
 RECULL_EVERY = 8    # the reference kernel's re-cull cadence (accepted, no-op)
+COARSE_G = 8        # top-level entries per coarse union (the kernel's front)
 WIDEN = torch.tensor(1.0000005, dtype=torch.float32)   # the kernel's slab widening
 
 _CSRC = cubuild.source("trace2")
@@ -147,7 +148,13 @@ def build_tri_blocks2(tri_v: np.ndarray, k2: int | None = None,
       pk_l1box    [M1, 8] f32      the same, packed for the kernel
       pk_l1_base  [M1] i32         first child block of each L1
       pk_slot2tri [M2*K2] i32      slot -> triangle id, -1 on padding
-      pk_sblk_lo/hi                coarse unions of 8 L1s
+      pk_sblk_lo/hi                coarse unions of 8 L1s (the dispatch
+                                    sort key's)
+      pk_cbox     [C, 8] f32       the same unions packed for the kernel's
+                                    coarse front: lo xyz, the int32 bits of
+                                    the least member, hi xyz, 0
+      pk_cmem     [C, 8] i32       each union's L1s, ascending, -1 padded
+      pk_cgrp     [M1] i32         the union of each L1
       pk_mask     [M2*K2, 8] i32   only with tri_mask ([T, 7] int32 alpha
                                     micro-mask words per triangle): the 7
                                     words + 1 pad per slot (two 16-byte
@@ -158,8 +165,6 @@ def build_tri_blocks2(tri_v: np.ndarray, k2: int | None = None,
     The SAH order, the block cut and the L1 grouping are those of the
     reference package's build_tri_blocks2 (same builder, same triangles
     => same tables)."""
-    from .build import sort_key_coarse
-
     tri_v = np.asarray(tri_v, np.float32)
     if tri_vel is not None:
         tri_vel = np.asarray(tri_vel, np.float32)
@@ -210,12 +215,40 @@ def build_tri_blocks2(tri_v: np.ndarray, k2: int | None = None,
         slot2tri[n:] = -1
     out = dict(pk_tri=tri, pk_l2box=l2box, pk_blk_lo=l1lo, pk_blk_hi=l1hi,
                pk_l1box=l1box, pk_l1_base=l1_base, pk_slot2tri=slot2tri,
-               **sort_key_coarse(l1lo, l1hi))
+               **coarse_tables(l1lo, l1hi))
     if tri_mask is not None:
         mask = np.zeros((m2 * k2, 8), np.int32)
         mask[:n, :7] = _check_mask_words(tri_mask, len(tri_v))[order]
         out["pk_mask"] = mask
     return out, k2
+
+
+def coarse_tables(lo, hi, order=None):
+    """The top level's coarse unions: pk_sblk_lo / pk_sblk_hi, the unions
+    of 8 consecutive boxes (accel/build.py::sort_key_coarse, the dispatch
+    sort key's), and the kernel's front: pk_cbox / pk_cmem / pk_cgrp
+    (build_tri_blocks2's docstring), the unions of 8 consecutive boxes of
+    `order` (None: the table's own order, so pk_cbox holds the pk_sblk
+    boxes).  World tables are in SAH order already; an instanced table's
+    entries are in instance order, so its builder passes their SAH order:
+    unions of entries far apart would be entered by almost every ray."""
+    from .build import sort_key_coarse
+    m = len(lo)
+    order = np.arange(m) if order is None else np.asarray(order)
+    nc = -(-m // COARSE_G)
+    mem = np.concatenate([order, np.full(nc * COARSE_G - m, -1)])
+    mem = mem.reshape(nc, COARSE_G)
+    mem = np.sort(np.where(mem < 0, m, mem), axis=1)   # ascending, pad last
+    mem = np.where(mem >= m, -1, mem).astype(np.int32)
+    safe = np.maximum(mem, 0)
+    box = np.zeros((nc, 8), np.float32)
+    box[:, 0:3] = np.where((mem >= 0)[..., None], lo[safe], np.inf).min(1)
+    box[:, 4:7] = np.where((mem >= 0)[..., None], hi[safe], -np.inf).max(1)
+    box[:, 3] = mem[:, 0].view(np.float32)
+    grp = np.empty(m, np.int32)
+    grp[mem[mem >= 0]] = np.nonzero(mem >= 0)[0]
+    return dict(sort_key_coarse(lo, hi), pk_cbox=box, pk_cmem=mem,
+                pk_cgrp=grp)
 
 
 def box_corners(lo, hi):
@@ -270,8 +303,6 @@ def build_tri_blocks2_inst(tri_v, otri_v, inst_fwd, inst_inv, inst_base,
       pk_inst_velo [ni, 3] f32   object-space instance velocities
     The SAH orders, the L1 grouping, the expansion order and the slot ids
     are the reference package's build_tri_blocks2_inst's."""
-    from .build import sort_key_coarse
-
     G = g
     tri_v = np.asarray(tri_v, np.float32).reshape(-1, 3, 3)
     otri_v = np.asarray(otri_v, np.float32).reshape(-1, 3, 3)
@@ -415,7 +446,7 @@ def build_tri_blocks2_inst(tri_v, otri_v, inst_fwd, inst_inv, inst_base,
         pk_tri=np.concatenate(rows, 0),
         pk_l2box=np.concatenate(l2boxes, 0),
         pk_blk_lo=blo, pk_blk_hi=bhi, pk_l1box=l1box,
-        **sort_key_coarse(blo, bhi),
+        **coarse_tables(blo, bhi, sah_order(blo, bhi) if len(blo) else None),
         pk_blk_src=np.concatenate(exp_src, 0),
         pk_blk_inst=np.concatenate(exp_inst, 0),
         pk_l1_base=np.concatenate(l1_bases, 0),
@@ -810,14 +841,41 @@ def build_kernel() -> float:
 
 
 def bind(lib):
-    """Declare trace2_launch's C signature on a loaded library (the CUDA
-    build, or cubuild.host_library's host build)."""
+    """Declare trace2_launch's (and trace2_occupancy's) C signature on a
+    loaded library (the CUDA build or cubuild.host_library's host
+    build)."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.trace2_launch.restype = I
-    lib.trace2_launch.argtypes = [P, P, P, I, P, I, P, P, P, P, I, I, I, I,
-                                  P, P, P, P, P, I, I, I, I,
+    lib.trace2_launch.argtypes = [P, P, P, I, P, I, P, I, P, P, P, P, P, P,
+                                  I, I, I, I, P, P, P, P, P, I, I, I, I,
                                   P, P, P, P, P, P, P, P]
+    lib.trace2_occupancy.restype = I
+    lib.trace2_occupancy.argtypes = [I, I, I, P]
     return lib
+
+
+STAGE_MAX_BYTES = 16384   # trace2.cu's: coarse tables staged up to this size
+
+
+def staged_bytes(scene):
+    """Bytes of shared memory a group-walk launch on these tables stages:
+    the coarse union boxes when they fit in STAGE_MAX_BYTES, else 0."""
+    b = scene["pk_cbox"].shape[0] * 32
+    return b if b <= STAGE_MAX_BYTES else 0
+
+
+def occupancy(mode, window=False, smem=0, lib=None):
+    """Blocks of 128 threads per SM of a mode's group kernel with `smem`
+    bytes of staged coarse table (window=True: its window kernel), from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; mode is a MODES name."""
+    any_hit, amask, inst, motion = _MODE_BITS[mode]
+    out = ctypes.c_int(0)
+    rc = (lib or _lib).trace2_occupancy(amask + 3 * inst + 6 * motion,
+                                        int(window), int(smem),
+                                        ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"trace2_occupancy failed (cudaError {rc})")
+    return out.value
 
 
 def check_tensor(kernel, name, x, dtype, device):
@@ -861,14 +919,20 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
                    frontier=False, window=1, pair=False, pops=1):
     """Launch the kernel on CUDA tensors.  host_lib: a cubuild.host_library
     build, run on CPU tensors instead (the kernel's logic where there is
-    no GPU; not counted as a launch).  Returns (t, key, extra): extra is
-    None, or a dict of the counter outputs and / or e_next / b_next."""
+    no GPU; not counted as a launch).
+    Returns (t, key, extra): extra is None, or a dict of the counter
+    outputs and / or e_next / b_next."""
     if host_lib is None:
         build_kernel()
     dev = origin.device
     n = origin.shape[0]
     tri, l2box = scene["pk_tri"], scene["pk_l2box"]
     l1box, l1_base = scene["pk_l1box"], scene["pk_l1_base"]
+    if "pk_cbox" not in scene:
+        raise ValueError("trace2: the tables lack the coarse front (pk_cbox, "
+                         "pk_cmem, pk_cgrp of build_tri_blocks2 / "
+                         "build_tri_blocks2_inst)")
+    coarse, cmem, cgrp = scene["pk_cbox"], scene["pk_cmem"], scene["pk_cgrp"]
     inst = "pk_blk_src" in scene
     checks = [("origin", origin, torch.float32),
               ("direction", direction, torch.float32),
@@ -876,6 +940,9 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
               ("pk_tri", tri, torch.float32),
               ("pk_l2box", l2box, torch.float32),
               ("pk_l1box", l1box, torch.float32),
+              ("pk_cbox", coarse, torch.float32),
+              ("pk_cmem", cmem, torch.int32),
+              ("pk_cgrp", cgrp, torch.int32),
               ("pk_l1_base", l1_base, torch.int32)]
     mask = src = binst = inv = velo = None
     if amask:
@@ -898,6 +965,9 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
     if (origin.shape != (n, 3) or direction.shape != (n, 3)
             or tri.shape[1:] != (12,) or l2box.shape[1:] != (8,)
             or l1box.shape[1:] != (8,) or (not inst and m1p != m1)
+            or coarse.ndim != 2 or coarse.shape[1] != 8
+            or cmem.shape != (coarse.shape[0], COARSE_G)
+            or cgrp.shape != (m1,)
             or m2 % m1p or tri.shape[0] % m2
             or (time is not None and time.shape != (n,))
             or (amask and mask.shape != (tri.shape[0], 8))
@@ -921,7 +991,7 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
         out_bn = torch.empty((n,), dtype=torch.int32, device=dev)
     cnt = touched = None
     if counters:
-        cnt = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+        cnt = torch.zeros((n, 5), dtype=torch.int32, device=dev)
         touched = torch.zeros((m1 + m2,), dtype=torch.uint8, device=dev)
     stream = None
     if host_lib is None:
@@ -929,7 +999,8 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
             stream = torch.cuda.current_stream(dev).cuda_stream
     rc = (host_lib or _lib).trace2_launch(
         origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), n,
-        l1box.data_ptr(), m1, l1_base.data_ptr(),
+        l1box.data_ptr(), m1, coarse.data_ptr(), coarse.shape[0],
+        cmem.data_ptr(), cgrp.data_ptr(), l1_base.data_ptr(),
         l2box.data_ptr(), tri.data_ptr(), _ptr(mask), k2, g,
         int(bool(any_hit)), int(amask), _ptr(src), _ptr(binst), _ptr(inv),
         _ptr(velo), _ptr(time), int(max_visits or 0), int(window),
@@ -988,7 +1059,8 @@ def tri_intersect2(scene, origin, direction, t_max, any_hit: bool = False,
     per-ray shutter time for tables built with velocities (None = static).
     Returns dict(t, tri, inst, valid); amask=2 adds "solid" (module
     docstring).  counters=True (CUDA only) adds "counters", per ray int32
-    [N,4] (L1 table passes, L1 visits, leaf blocks tested, mask lookups),
+    [N,5] (top-level refills, L1 visits, leaf blocks tested, mask lookups,
+    top-level slab tests: coarse unions + L1 entries),
     and "l1_touched" [M1] / "leaf_touched" [M2] bool, the (expanded) L1s
     and the physical child blocks any ray visited.
 
@@ -1024,10 +1096,11 @@ def tri_intersect2(scene, origin, direction, t_max, any_hit: bool = False,
     return res
 
 
-MODES = tuple(mode_name(a, m, i, t) for i, t, a, m in (
+_MODE_BITS = {mode_name(a, m, i, t): (a, m, i, t) for i, t, a, m in (
     (0, 0, 0, 0), (0, 0, 1, 0), (0, 0, 0, 1), (0, 0, 0, 2),
     (1, 0, 0, 0), (1, 0, 1, 0), (1, 0, 0, 1), (1, 0, 0, 2),
-    (0, 1, 0, 0), (0, 1, 1, 0), (1, 1, 0, 0), (1, 1, 1, 0)))
+    (0, 1, 0, 0), (0, 1, 1, 0), (1, 1, 0, 0), (1, 1, 1, 0))}
+MODES = tuple(_MODE_BITS)
 tri_intersect2.launches = 0           # kernel launches, all modes
 tri_intersect2.launches_by_mode = {m: 0 for m in MODES}
 tri_intersect2.launches_by_schedule = {}   # schedule_names() -> launches

@@ -52,41 +52,56 @@
 //     lane there is solid or a candidate here; and the restart chain built
 //     on either (scene/intersect.py::_occluded) decides every lane alike.
 //
-// Design: one thread per ray.
-//   * L1 phase: the thread slab-tests every L1 superblock box (warps read the
-//     same box at the same time, so the table streams through L1 cache as
-//     broadcasts) and keeps the FRONT_BUF nearest entries above a cursor in a
-//     small sorted buffer.  It visits them nearest first; when the buffer ran
-//     full it rescans from the last visited entry with the tightened best t.
-//     So L1 boxes are visited in exact front-to-back order and the walk stops
-//     at the first entry beyond the best hit.
-//   * child phase: per visited L1 the G child boxes are slab-tested against
-//     the current best t and the entered children drained nearest first.
-//   * leaf phase: Moller-Trumbore over the K2 triangles of an entered child,
-//     three 16-byte loads per triangle, with the arithmetic of
-//     _kernel_common.moller_trumbore.  Any-hit returns on the first hit.
+// Design: a group of W = TRACE2_LANES lanes per ray (8; group_walk.cuh has
+// the primitives and the front).  A 128-thread block holds 128 / W rays.
+//   * L1 phase: a front over coarse unions of up to 8 L1 entries (the
+//     wrapper's pk_cbox / pk_cmem: consecutive entries of world tables,
+//     SAH neighbours among instanced ones; the union boxes staged in shared
+//     memory with cp.async when they fit in STAGE_MAX_BYTES).  Lane j slab-tests the unions j, j + W,
+//     ... and keeps its own short sorted part of the front above a cursor
+//     in registers; the group takes the least (entry, key) across lanes by
+//     a shuffle reduction.  A union that reaches the head is replaced by its
+//     entered members (by its owner lane); a lane that runs dry below its
+//     horizon (the least key it dropped) makes the group rescan from the
+//     cursor with the tightened bound.  The L1 entries are so visited in
+//     exactly the flat (entry, index) order of the one-thread walk, and the
+//     walk stops at the first entry beyond the best hit; per pass it tests
+//     the unions plus the members of unions already expanded, not every L1.
+//   * child phase: the G child boxes of a visited L1 are split over the
+//     lanes (entries in registers) and drained nearest first by group
+//     minimum, the bound read again for every child.
+//   * leaf phase: lane j runs Moller-Trumbore (_kernel_common.moller_trumbore's
+//     arithmetic) on triangles j, j + W, ... of the child, so neighbouring
+//     lanes read neighbouring 48-byte rows; the group reduces its best hit
+//     (t, then the least key) and, for any-hit, ends on a ballot.
+//   * instancing: every lane takes the ray to the visited entry's object
+//     space alike.
 //   * box tests are conservative: the exit distance is widened by a few ulps
 //     so rounding in the slab test cannot drop a hit that lies on a box face.
+//   * no tensor cores: the hit decision stays in the plain version's fp32
+//     arithmetic, bit for bit.
+// The window walk (window 2 / 4) stays one thread per ray with the flat
+// top-level scan (trace2_window_kernel).
 //
 // Bound on the H100: the work is data dependent.  Per ray it is ~20 flops per
-// L1 box per table pass, ~20 per child box of a visited L1, and ~40 per
-// triangle of an entered child; the bytes that must move are the rays, the
-// results, the L1 table and the child boxes and triangle rows the walk
-// touches (counted with the `touched` flags), plus 32 bytes of mask words
-// per hit in the alpha modes.  On the 10.5M-triangle tables with bounce
-// rays the two sides are close and the bytes win (0.0992 ms of bytes
-// against 0.0705 ms of operations per 65,280-ray dispatch, PERF.md); which
-// side binds a dispatch is worked out from its own counters.  The measured
-// time sits far above either because lanes of a warp diverge (different
-// rays walk different blocks) and each triangle load is a dependent,
-// scattered cache access.  Warp-cooperative leaves, shared-memory staging
-// of the L1 table and ray sorting into coherent warps are the levers for a
-// later revision.
+// top-level slab test (unions and members, counted by the kernel), ~20 per
+// child box of a visited L1, and ~45 per triangle of an entered child; the
+// bytes that must move are the rays, the results, the top-level tables and
+// the child boxes and triangle rows the walk touches (counted with the
+// `touched` flags), plus 32 bytes of mask words per hit in the alpha modes.
+// On the 10.5M-triangle tables with bounce rays the bytes bind; which side
+// binds a dispatch is worked out from its own counters.  The time sits
+// above the bound because each ray's walk is a chain of dependent,
+// scattered loads (latency); W lanes per ray put 8x more rays' chains in
+// flight than one thread per ray at the same 128-thread blocks.
 //
 // Schedules (runtime arguments; none changes a result, only the order of
 // the work, because ties go to the least slot whatever the visit order):
 //   pops     children taken per drain step before the bound is read again
-//            (the main path passes meta.block_pops = 4);
+//            (the main path passes meta.block_pops = 4).  The group walk
+//            reads the bound for every child whatever pops is (splitting
+//            the lanes over `pops` children measured slower, PERF.md
+//            section 6); the window walk takes pops;
 //   pair     two L1 visits per loop iteration, the second gated by the
 //            first's still-live test (pallas_trace2.py:876-916);
 //   window   2 or 4: the resident-window drain (pallas_trace2.py:918-1160):
@@ -99,12 +114,11 @@
 //
 // Visit cap and multipass resume state (max_visits > 0, frontier outputs):
 // the walk stops after max_visits L1 visits.  On the TPU the cap counts a
-// 128-ray TILE's L1 visits (pallas_trace2.py:848-851); here the walk is one
-// thread per ray, so it counts EACH RAY's L1 visits.  The frontier
-// (e_next, b_next) is, per ray, the entry and index of the nearest L1 the
-// capped walk entered but did not consume whose entry is below the ray's
-// cull bound (ties to the least index): the next buffer entry if it beats
-// cull_bound(best), else one more front_fill from the cursor.  A ray that
+// 128-ray TILE's L1 visits (pallas_trace2.py:848-851); here it counts EACH
+// RAY's L1 visits.  The frontier (e_next, b_next) is, per ray, the entry
+// and index of the nearest L1 the capped walk entered but did not consume
+// whose entry is below the ray's cull bound (ties to the least index): the
+// head of the front once the unions before it are expanded.  A ray that
 // is fully resolved (walk ended, or an any-hit ray that found an occluder)
 // gets BIG_F32 / 0.  Only the frontier of a capped pass differs from the
 // TPU's (it is per ray, not per tile); the multipass driver's final result
@@ -115,6 +129,7 @@
 // rounding and flip edge hits against the plain version.
 
 #include "trace_common.cuh"
+#include "group_walk.cuh"
 
 namespace {
 
@@ -171,54 +186,6 @@ __device__ __forceinline__ Ray l1_ray(const Tabs& tb, int b, const Ray& r,
                           time, r);
   }
   return r;
-}
-
-// Visit L1 entry b: slab-test its G children and drain the entered ones
-// nearest first, `pops` per bound read.  True when an any-hit walk found
-// an occluder.
-template <int AMASK, bool INST, bool MOTION>
-__device__ __forceinline__ bool visit_l1(const Tabs& tb, int b, const Ray& r,
-                                         float time, float tmax0, int any_hit,
-                                         int pops, Best& best, int& n_leaf,
-                                         int& n_mask) {
-  if (tb.touched) tb.touched[b] = 1;
-  const int base = tb.l1_base[INST ? tb.blk_src[b] : b];
-  const Ray rl = l1_ray<INST, MOTION>(tb, b, r, time);
-  float ce[64];
-  unsigned long long mask = 0ull;
-  for (int c = 0; c < tb.g; ++c) {
-    const float e = slab_entry(tb.l2box + 2 * (base + c), rl,
-                               cull_bound<AMASK>(best));
-    ce[c] = e;
-    if (e < BIG_F32) mask |= 1ull << c;
-  }
-  while (mask) {
-    const float bnd = cull_bound<AMASK>(best) * WIDEN;
-    for (int p = 0; p < pops && mask; ++p) {
-      float em = BIG_F32;
-      int cm = -1;
-      for (unsigned long long m = mask; m; m &= m - 1) {
-        const int c = __ffsll((long long)m) - 1;
-        if (ce[c] < em) {
-          em = ce[c];
-          cm = c;
-        }
-      }
-      mask &= ~(1ull << cm);
-      if (em > bnd) {   // nearest first: nothing later helps
-        mask = 0ull;
-        break;
-      }
-      ++n_leaf;
-      if (tb.touched) tb.touched[tb.m1 + base + cm] = 1;
-      if (test_leaf<AMASK, INST, MOTION>(
-              tb.tri, tb.tri_mask, base + cm, tb.k2, b,
-              INST ? cm * tb.k2 : (base + cm) * tb.k2, rl, time, tmax0, best,
-              n_mask) && any_hit)
-        return true;
-    }
-  }
-  return false;
 }
 
 // What a walk leaves behind: the best hit and the counters.
@@ -299,16 +266,85 @@ __device__ __noinline__ WalkOut window_walk(const Tabs tb, const Ray r,
   }
 }
 
-template <int AMASK, bool INST, bool MOTION>
-__global__ void __launch_bounds__(128)
+// Visit L1 entry b with the group: the lanes slab-test its G children (lane
+// j: children j, j + W, ...; entries in registers) and drain the entered
+// ones nearest first by group minimum, one child per read of the bound.
+// Every lane works on that child: lane j tests its triangles j, j + W, ...
+// (neighbouring lanes read neighbouring 48-byte rows), then the group
+// reduces its best hit.  True when an any-hit walk found an occluder.
+template <int AMASK, bool INST, bool MOTION, int W>
+__device__ __forceinline__ bool visit_l1_group(const Group<W>& g,
+                                               const Tabs& tb, int b,
+                                               const Ray& r, float time,
+                                               float tmax0, int any_hit,
+                                               Best& best, int& n_leaf,
+                                               int& n_mask) {
+  constexpr int CPL = (64 + W - 1) / W;   // children per lane, G <= 64
+  if (tb.touched && g.lane == 0) tb.touched[b] = 1;
+  const int base = tb.l1_base[INST ? tb.blk_src[b] : b];
+  const Ray rl = l1_ray<INST, MOTION>(tb, b, r, time);
+  float ce[CPL];   // this lane's children's entries, BIG_F32 once taken
+  const float cb0 = cull_bound<AMASK>(best);
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) {
+    const int c = g.lane + q * W;
+    ce[q] = c < tb.g ? slab_entry(tb.l2box + 2 * (base + c), rl, cb0)
+                     : BIG_F32;
+  }
+  while (true) {
+    float em = BIG_F32;
+    int cm = INT_MAX;
+#pragma unroll
+    for (int q = 0; q < CPL; ++q)
+      if (key_less(ce[q], g.lane + q * W, em, cm)) {
+        em = ce[q];
+        cm = g.lane + q * W;
+      }
+    group_min(g, em, cm);
+    // drained, or nearest first: nothing later helps
+    if (em >= BIG_F32 || em > cull_bound<AMASK>(best) * WIDEN) return false;
+#pragma unroll
+    for (int q = 0; q < CPL; ++q)
+      if (cm == g.lane + q * W) ce[q] = BIG_F32;
+    ++n_leaf;
+    if (tb.touched && g.lane == 0) tb.touched[tb.m1 + base + cm] = 1;
+    Best lb = best;
+    const bool any = test_leaf<AMASK, INST, MOTION>(
+        tb.tri, tb.tri_mask, base + cm, tb.k2, b,
+        INST ? cm * tb.k2 : (base + cm) * tb.k2, rl, time, tmax0, lb, n_mask,
+        g.lane, W);
+    group_best<AMASK, INST, W>(g, lb);
+    best = lb;
+    if (any_hit && g.any(any)) return true;
+  }
+}
+
+#ifndef TRACE2_LANES
+#define TRACE2_LANES 8     // lanes per ray of the group walk
+#endif
+
+// The group walk (window 1): one ray per W lanes.  The coarse table is
+// staged in shared memory when `stage` (every thread of the block takes
+// part before any group leaves).  At least 4 blocks per SM lets ptxas use
+// up to 128 registers: it keeps the walk in 80-94 of them with no stack
+// frame and no spills, where by its own choice it stops at 72-80 and
+// spills (PERF.md, section 6).
+template <int AMASK, bool INST, bool MOTION, int W>
+__global__ void __launch_bounds__(128, 4)
 trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
-              const float* __restrict__ tmax, int n, Tabs tb, int any_hit,
-              int max_visits, int window, int pair, int pops,
-              const float* __restrict__ times,
-              float* __restrict__ out_t, int* __restrict__ out_slot,
-              int* __restrict__ out_blk, float* __restrict__ out_en,
-              int* __restrict__ out_bn, int* __restrict__ counters) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+              const float* __restrict__ tmax, int n, Tabs tb,
+              const float4* __restrict__ coarse, int nc,
+              const int4* __restrict__ members,
+              const int* __restrict__ union_of, int stage,
+              int any_hit, int max_visits, int pair,
+              const float* __restrict__ times, float* __restrict__ out_t,
+              int* __restrict__ out_slot, int* __restrict__ out_blk,
+              float* __restrict__ out_en, int* __restrict__ out_bn,
+              int* __restrict__ counters) {
+  const Top top{tb.l1box, stage_rows(coarse, 2 * nc, stage != 0), nc,
+                members, union_of};
+  const Group<W> g;
+  const int i = blockIdx.x * (blockDim.x / W) + threadIdx.x / W;
   if (i >= n) return;
   Ray r;
   r.ox = orig[3 * i];
@@ -323,52 +359,46 @@ trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
   const float tmax0 = tmax[i];
   const float time = MOTION ? times[i] : 0.0f;
   Best best{tmax0, NO_SLOT, tmax0, NO_SLOT};
-  int n_pass = 0, n_l1 = 0, n_leaf = 0, n_mask = 0;
+  int n_pass = 0, n_l1 = 0, n_leaf = 0, n_mask = 0, n_top = 0;
   float e_next = BIG_F32;
   int b_next = 0;
 
   if (tmax0 > 0.0f) {
-    if (window > 1) {
-      const WalkOut w = window_walk<AMASK, INST, MOTION>(tb, r, time, tmax0,
-                                                         any_hit, window,
-                                                         pops);
-      best = w.best;
-      n_pass = w.n_pass;
-      n_l1 = w.n_l1;
-      n_leaf = w.n_leaf;
-      n_mask = w.n_mask;
-    } else {
-      Front f{0, 0, true};
-      float be[FRONT_BUF];
-      int bi[FRONT_BUF];
-      const int per_iter = pair ? 2 : 1;
-      bool live = true;
-      while (live) {
-        for (int j = 0; j < per_iter && live; ++j) {
-          if (max_visits > 0 && n_l1 >= max_visits) {   // capped: resume state
-            if (out_en &&
-                front_peek(f, be, bi, tb, r, cull_bound<AMASK>(best),
-                           n_pass) &&
-                be[f.k] < cull_bound<AMASK>(best)) {
-              e_next = be[f.k];
-              b_next = bi[f.k];
-            }
-            live = false;
-          } else if (!front_peek(f, be, bi, tb, r, cull_bound<AMASK>(best),
-                                 n_pass) ||
-                     be[f.k] > cull_bound<AMASK>(best) * WIDEN) {
-            live = false;   // front-to-back: no entry left can help
-          } else {
-            const int b = bi[f.k++];
-            ++n_l1;
-            live = !visit_l1<AMASK, INST, MOTION>(tb, b, r, time, tmax0,
-                                                  any_hit, pops, best,
-                                                  n_leaf, n_mask);
+    Front2<LaneFrontSize<W>::value> f;
+    front_clear(f.lane);
+    f.lane.he = -1.0f;            // nothing filled yet: everything beyond
+    f.lane.ho = -1;
+    f.ce = -1.0f;
+    f.co = -1;
+    const int per_iter = pair ? 2 : 1;
+    bool live = true;
+    float he;
+    int ho;
+    while (live) {
+      for (int j = 0; j < per_iter && live; ++j) {
+        const float cb = cull_bound<AMASK>(best);
+        if (max_visits > 0 && n_l1 >= max_visits) {   // capped: resume state
+          if (out_en && front_head(g, f, top, r, cb, he, ho, n_pass, n_top) &&
+              (ho & 1) && he < cb) {
+            e_next = he;
+            b_next = ho >> 1;
           }
+          live = false;
+        } else if (!front_head(g, f, top, r, cb, he, ho, n_pass, n_top) ||
+                   he > cb * WIDEN) {
+          live = false;   // front-to-back: no entry left can help
+        } else {
+          front_take(f, he, ho);
+          ++n_l1;
+          live = !visit_l1_group<AMASK, INST, MOTION, W>(
+              g, tb, ho >> 1, r, time, tmax0, any_hit, best, n_leaf, n_mask);
         }
       }
     }
   }
+  n_mask = group_sum(g, n_mask);
+  n_top = group_sum(g, n_top);
+  if (g.lane != 0) return;
   const bool solid = AMASK == 2 && best.t_opq < best.t;
   const bool hit = best.slot != NO_SLOT && !solid;
   out_t[i] = hit ? best.t : BIG_F32;
@@ -379,10 +409,55 @@ trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
     out_bn[i] = b_next;
   }
   if (counters) {
-    counters[4 * i] = n_pass;
-    counters[4 * i + 1] = n_l1;
-    counters[4 * i + 2] = n_leaf;
-    counters[4 * i + 3] = n_mask;
+    counters[5 * i] = n_pass;
+    counters[5 * i + 1] = n_l1;
+    counters[5 * i + 2] = n_leaf;
+    counters[5 * i + 3] = n_mask;
+    counters[5 * i + 4] = n_top;
+  }
+}
+
+// The resident-window walk (window 2 or 4): one thread per ray, the flat
+// top-level scan of front_fill.
+template <int AMASK, bool INST, bool MOTION>
+__global__ void __launch_bounds__(128)
+trace2_window_kernel(const float* __restrict__ orig,
+                     const float* __restrict__ dirs,
+                     const float* __restrict__ tmax, int n, Tabs tb,
+                     int any_hit, int window, int pops,
+                     const float* __restrict__ times,
+                     float* __restrict__ out_t, int* __restrict__ out_slot,
+                     int* __restrict__ out_blk, int* __restrict__ counters) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r;
+  r.ox = orig[3 * i];
+  r.oy = orig[3 * i + 1];
+  r.oz = orig[3 * i + 2];
+  r.dx = dirs[3 * i];
+  r.dy = dirs[3 * i + 1];
+  r.dz = dirs[3 * i + 2];
+  r.ix = inv_guard(r.dx);
+  r.iy = inv_guard(r.dy);
+  r.iz = inv_guard(r.dz);
+  const float tmax0 = tmax[i];
+  const float time = MOTION ? times[i] : 0.0f;
+  WalkOut w{{tmax0, NO_SLOT, tmax0, NO_SLOT}, 0, 0, 0, 0};
+  if (tmax0 > 0.0f)
+    w = window_walk<AMASK, INST, MOTION>(tb, r, time, tmax0, any_hit, window,
+                                         pops);
+  const Best& best = w.best;
+  const bool solid = AMASK == 2 && best.t_opq < best.t;
+  const bool hit = best.slot != NO_SLOT && !solid;
+  out_t[i] = hit ? best.t : BIG_F32;
+  out_slot[i] = solid ? -2 : (hit ? best.slot : -1);
+  if (INST) out_blk[i] = hit ? best.blk : -1;
+  if (counters) {
+    counters[5 * i] = w.n_pass;
+    counters[5 * i + 1] = w.n_l1;
+    counters[5 * i + 2] = w.n_leaf;
+    counters[5 * i + 3] = w.n_mask;
+    counters[5 * i + 4] = w.n_pass * tb.m1;
   }
 }
 
@@ -394,13 +469,22 @@ trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
   X(3, 0, true, false) X(4, 1, true, false) X(5, 2, true, false) \
   X(6, 0, false, true) X(9, 0, true, true)
 
+// The coarse table is staged in shared memory up to this size
+// (accel/trace2.py::STAGE_MAX_BYTES mirrors it).
+constexpr int STAGE_MAX_BYTES = 16384;
+
 // max_visits: 0 = uncapped.  out_en / out_bn: the frontier outputs (both or
-// neither).  The combinations the reference kernel asserts against are
-// refused: pair with a cap or a frontier; window > 1 with pair, a frontier
-// or a cap; window outside {1, 2, 4}.
+// neither).  coarse / nc: the coarse unions ([nc, 8] f32: lo xyz, the bits
+// of the least member, hi xyz, 0), members ([nc, COARSE_G] i32, ascending,
+// -1 padded), union_of ([m1] i32); every entry in exactly one union.  The
+// combinations the reference
+// kernel asserts against are refused: pair with a cap or a frontier;
+// window > 1 with pair, a frontier or a cap; window outside {1, 2, 4}.
 extern "C" int trace2_launch(const float* orig, const float* dirs,
                              const float* tmax, int n, const float* l1box,
-                             int m1, const int* l1_base, const float* l2box,
+                             int m1, const float* coarse, int nc,
+                             const int* members, const int* union_of,
+                             const int* l1_base, const float* l2box,
                              const float* tri, const int* mask, int k2, int g,
                              int any_hit, int amask, const int* blk_src,
                              const int* blk_inst, const float* inst_inv,
@@ -421,25 +505,57 @@ extern "C" int trace2_launch(const float* orig, const float* dirs,
       frontier != (out_bn != nullptr) ||
       (window != 1 && window != 2 && window != 4) ||
       (pair && (max_visits || frontier)) ||
-      (window > 1 && (pair || max_visits || frontier)))
+      (window > 1 && (pair || max_visits || frontier)) ||
+      !coarse || !members || !union_of || nc < 1 || nc > m1)
     return (int)cudaErrorInvalidValue;
   Tabs tb{(const float4*)l1box, m1, l1_base, (const float4*)l2box,
           (const float4*)tri, (const int4*)mask, k2, g, blk_src, blk_inst,
           inst_inv, inst_velo, touched};
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
+  const int stage = nc * 32 <= STAGE_MAX_BYTES;
+  const int smem = stage ? nc * 32 : 0;
   switch (amask + 3 * (int)inst + 6 * (int)motion) {
-#define TRACE2_CASE(MODE, AMASK, INST, MOTION)                                \
-  case MODE:                                                                  \
-    trace2_kernel<AMASK, INST, MOTION>                                        \
-        <<<grid, block, 0, (cudaStream_t)stream>>>(                           \
-            orig, dirs, tmax, n, tb, any_hit, max_visits, window, pair, pops, \
-            times, out_t, out_slot, out_blk, out_en, out_bn, counters);       \
-    break;
+#define TRACE2_CASE(MODE, AMASK, INST, MOTION)                               \
+  case MODE:                                                                 \
+    if (window > 1)                                                          \
+      return launch_groups<1>(trace2_window_kernel<AMASK, INST, MOTION>, n,  \
+                              0, stream, orig, dirs, tmax, n, tb, any_hit,   \
+                              window, pops, times, out_t, out_slot, out_blk, \
+                              counters);                                     \
+    return launch_groups<TRACE2_LANES>(                                      \
+        trace2_kernel<AMASK, INST, MOTION, TRACE2_LANES>, n, smem, stream,   \
+        orig, dirs, tmax, n, tb, (const float4*)coarse, nc,                  \
+        (const int4*)members, union_of, stage, any_hit, max_visits, pair,    \
+        times, out_t, out_slot, out_blk, out_en, out_bn, counters);
     TRACE2_MODES(TRACE2_CASE)
 #undef TRACE2_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+}
+
+// Blocks of 128 threads per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// of mode `mode`'s group kernel with `smem` bytes of staged coarse table
+// (window = 0) or of its window kernel (window = 1).
+extern "C" int trace2_occupancy(int mode, int window, int smem, int* blocks) {
+#ifdef __CUDACC__
+  switch (mode) {
+#define TRACE2_OCC(MODE, AMASK, INST, MOTION)                                 \
+  case MODE:                                                                  \
+    return (int)(window ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(      \
+                              blocks, trace2_window_kernel<AMASK, INST,       \
+                                                           MOTION>, 128, 0)   \
+                        : cudaOccupancyMaxActiveBlocksPerMultiprocessor(      \
+                              blocks,                                         \
+                              trace2_kernel<AMASK, INST, MOTION,              \
+                                            TRACE2_LANES>,                    \
+                              128, smem));
+    TRACE2_MODES(TRACE2_OCC)
+#undef TRACE2_OCC
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#else
+  (void)mode, (void)window, (void)smem, (void)blocks;
+  return (int)cudaErrorInvalidValue;
+#endif
 }

@@ -43,10 +43,8 @@ struct Ray {
 
 // Slab entry distance of box (lo, hi) clipped to [SHADOW_EPS, bound];
 // BIG_F32 when the ray does not enter it.
-__device__ __forceinline__ float slab_entry(const float4* box, const Ray& r,
-                                            float bound) {
-  const float4 lo = __ldg(box);
-  const float4 hi = __ldg(box + 1);
+__device__ __forceinline__ float slab_entry(const float4 lo, const float4 hi,
+                                            const Ray& r, float bound) {
   float u0 = (lo.x - r.ox) * r.ix, u1 = (hi.x - r.ox) * r.ix;
   float tn = fminf(u0, u1), tf = fmaxf(u0, u1);
   u0 = (lo.y - r.oy) * r.iy;
@@ -58,6 +56,12 @@ __device__ __forceinline__ float slab_entry(const float4* box, const Ray& r,
   tn = fmaxf(fmaxf(tn, fminf(u0, u1)), SHADOW_EPS);
   tf = fminf(fminf(tf, fmaxf(u0, u1)), bound);
   return tn <= tf * WIDEN ? tn : BIG_F32;
+}
+
+// The same for a box row of a table in global memory (read-only cache).
+__device__ __forceinline__ float slab_entry(const float4* box, const Ray& r,
+                                            float bound) {
+  return slab_entry(__ldg(box), __ldg(box + 1), r, bound);
 }
 
 struct Best {
@@ -139,17 +143,20 @@ __device__ __forceinline__ int alpha_cell(const int4* __restrict__ mask,
 // it.  Returns true if any triangle was hit (any-hit callers stop there).
 // n_mask counts the mask lookups (AMASK != 0).  LDG: the rows are read
 // through the read-only cache (global memory); false for rows staged in
-// shared memory (the leaf micro-benchmark, leaf.cu).
+// shared memory (the leaf micro-benchmark, leaf.cu).  i0 / di: test only
+// triangles i0, i0 + di, ... (one lane of a group that shares the block;
+// the defaults test them all).
 template <int AMASK, bool INST, bool MOTION, bool LDG = true>
 __device__ __forceinline__ bool test_leaf(const float4* __restrict__ tri,
                                           const int4* __restrict__ mask,
                                           int blk, int k, int eblk, int key0,
                                           const Ray& r, float time,
                                           float tmax0, Best& best,
-                                          int& n_mask) {
+                                          int& n_mask, int i0 = 0,
+                                          int di = 1) {
   bool any = false;
   const int s0 = blk * k;
-  for (int i = 0; i < k; ++i) {
+  for (int i = i0; i < k; i += di) {
     const float4* p = tri + 3 * (size_t)(s0 + i);
     const float4 a = LDG ? __ldg(p) : p[0];
     const float4 b = LDG ? __ldg(p + 1) : p[1];

@@ -203,16 +203,69 @@ def _slab_top2(bl, bh, origin, inv):
     return be, bi, be2, bi2
 
 
+def _hier_top2(scene, bl, bh, origin, inv):
+    """_slab_top2's outputs by the reference's hierarchical pre-pass
+    (pathtracing_tpu/scene/intersect.py, the PT_HIER_KEY branch): the two
+    nearest coarse groups, then the two nearest entered blocks among
+    their 2 * SORT_COARSE_G members."""
+    from ..accel.build import SORT_COARSE_G as gc
+    m = bl.shape[0]
+    ce1, ci1, ce2, ci2 = _slab_top2(scene["pk_sblk_lo"], scene["pk_sblk_hi"],
+                                    origin, inv)
+    have2 = ce2 < BIG_F32 * 0.5
+    ar = torch.arange(gc, device=origin.device)[None, :]
+    fid = torch.cat([ci1[:, None] * gc + ar,
+                     torch.where(have2, ci2, ci1)[:, None] * gc + ar], 1)
+    fidc = torch.clamp(fid, 0, m - 1)
+    flo = bl[fidc]                                          # [N, 2Gc, 3]
+    fhi = bh[fidc]
+    u0 = (flo[:, :, 0] - origin[:, 0:1]) * inv[:, 0:1]
+    u1 = (fhi[:, :, 0] - origin[:, 0:1]) * inv[:, 0:1]
+    tn = torch.minimum(u0, u1)
+    tf = torch.maximum(u0, u1)
+    u0 = (flo[:, :, 1] - origin[:, 1:2]) * inv[:, 1:2]
+    u1 = (fhi[:, :, 1] - origin[:, 1:2]) * inv[:, 1:2]
+    tn = torch.maximum(tn, torch.minimum(u0, u1))
+    tf = torch.minimum(tf, torch.maximum(u0, u1))
+    u0 = (flo[:, :, 2] - origin[:, 2:3]) * inv[:, 2:3]
+    u1 = (fhi[:, :, 2] - origin[:, 2:3]) * inv[:, 2:3]
+    tn = torch.clamp(torch.maximum(tn, torch.minimum(u0, u1)), min=0.0)
+    tf = torch.minimum(tf, torch.maximum(u0, u1))
+    e = torch.where((tn <= tf) & (fid < m), tn, BIG_F32)   # [N, 2Gc]
+    f1 = torch.argmin(e, dim=1)                 # first of equal minima
+    e1 = e.gather(1, f1[:, None])[:, 0]
+    b1f = fid.gather(1, f1[:, None])[:, 0]
+    lane = torch.arange(2 * gc, device=origin.device)[None, :]
+    e2l = torch.where(lane == f1[:, None], BIG_F32, e)
+    f2 = torch.argmin(e2l, dim=1)
+    e2 = e2l.gather(1, f2[:, None])[:, 0]
+    b2f = fid.gather(1, f2[:, None])[:, 0]
+    bi = torch.where(e1 < BIG_F32 * 0.5, b1f, ci1 * gc)
+    return torch.minimum(e1, ce1), bi, e2, b2f
+
+
 def _first_block_key(scene, origin, direction):
     """Dispatch sort key: the ids of the first two L1 blocks each ray
     enters (blocks are SAH-ordered, so rays that share them share a
     traversal working set) with the direction octant as tie-break; rays
     entering nothing sort after every live ray.  Keys order work only,
-    they never change results."""
+    they never change results.
+
+    PT_HIER_KEY=1 (tables with coarse unions and more than 64 blocks):
+    the reference's hierarchical key.  The top-2 coarse groups
+    (pk_sblk_lo/hi, unions of SORT_COARSE_G blocks) are found first and
+    their members refined jointly; a ray that enters a group but none of
+    its members is keyed by the group's first block.  Off by default, as
+    in the reference, which measured it slower on its kernel."""
     bl = scene["pk_blk_lo"]
     bh = scene["pk_blk_hi"]
     m = bl.shape[0]
-    be, bi, be2, bi2 = _slab_top2(bl, bh, origin, _inv_guard(direction))
+    inv = _inv_guard(direction)
+    if ("pk_sblk_lo" in scene and m > 64
+            and os.environ.get("PT_HIER_KEY") == "1"):
+        be, bi, be2, bi2 = _hier_top2(scene, bl, bh, origin, inv)
+    else:
+        be, bi, be2, bi2 = _slab_top2(bl, bh, origin, inv)
     octant = ((direction[:, 0] > 0).to(torch.int64)
               | ((direction[:, 1] > 0).to(torch.int64) << 1)
               | ((direction[:, 2] > 0).to(torch.int64) << 2))

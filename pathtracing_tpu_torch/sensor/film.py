@@ -9,13 +9,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.filters import FilterConfig, filter_weight, filter_integral
 from ..core.tonemap import TONE_MAPPERS
 from ..core.math import linear_to_srgb
 
 
-def new_film(resolution, device="cpu"):
+def new_film(resolution, device=None):
+    """An empty film on `device` (None: the GPU, raising without one;
+    "cpu" for the CPU)."""
     w, h = resolution
+    device = resolve_device(device)
     return dict(rgb=torch.zeros((h * w, 3), dtype=torch.float32,
                                 device=device),
                 weight=torch.zeros((h * w,), dtype=torch.float32,

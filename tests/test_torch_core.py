@@ -108,6 +108,16 @@ def test_torch_camera_lanes(focus_angle):
                                    atol=1e-6)
 
 
+def test_torch_new_film_defaults_to_the_card(monkeypatch):
+    """new_film without a device runs on the GPU, and raises without one
+    instead of quietly running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tf.new_film((4, 2))
+    film = tf.new_film((4, 2), device="cpu")
+    assert film["rgb"].shape == (8, 3) and film["weight"].device.type == "cpu"
+
+
 def test_torch_film_splats():
     rs = np.random.default_rng(2)
     w, h, rows = 40, 24, 8
@@ -118,8 +128,8 @@ def test_torch_film_splats():
     col = rs.random((n, 3)).astype(np.float32)
     jfilm = jf.splat_rows(jf.new_film((w, h)), j_mitchell(), (w, h), 8, rows,
                           jnp.asarray(p), jnp.asarray(col))
-    tfilm = tf.splat_rows(tf.new_film((w, h)), t_mitchell(), (w, h), 8,
-                          rows, _t(p), _t(col))
+    tfilm = tf.splat_rows(tf.new_film((w, h), device="cpu"), t_mitchell(),
+                          (w, h), 8, rows, _t(p), _t(col))
     for k in ("rgb", "weight"):
         np.testing.assert_allclose(tfilm[k].numpy(), np.asarray(jfilm[k]),
                                    rtol=1e-5, atol=1e-6)

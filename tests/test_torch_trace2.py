@@ -370,6 +370,31 @@ def test_torch_first_block_key_matches_jax():
     np.testing.assert_array_equal(kt.numpy(), np.asarray(kj).astype(np.int64))
 
 
+@pytest.mark.parametrize("m", [300, 700])
+def test_torch_first_block_key_hier_matches_jax(monkeypatch, m):
+    """PT_HIER_KEY=1: the hierarchical key (top-2 coarse groups refined
+    jointly) equals the JAX package's bit for bit on tables of more than
+    64 top-level boxes, and differs from the flat key on some rays."""
+    from pathtracing_tpu_torch.accel.build import sort_key_coarse
+    rng = np.random.default_rng(m)
+    lo = np.sort(rng.uniform(-50, 50, (m, 3)).astype(np.float32), axis=0)
+    hi = lo + rng.uniform(0.5, 6.0, (m, 3)).astype(np.float32)
+    o = rng.uniform(-60, 60, (500, 3)).astype(np.float32)
+    d = lo[rng.integers(0, m, 500)] + 1.0 - o      # aimed into the boxes
+    d[::9, 1] = 0.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tabs = dict(pk_blk_lo=lo, pk_blk_hi=hi, **sort_key_coarse(lo, hi))
+    jt = {k: jnp.asarray(v) for k, v in tabs.items()}
+    tt = {k: torch.from_numpy(v) for k, v in tabs.items()}
+    flat = tisect._first_block_key(tt, torch.from_numpy(o),
+                                   torch.from_numpy(d))
+    monkeypatch.setenv("PT_HIER_KEY", "1")
+    kj = jisect._first_block_key(jt, jnp.asarray(o), jnp.asarray(d))
+    kt = tisect._first_block_key(tt, torch.from_numpy(o), torch.from_numpy(d))
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj).astype(np.int64))
+    assert (kt != flat).any() and (kt < 0x7FFFFFFE).sum() > 100
+
+
 def test_torch_kernel_wrapper_refuses_cpu_counters():
     ta, _ = trace2.build_tri_blocks2(_soup(1, 200))
     o, d = _rays(2, 8)
