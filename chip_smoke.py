@@ -8,9 +8,9 @@ device summary only when every phase passed):
   1. build the three CUDA sources (csrc/trace2.cu, the two-level traversal
      K1, csrc/trace1.cu, the single-level traversal K2, and csrc/leaf.cu,
      the leaf micro-benchmark K4), one nvcc each, started together; print
-     each instance's registers, stack frame and spills, and K1's blocks
-     per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) unstaged and
-     for the window kernel;
+     each instance's registers, stack frame and spills, and K1's and K2's
+     blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+     unstaged and for K1's window kernel;
   2. hold every kernel mode against its plain PyTorch version on the card,
      no flip allowed:
      a. K1 and K2 closest hit and any-hit on a 200K-triangle soup (K2: cut
@@ -78,7 +78,9 @@ device summary only when every phase passed):
         checks run on the 200K soup against the brute force, on the
         instanced and moving soups and on path A's instanced alpha
         tables), the multipass driver (caps 16, 8, 8 then uncapped) against
-        one pass, and the new modes' times and bounds;
+        one pass, the new modes' times and bounds, and K1 closest on the
+        same bounce rays in the order drawn against the dispatch's key
+        order (times, counters, the un-permuted results equal);
   5b. path C: the faithful frame again under PT_MULTIPASS=16,8,8 and
      PT_WINDOW=4 (the multipass driver on the mask-free opaque passes, the
      window walk on the alpha passes); its rays per sample, image mean and
@@ -94,7 +96,9 @@ device summary only when every phase passed):
   10. print the kernel table JSON, the card's name and power limit, and
      the device summary.
 Every K1 mode is timed at pops 1 ("ms") and at the main path's pops 4
-("ms_pops4").
+("ms_pops4").  Every K1 and K2 row is timed in ROUNDS interleaved rounds,
+each round timing every mode of the phase in turn: "ms" is the median,
+"ms_spread" (max - min) / median.
 Writes chiprun_out/sanmiguel_{legacy,faithful,multipass,tlas,small}.ppm,
 chiprun_out/spheres_medium.ppm and the whole output to
 chiprun_out/chip_smoke.log.
@@ -141,11 +145,12 @@ LEAF_K2, LEAF_ITERS = 256, 2000    # K4's defaults (the JAX tool's)
 SCHEDULES = (dict(window=2, pops=4), dict(window=4, pops=8),
              dict(pair=True), dict(pops=1), dict(pops=4))
 CAPS = (1, 2, 16)
+ROUNDS = 7                  # interleaved timing rounds of a phase's rows
 
 
 def _sync_time(fn, reps=20):
     """ms per call of fn(): one warm call, then `reps` calls back to back
-    on the current stream between two CUDA events."""
+    on the current stream between two CUDA events (one sample)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -157,6 +162,25 @@ def _sync_time(fn, reps=20):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _time_rounds(fns):
+    """Interleaved timing of a phase's kernel rows: ROUNDS rounds, each
+    taking one _sync_time sample of every fn of `fns`
+    ({key: fn}) in turn, so drift on the card falls on every row alike.
+    Returns {key: (median ms, spread)}, spread = (max - min) / median of
+    the samples: a difference between two rows under their spreads is
+    noise."""
+    import statistics
+    samples = {k: [] for k in fns}
+    for _ in range(ROUNDS):
+        for k, fn in fns.items():
+            samples[k].append(_sync_time(fn))
+    out = {}
+    for k, v in samples.items():
+        med = statistics.median(v)
+        out[k] = (med, (max(v) - min(v)) / med)
+    return out
 
 
 def _fns(mod):
@@ -293,10 +317,10 @@ def _ray_tri_t(o, d, tri):
     return torch.where(ok, t, -1.0)
 
 
-def _bounce_rays(scene, n, seed=2):
+def _bounce_rays(scene, n, seed=2, sort=True):
     """Bounce-like rays: random off-surface origins in the lower part of
     the scene box, downward-hemisphere directions, sorted by first entered
-    block as the dispatch sorts them."""
+    block as the dispatch sorts them (sort=False: in the order drawn)."""
     import numpy as np
     import torch
     from pathtracing_tpu_torch.scene.intersect import _first_block_key
@@ -313,8 +337,48 @@ def _bounce_rays(scene, n, seed=2):
     dev = scene["pk_tri"].device
     o = torch.from_numpy(o).to(dev)
     d = torch.from_numpy(d).to(dev)
+    if not sort:
+        return o, d
     perm = torch.argsort(_first_block_key(scene, o, d), stable=True)
     return o[perm].contiguous(), d[perm].contiguous()
+
+
+def _key_order(scene, n, label):
+    """K1 closest (at the main path's pops 4) on the same bounce rays in
+    caller order (as drawn: no coherence between neighbours) and in the
+    dispatch's order (sorted by _first_block_key), timed in interleaved
+    rounds beside the key itself, with each order's per-ray counters; the
+    sorted result, un-permuted, must equal the caller-order one on every
+    lane.  Says what the sort key buys the group walk."""
+    import torch
+    from pathtracing_tpu_torch.accel import trace2
+    from pathtracing_tpu_torch.scene.intersect import _first_block_key
+    oc, dc = _bounce_rays(scene, n, sort=False)
+    tm = torch.full((n,), 1e30, device=oc.device)
+    perm = torch.argsort(_first_block_key(scene, oc, dc), stable=True)
+    ok, dk = oc[perm].contiguous(), dc[perm].contiguous()
+    rc = trace2.tri_intersect2(scene, oc, dc, tm, pops=4)
+    rk = trace2.tri_intersect2(scene, ok, dk, tm, pops=4)
+    diff = {k: int((rk[k] != rc[k][perm]).sum())
+            for k in ("t", "tri", "inst", "valid")}
+    times = _time_rounds({
+        "caller": lambda: trace2.tri_intersect2(scene, oc, dc, tm, pops=4),
+        "key": lambda: trace2.tri_intersect2(scene, ok, dk, tm, pops=4),
+        "sort key": lambda: _first_block_key(scene, oc, dc)})
+    for order, o_, d_ in (("caller", oc, dc), ("key", ok, dk)):
+        c = trace2.tri_intersect2(scene, o_, d_, tm, pops=4,
+                                  counters=True)["counters"].float().mean(0)
+        ms, spread = times[order]
+        print(f"[key order] {label}, {order} order: {ms:.3f} ms (median of "
+              f"{ROUNDS} interleaved rounds, spread {spread:.1%}); per ray: "
+              f"top refills {c[0]:.2f}, top slab tests {c[4]:.1f}, L1 visits "
+              f"{c[1]:.2f}, leaf blocks {c[2]:.2f}", flush=True)
+    ms, spread = times["sort key"]
+    print(f"[key order] {label}: the sort key (_first_block_key) {ms:.3f} ms "
+          f"(spread {spread:.1%}); sorted result un-permuted vs caller "
+          f"order: lanes differing {diff}", flush=True)
+    if any(diff.values()):
+        raise RuntimeError(f"K1's result depends on the ray order on {label}")
 
 
 def _bound_ms(mod, scene, o, d, t_max, amask=0, any_hit=False, **kw):
@@ -322,15 +386,19 @@ def _bound_ms(mod, scene, o, d, t_max, amask=0, any_hit=False, **kw):
     any-hit walk ends at its first occluder, so it is counted with
     any_hit=True, not as a closest walk): the larger of the fp32
     operations (slab and triangle tests the traversal performs and, in
-    the alpha modes, its mask lookups, from the kernel's counters) over
-    the fp32 peak, and the bytes over the HBM rate: rays in (28 B, 32 with
-    a time) and results out (8 B, 12 on instanced tables) once each, the
-    top-level table (boxes, + child base for the two-level kernel, +
-    source and instance ids and one 48 B inverse transform per visited
-    expanded entry on instanced tables), once each the child boxes of the
-    PHYSICAL L1s (instances share them) and the triangle rows of the
-    physical blocks that some ray visited, and the 32 B of mask words of
-    every hit that looked its cell up."""
+    the alpha modes, its mask lookups, from the kernel's counters; the
+    top-level slab tests are the kernel's own count of the coarse unions
+    and entries its front tested) over the fp32 peak, and the bytes over
+    the HBM rate: rays in (28 B, 32 with a time) and results out (8 B, 12
+    on instanced tables) once each, the top-level table (boxes, + child
+    base for the two-level kernel, + source and instance ids and one 48 B
+    inverse transform per visited expanded entry on instanced tables) and
+    its coarse unions, once each the child boxes of the PHYSICAL L1s
+    (instances share them) and the triangle rows of the physical blocks
+    that some ray visited, and the 32 B of mask words of every hit that
+    looked its cell up.  Returns (bound ms, "operations" or "bytes",
+    extra): K2's extra holds the bound of a flat scan of every block per
+    front refill (refills x M slab tests in place of the counted ones)."""
     import torch
     kernel, _ = _fns(mod)
     res = kernel(scene, o, d, t_max, counters=True, amask=amask,
@@ -338,6 +406,7 @@ def _bound_ms(mod, scene, o, d, t_max, amask=0, any_hit=False, **kw):
     cnt = res["counters"].to(float).sum(0)
     n = o.shape[0]
     inst = "pk_blk_src" in scene
+    extra = {}
     ray_bytes = n * (28 + 8 + (4 if kw.get("time") is not None else 0)
                      + (4 if inst else 0))
     if "pk_l1box" in scene:                     # two-level
@@ -371,41 +440,60 @@ def _bound_ms(mod, scene, o, d, t_max, amask=0, any_hit=False, **kw):
     else:                                       # single-level
         m = scene["pk_blkbox"].shape[0]
         mp, k = scene["pk_tri"].shape[:2]
-        flops = (float(cnt[0]) * m * SLAB_FLOPS + float(cnt[1]) * k * MT_FLOPS
-                 + float(cnt[3]) * MASK_FLOPS)
+        nc = scene["pk_cbox"].shape[0]
+        leaf = float(cnt[1]) * k * MT_FLOPS + float(cnt[3]) * MASK_FLOPS
+        flops = float(cnt[4]) * SLAB_FLOPS + leaf
         seen = int(res["blocks_touched"].sum())
-        nbytes = (ray_bytes + m * (32 + (8 if inst else 0))
+        nbytes = (ray_bytes + m * (32 + (8 if inst else 0)) + nc * 32
                   + seen * k * 48
                   + (seen * 48 if inst else 0)
                   + float(cnt[3]) * MASK_BYTES)
-        what = (f"table passes={cnt[0] / n:.2f} blocks visited="
-                f"{cnt[1] / n:.2f} (tri tests={cnt[1] / n * k:.0f}) mask "
-                f"lookups={cnt[3] / n:.3f}; physical blocks visited "
-                f"{seen}/{mp}")
+        flat = max((float(cnt[0]) * m * SLAB_FLOPS + leaf) / FP32_PEAK,
+                   (nbytes - nc * 32) / HBM_RATE) * 1e3
+        extra["bound_ms_flat_scan"] = flat
+        what = (f"front refills={cnt[0] / n:.2f} top slab tests="
+                f"{cnt[4] / n:.1f} (flat scan: {cnt[0] / n * m:.0f}) blocks "
+                f"visited={cnt[1] / n:.2f} (tri tests={cnt[1] / n * k:.0f}) "
+                f"mask lookups={cnt[3] / n:.3f}; physical blocks visited "
+                f"{seen}/{mp}; flat-scan bound {flat:.4f} ms")
     ops_ms, bytes_ms = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     print(f"[bound] amask={amask} any_hit={any_hit} rays={n} per-ray: {what}"
           f"; flops="
           f"{flops:.3e} bytes={nbytes:.3e} ops_ms={ops_ms:.4f} bytes_ms="
           f"{bytes_ms:.4f}", flush=True)
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
+                                   else "bytes"), extra
 
 
 def _measure(mod, scene, o, d, t_max, label, modes, prune=True,
              brute_rays=0, **kw):
     """Hold the kernel's `modes` (a subset of closest / any_hit / amask1 /
     amask2) against the plain version on these rays (culled by box; with
-    brute_rays also against the brute force on that many of them), time
-    each mode and compute each mode's own bound from its own counters.
-    Returns {mode: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)};
-    any_hit's max_abs_err is over the occlusion flags (its only output
-    that is compared); K1's modes add ms_pops4, the time at pops 4."""
+    brute_rays also against the brute force on that many of them),
+    compute each mode's own bound from its own counters, then time every
+    mode in interleaved rounds (_time_rounds).  Returns {mode:
+    dict(max_abs_err, ms, ms_spread, plain_ms, bound_ms, bound_by, ...)}
+    with ms the median over the rounds; any_hit's max_abs_err is over the
+    occlusion flags (its only output that is compared); K1's modes add
+    ms_pops4 / ms_pops4_spread, the time at pops 4, K2's the flat-scan
+    bound."""
     kernel, _ = _fns(mod)
     k1 = hasattr(mod, "tri_intersect2")
     out = {}
+    fns = {}
     sub = {k: (v[:brute_rays] if v is not None else None)
            for k, v in kw.items() if k == "time"}
     kw_b = {**kw, **sub}
+
+    def row(mode, err, plain_ms, **mkw):
+        b_ms, b_by, extra = _bound_ms(mod, scene, o, d, t_max, **mkw, **kw)
+        out[mode] = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, **extra)
+        fns[mode] = lambda: kernel(scene, o, d, t_max, **mkw, **kw)
+        if k1:
+            fns[mode + "_pops4"] = lambda: kernel(scene, o, d, t_max, pops=4,
+                                                  **mkw, **kw)
+
     if "closest" in modes or "any_hit" in modes:
         if brute_rays:
             _compare(mod, scene, o[:brute_rays], d[:brute_rays],
@@ -413,17 +501,7 @@ def _measure(mod, scene, o, d, t_max, label, modes, prune=True,
         cmp_c = _compare(mod, scene, o, d, t_max, label, prune=prune, **kw)
         for mode in ("closest", "any_hit"):
             if mode in modes:
-                anyh = mode == "any_hit"
-                err, plain_ms = cmp_c[mode]
-                ms = _sync_time(lambda: kernel(scene, o, d, t_max,
-                                               any_hit=anyh, **kw))
-                b_ms, b_by = _bound_ms(mod, scene, o, d, t_max, any_hit=anyh,
-                                       **kw)
-                out[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=b_ms, bound_by=b_by)
-                if k1:
-                    out[mode]["ms_pops4"] = _sync_time(lambda: kernel(
-                        scene, o, d, t_max, any_hit=anyh, pops=4, **kw))
+                row(mode, *cmp_c[mode], any_hit=mode == "any_hit")
     if "amask1" in modes or "amask2" in modes:
         if brute_rays:
             _compare_amask(mod, scene, o[:brute_rays], d[:brute_rays],
@@ -435,28 +513,27 @@ def _measure(mod, scene, o, d, t_max, label, modes, prune=True,
             if not share > 0.0:
                 raise RuntimeError(f"amask={amask} resolved no lane on "
                                    f"{label}")
-            ms = _sync_time(lambda: kernel(scene, o, d, t_max, amask=amask,
-                                           **kw))
-            b_ms, b_by = _bound_ms(mod, scene, o, d, t_max, amask=amask, **kw)
-            out[f"amask{amask}"] = dict(max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms, bound_ms=b_ms,
-                                        bound_by=b_by)
-            if k1:
-                out[f"amask{amask}"]["ms_pops4"] = _sync_time(
-                    lambda: kernel(scene, o, d, t_max, amask=amask, pops=4,
-                                   **kw))
+            row(f"amask{amask}", err, plain_ms, amask=amask)
+    for key, (med, spread) in _time_rounds(fns).items():
+        mode = key[:-len("_pops4")] if key.endswith("_pops4") else key
+        name = "ms_pops4" if key.endswith("_pops4") else "ms"
+        out[mode][name] = med
+        out[mode][name + "_spread"] = spread
+    smem = mod.staged_bytes(scene)
     for mode, r in out.items():
-        p4 = ""
-        if k1:      # the group kernel's occupancy with these tables staged
-            smem = mod.staged_bytes(scene)
-            occ = mod.occupancy(mod.mode_name(
-                mode == "any_hit", int(mode[-1]) if "amask" in mode else 0,
-                "pk_blk_src" in scene, kw.get("time") is not None), smem=smem)
-            p4 = (f" (pops 4: {r['ms_pops4']:.3f} ms), {occ} blocks of 128 "
-                  f"per SM with {smem} B staged")
-        print(f"[kernel] {label} {mode}: {r['ms']:.3f} ms{p4}, plain "
-              f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+        # the kernel's occupancy with these tables staged
+        occ = mod.occupancy(mod.mode_name(
+            mode == "any_hit", int(mode[-1]) if "amask" in mode else 0,
+            "pk_blk_src" in scene, kw.get("time") is not None), smem=smem)
+        p4 = (f" (pops 4: {r['ms_pops4']:.3f} ms, spread "
+              f"{r['ms_pops4_spread']:.1%})" if k1 else "")
+        flat = (f", flat-scan bound {r['bound_ms_flat_scan']:.4f} ms"
+                if "bound_ms_flat_scan" in r else "")
+        print(f"[kernel] {label} {mode}: {r['ms']:.3f} ms (median of "
+              f"{ROUNDS} interleaved rounds, spread {r['ms_spread']:.1%})"
+              f"{p4}, {occ} blocks of 128 per SM with {smem} B staged, "
+              f"plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}){flat}", flush=True)
     return out
 
 
@@ -956,15 +1033,17 @@ def _measure_schedules(scene, o, d, t_max, label):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     rows = {}
-    for name, kw in (("capped", dict(max_visits=16)),
-                     ("frontier", dict(max_visits=16, frontier=True)),
-                     ("window2", dict(window=2, pops=4)),
-                     ("window4", dict(window=4, pops=4)),
-                     ("pair", dict(pair=True, pops=4)),
-                     ("pops4", dict(pops=4))):
-        ms = _sync_time(lambda: trace2.tri_intersect2(scene, o, d, t_max,
-                                                      **kw))
-        b_ms, b_by = _bound_ms(trace2, scene, o, d, t_max, **kw)
+    scheds = (("capped", dict(max_visits=16)),
+              ("frontier", dict(max_visits=16, frontier=True)),
+              ("window2", dict(window=2, pops=4)),
+              ("window4", dict(window=4, pops=4)),
+              ("pair", dict(pair=True, pops=4)),
+              ("pops4", dict(pops=4)))
+    times = _time_rounds({name: (lambda kw=kw: trace2.tri_intersect2(
+        scene, o, d, t_max, **kw)) for name, kw in scheds})
+    for name, kw in scheds:
+        ms, spread = times[name]
+        b_ms, b_by, _ = _bound_ms(trace2, scene, o, d, t_max, **kw)
         p_ms = plain_ms
         if "max_visits" in kw:
             torch.cuda.synchronize()
@@ -972,11 +1051,13 @@ def _measure_schedules(scene, o, d, t_max, label):
             trace2.tri_intersect2_plain(scene, o, d, t_max, **kw)
             torch.cuda.synchronize()
             p_ms = (time.perf_counter() - t0) * 1e3
-        rows[f"trace2[{name}]"] = dict(max_abs_err=0.0, ms=ms, plain_ms=p_ms,
+        rows[f"trace2[{name}]"] = dict(max_abs_err=0.0, ms=ms,
+                                       ms_spread=spread, plain_ms=p_ms,
                                        bound_ms=b_ms, bound_by=b_by,
                                        schedule=str(kw))
-        print(f"[kernel] {label} {name} {kw}: {ms:.3f} ms, plain {p_ms:.1f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        print(f"[kernel] {label} {name} {kw}: {ms:.3f} ms (median of "
+              f"{ROUNDS} interleaved rounds, spread {spread:.1%}), plain "
+              f"{p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
     return rows
 
 
@@ -1205,6 +1286,11 @@ def main() -> int:
               f"{trace2.occupancy(mode)} blocks of 128 per SM unstaged "
               f"(each [kernel] row gives it with its tables staged), window "
               f"kernel {trace2.occupancy(mode, window=True)}", flush=True)
+    for mode in ("closest", "amask1", "amask2", "inst_closest",
+                 "motion_closest"):
+        print(f"[occupancy] trace1 {mode} (and its any-hit): "
+              f"{trace1.occupancy(mode)} blocks of 128 per SM unstaged (each "
+              f"[kernel] row gives it with its tables staged)", flush=True)
 
     kern = {}       # "trace2[mode]" / "trace1[mode]" -> measured numbers
 
@@ -1499,6 +1585,7 @@ def main() -> int:
     _multipass_check(scene, ob, db, tb_, label)
     kern.update(_measure_schedules(scene, ob, db, tb_, label))
     del ob, db, tb_
+    _key_order(scene, nr, label)
 
     # ---- 5b. path C: the same frame under PT_MULTIPASS and PT_WINDOW
     os.environ["PT_MULTIPASS"] = ",".join(str(v) for v in MULTIPASS)

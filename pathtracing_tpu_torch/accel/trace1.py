@@ -35,11 +35,14 @@ import numpy as np
 import torch
 
 from . import cubuild
-from .trace2 import (PlainBest, _check_mode, _enters, _moller_trumbore,
-                     _padded, _ptr, _ray_args, box_corners, check_tensor,
+from .beam import pick_block_k
+from .build import COARSE_G, coarse_tables
+from .trace2 import (PlainBest, _MODE_BITS, _check_mode, _enters,
+                     _moller_trumbore, _padded, _ptr, _ray_args,
+                     box_corners, check_tensor,
                      instance_models, instance_rays, mode_name,
                      pack_tri_rows, sah_order, shutter_bounds,
-                     _check_mask_words)
+                     staged_bytes, _check_mask_words)
 from ..core.math import BIG_F32
 
 _CSRC = cubuild.source("trace1")
@@ -48,16 +51,6 @@ _CSRC = cubuild.source("trace1")
 # ---------------------------------------------------------------------------
 # Tables
 # ---------------------------------------------------------------------------
-
-def pick_block_k(n_prims: int) -> int:
-    """Balance the M block tests against the K triangle tests per visited
-    block: M ~ sqrt(2n), K = n / M rounded up to a multiple of 8, M at
-    most 4096."""
-    m = int(np.clip(2 ** int(np.ceil(np.log2(max(np.sqrt(2.0 * n_prims),
-                                                 1.0)))), 64, 4096))
-    k = -(-n_prims // m)
-    return max(8, -(-k // 8) * 8)
-
 
 def _box8(lo, hi):
     box = np.zeros((len(lo), 8), np.float32)
@@ -81,13 +74,14 @@ def build_tri_blocks(tri_v: np.ndarray, block_k: int | None = None,
                                   with tri_vel / shutter)
       pk_blkbox   [M, 8] f32     the same, packed for the kernel
       pk_slot2tri [M*K] i32      slot -> triangle id, -1 on padding
-      pk_sblk_lo/hi              coarse unions of 8 blocks
+      pk_sblk_lo/hi              coarse unions of 8 blocks (the dispatch
+                                  sort key's)
+      pk_cbox / pk_cmem / pk_cgrp  the kernel's coarse front over the
+                                  same unions (build.coarse_tables)
       pk_mask     [M*K, 8] i32   only with tri_mask ([T,7] int32 words)
     K is a multiple of 128 (of 512 above 512) and M at most 4096, as in the
     reference package's build_tri_blocks, whose SAH order and block cut
     these are."""
-    from .build import sort_key_coarse
-
     tri_v = np.asarray(tri_v, np.float32)
     if tri_vel is not None:
         tri_vel = np.asarray(tri_vel, np.float32)
@@ -114,7 +108,7 @@ def build_tri_blocks(tri_v: np.ndarray, block_k: int | None = None,
         tri[n:] = 0.0
     out = dict(pk_tri=tri.reshape(m, k, 12), pk_blk_lo=plo, pk_blk_hi=phi,
                pk_blkbox=_box8(plo, phi), pk_slot2tri=slot2tri,
-               **sort_key_coarse(plo, phi))
+               **coarse_tables(plo, phi))
     if tri_mask is not None:
         mask = np.zeros((m * k, 8), np.int32)
         mask[:n, :7] = _check_mask_words(tri_mask, len(tri_v))[order]
@@ -135,9 +129,9 @@ def build_tri_blocks_inst(tri_v, otri_v, inst_fwd, inst_inv, inst_base,
       pk_blk_src  [Me] i32  expanded block -> physical block
       pk_blk_inst [Me] i32  expanded block -> instance (-1 world)
       pk_inst_inv / pk_inst_fwd [ni, 12] f32  row-major [3,4]
-    in the reference package's build_tri_blocks_inst's order."""
-    from .build import sort_key_coarse
-
+    in the reference package's build_tri_blocks_inst's order; the
+    kernel's coarse front unites 8 expanded blocks that are neighbours in
+    their SAH order (pk_sblk: 8 consecutive ones, the sort key's)."""
     tri_v = np.asarray(tri_v, np.float32).reshape(-1, 3, 3)
     otri_v = np.asarray(otri_v, np.float32).reshape(-1, 3, 3)
     inst_fwd = [np.asarray(f, np.float32) for f in inst_fwd]
@@ -210,7 +204,8 @@ def build_tri_blocks_inst(tri_v, otri_v, inst_fwd, inst_inv, inst_base,
         pk_slot2tri=np.concatenate(slot2tri, 0),
         pk_inst_inv=np.stack([f[:3, :4].reshape(12) for f in inst_inv]),
         pk_inst_fwd=np.stack([f[:3, :4].reshape(12) for f in inst_fwd]),
-        **sort_key_coarse(blo, bhi)), k
+        **coarse_tables(blo, bhi,
+                        sah_order(blo, bhi) if len(blo) else None)), k
 
 
 # ---------------------------------------------------------------------------
@@ -282,13 +277,29 @@ def build_kernel() -> float:
 
 
 def bind(lib):
-    """Declare trace1_launch's C signature on a loaded library (the CUDA
-    build, or cubuild.host_library's host build)."""
+    """Declare trace1_launch's (and trace1_occupancy's) C signature on a
+    loaded library (the CUDA build, or cubuild.host_library's host
+    build)."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.trace1_launch.restype = I
-    lib.trace1_launch.argtypes = [P, P, P, I, P, I, P, P, I, I, I,
-                                  P, P, P, P, P, P, P, P, P, P]
+    lib.trace1_launch.argtypes = [P, P, P, I, P, I, P, I, P, P, P, P, I, I,
+                                  I, P, P, P, P, P, P, P, P, P, P]
+    lib.trace1_occupancy.restype = I
+    lib.trace1_occupancy.argtypes = [I, I, P]
     return lib
+
+
+def occupancy(mode, smem=0, lib=None):
+    """Blocks of 128 threads per SM of a mode's kernel with `smem` bytes of
+    staged coarse table, from cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+    mode is a MODES name."""
+    _, amask, inst, motion = _MODE_BITS[mode]
+    code = 3 if inst else (4 if motion else amask)
+    out = ctypes.c_int(0)
+    rc = (lib or _lib).trace1_occupancy(code, int(smem), ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"trace1_occupancy failed (cudaError {rc})")
+    return out.value
 
 
 def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
@@ -301,12 +312,20 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
     dev = origin.device
     n = origin.shape[0]
     tri, box = scene["pk_tri"], scene["pk_blkbox"]
+    if "pk_cbox" not in scene:
+        raise ValueError("trace1: the tables lack the coarse front (pk_cbox, "
+                         "pk_cmem, pk_cgrp of build_tri_blocks / "
+                         "build_tri_blocks_inst)")
+    coarse, cmem, cgrp = scene["pk_cbox"], scene["pk_cmem"], scene["pk_cgrp"]
     inst = "pk_blk_src" in scene
     checks = [("origin", origin, torch.float32),
               ("direction", direction, torch.float32),
               ("t_max", t_max, torch.float32),
               ("pk_tri", tri, torch.float32),
-              ("pk_blkbox", box, torch.float32)]
+              ("pk_blkbox", box, torch.float32),
+              ("pk_cbox", coarse, torch.float32),
+              ("pk_cmem", cmem, torch.int32),
+              ("pk_cgrp", cgrp, torch.int32)]
     mask = src = binst = inv = None
     if amask:
         mask = scene["pk_mask"]
@@ -325,6 +344,9 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
     if (origin.shape != (n, 3) or direction.shape != (n, 3)
             or tri.ndim != 3 or tri.shape[2] != 12 or box.shape[1:] != (8,)
             or (not inst and tri.shape[0] != m)
+            or coarse.ndim != 2 or coarse.shape[1] != 8
+            or cmem.shape != (coarse.shape[0], COARSE_G)
+            or cgrp.shape != (m,)
             or (time is not None and time.shape != (n,))
             or (amask and mask.shape != (tri.shape[0] * tri.shape[1], 8))
             or (inst and (src.shape != (m,) or binst.shape != (m,)
@@ -338,7 +360,7 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
                else None)
     cnt = touched = None
     if counters:
-        cnt = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+        cnt = torch.zeros((n, 5), dtype=torch.int32, device=dev)
         touched = torch.zeros((tri.shape[0],), dtype=torch.uint8,
                               device=dev)
     stream = None
@@ -347,7 +369,8 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
             stream = torch.cuda.current_stream(dev).cuda_stream
     rc = (host_lib or _lib).trace1_launch(
         origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), n,
-        box.data_ptr(), m, tri.data_ptr(), _ptr(mask), k,
+        box.data_ptr(), m, coarse.data_ptr(), coarse.shape[0],
+        cmem.data_ptr(), cgrp.data_ptr(), tri.data_ptr(), _ptr(mask), k,
         int(bool(any_hit)), int(amask), _ptr(src), _ptr(binst), _ptr(inv),
         _ptr(time), out_t.data_ptr(), out_slot.data_ptr(), _ptr(out_blk),
         _ptr(cnt), _ptr(touched), stream)
@@ -384,9 +407,10 @@ def tri_intersect1(scene, origin, direction, t_max, any_hit: bool = False,
     origin/direction [N,3] f32, t_max [N] f32 (or a scalar), time [N] f32
     for tables built with velocities.  Returns dict(t, tri, inst, valid),
     "solid" under amask=2; counters=True (CUDA only) adds
-    "counters", per ray int32 [N,4] (table passes, blocks visited, the
-    same again, mask lookups), and "blocks_touched" [Mp] bool, the
-    physical blocks any ray visited."""
+    "counters", per ray int32 [N,5] (front refills, blocks visited, the
+    same again, mask lookups, top-level slab tests: coarse unions and
+    blocks), and "blocks_touched" [Mp] bool, the physical blocks any ray
+    visited."""
     _check_mode1(scene, any_hit, amask, time)
     origin, direction, t_max, time = _ray_args(origin, direction, t_max, time)
     cnt = None

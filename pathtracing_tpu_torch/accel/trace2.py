@@ -71,11 +71,11 @@ import torch
 
 from ..core.math import BIG_F32, SHADOW_EPS
 from . import cubuild
+from .build import COARSE_G, coarse_tables, sah_order
 
 G_DEFAULT = 16      # child blocks per L1 superblock
 TILE = 128          # dispatch pads ray batches to a multiple of this
 RECULL_EVERY = 8    # the reference kernel's re-cull cadence (accepted, no-op)
-COARSE_G = 8        # top-level entries per coarse union (the kernel's front)
 WIDEN = torch.tensor(1.0000005, dtype=torch.float32)   # the kernel's slab widening
 
 _CSRC = cubuild.source("trace2")
@@ -84,18 +84,6 @@ _CSRC = cubuild.source("trace2")
 # ---------------------------------------------------------------------------
 # Tables
 # ---------------------------------------------------------------------------
-
-def sah_order(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
-    """SAH leaf order of the boxes (lo, hi) [n,3]: the threaded C++
-    builder when it is available, else the NumPy one (the same order)."""
-    from .build import _sah_build_binary
-    from ..native.loader import native_build_bvh
-
-    native = native_build_bvh(lo, hi, 4)
-    if native is not None:
-        return native[3]
-    return _sah_build_binary(lo, hi, leaf_size=4)[1]
-
 
 def shutter_bounds(tri_v, tri_vel=None, shutter=(0.0, 0.0)):
     """Per-triangle boxes (lo, hi) [n,3]; with tri_vel [n,3] the union
@@ -221,34 +209,6 @@ def build_tri_blocks2(tri_v: np.ndarray, k2: int | None = None,
         mask[:n, :7] = _check_mask_words(tri_mask, len(tri_v))[order]
         out["pk_mask"] = mask
     return out, k2
-
-
-def coarse_tables(lo, hi, order=None):
-    """The top level's coarse unions: pk_sblk_lo / pk_sblk_hi, the unions
-    of 8 consecutive boxes (accel/build.py::sort_key_coarse, the dispatch
-    sort key's), and the kernel's front: pk_cbox / pk_cmem / pk_cgrp
-    (build_tri_blocks2's docstring), the unions of 8 consecutive boxes of
-    `order` (None: the table's own order, so pk_cbox holds the pk_sblk
-    boxes).  World tables are in SAH order already; an instanced table's
-    entries are in instance order, so its builder passes their SAH order:
-    unions of entries far apart would be entered by almost every ray."""
-    from .build import sort_key_coarse
-    m = len(lo)
-    order = np.arange(m) if order is None else np.asarray(order)
-    nc = -(-m // COARSE_G)
-    mem = np.concatenate([order, np.full(nc * COARSE_G - m, -1)])
-    mem = mem.reshape(nc, COARSE_G)
-    mem = np.sort(np.where(mem < 0, m, mem), axis=1)   # ascending, pad last
-    mem = np.where(mem >= m, -1, mem).astype(np.int32)
-    safe = np.maximum(mem, 0)
-    box = np.zeros((nc, 8), np.float32)
-    box[:, 0:3] = np.where((mem >= 0)[..., None], lo[safe], np.inf).min(1)
-    box[:, 4:7] = np.where((mem >= 0)[..., None], hi[safe], -np.inf).max(1)
-    box[:, 3] = mem[:, 0].view(np.float32)
-    grp = np.empty(m, np.int32)
-    grp[mem[mem >= 0]] = np.nonzero(mem >= 0)[0]
-    return dict(sort_key_coarse(lo, hi), pk_cbox=box, pk_cmem=mem,
-                pk_cgrp=grp)
 
 
 def box_corners(lo, hi):
@@ -854,12 +814,13 @@ def bind(lib):
     return lib
 
 
-STAGE_MAX_BYTES = 16384   # trace2.cu's: coarse tables staged up to this size
+STAGE_MAX_BYTES = 16384   # group_walk.cuh's: coarse tables staged up to this
 
 
 def staged_bytes(scene):
-    """Bytes of shared memory a group-walk launch on these tables stages:
-    the coarse union boxes when they fit in STAGE_MAX_BYTES, else 0."""
+    """Bytes of shared memory a group-walk launch (K1's or K2's) on these
+    tables stages: the coarse union boxes when they fit in
+    STAGE_MAX_BYTES, else 0."""
     b = scene["pk_cbox"].shape[0] * 32
     return b if b <= STAGE_MAX_BYTES else 0
 

@@ -1,7 +1,8 @@
-// The group walk of the two-level kernel (csrc/trace2.cu): W lanes per ray
-// and a front over the coarse unions of the top level.  Included after
-// trace_common.cuh; the single-level kernel and the leaf micro-benchmark do
-// not use it.
+// The group walk of the traversal kernels (csrc/trace2.cu, the two-level
+// walk, and csrc/trace1.cu, the single-level one): W lanes per ray and a
+// front over the coarse unions of the top level (trace2's L1 entries,
+// trace1's blocks; "L1 entry" below stands for either).  Included after
+// trace_common.cuh; the leaf micro-benchmark does not use it.
 //
 // Group primitives.  A group is W consecutive lanes of a warp (W a power of
 // two dividing 32) that walk one ray together; every decision of the walk
@@ -44,6 +45,9 @@
 namespace {
 
 constexpr int COARSE_G = 8;   // L1 entries per coarse union (SORT_COARSE_G)
+// The coarse table is staged in shared memory up to this size
+// (accel/trace2.py::STAGE_MAX_BYTES mirrors it).
+constexpr int STAGE_MAX_BYTES = 16384;
 
 #ifdef __CUDACC__
 
@@ -234,8 +238,8 @@ struct LaneFrontSize {
   static constexpr int value = W >= 8 ? 4 : (W >= 4 ? 8 : 16);
 };
 
-// The top level of one launch: the L1 entries and their coarse unions (in
-// shared memory when staged).
+// The top level of one launch: the L1 entries (trace1: the blocks) and
+// their coarse unions (in shared memory when staged).
 struct Top {
   const float4* l1box;   // [m1, 2] (lo, hi)
   const float4* coarse;  // [nc, 2] union (lo, least member's bits; hi, 0)

@@ -469,10 +469,6 @@ trace2_window_kernel(const float* __restrict__ orig,
   X(3, 0, true, false) X(4, 1, true, false) X(5, 2, true, false) \
   X(6, 0, false, true) X(9, 0, true, true)
 
-// The coarse table is staged in shared memory up to this size
-// (accel/trace2.py::STAGE_MAX_BYTES mirrors it).
-constexpr int STAGE_MAX_BYTES = 16384;
-
 // max_visits: 0 = uncapped.  out_en / out_bn: the frontier outputs (both or
 // neither).  coarse / nc: the coarse unions ([nc, 8] f32: lo xyz, the bits
 // of the least member, hi xyz, 0), members ([nc, COARSE_G] i32, ascending,

@@ -8,21 +8,23 @@ become area lights), models instanced as world triangles or kept as
 run-time instances (with per-instance area lights for emissive models),
 linear motion (`velocity=` on shapes, meshes, instances and point
 lights, `set_camera(shutter=)`), uniform-infinite / distant / point
-lights and the camera.  `build()` packs NumPy tables into torch tensors
-on the device, builds the traversal tables for triangle scenes
-(`build_traversal_tables`: single- or two-level, plain or instanced,
-split into an opaque and an alpha set, the latter with per-triangle
-micro-masks, when some but not all triangles have an alpha material)
+lights, homogeneous media and the camera.  `build()` packs NumPy tables
+into torch tensors on the device, builds the traversal tables for
+triangle scenes (`build_traversal_tables`: single- or two-level, plain or
+instanced, split into an opaque and an alpha set, the latter with
+per-triangle micro-masks, when some but not all triangles have an alpha
+material) or the beam backend's block cut (accel/build.py::build_beam)
 and returns (scene, cam, SceneMeta).
 
-Not in this package yet, and refused with NotImplementedError: media and
-environment / function / emissive-texture lights.
+Not in this package yet, and refused with NotImplementedError:
+environment / function / emissive-texture lights and accel="bvh".
 """
 from __future__ import annotations
 
 import hashlib
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -721,12 +723,14 @@ class SceneBuilder:
 
         power_cull drops lights with power below it.  accel: "auto" picks
         "brute" under 4096 primitives (instanced triangles counted once
-        per instance) and "pallas" (the traversal tables that
-        build_traversal_tables chooses) for triangle scenes above; "brute"
-        forces the scan (and builds no alpha micro-masks: it is the
-        unmasked oracle)."""
+        per instance), "pallas" (the traversal tables that
+        build_traversal_tables chooses) for triangle or instanced scenes
+        above and "beam" (accel/beam.py) for the rest, as the reference
+        package does; "beam" on a moving or instanced scene warns and
+        falls back to "brute"; "brute" forces the scan (and builds no
+        alpha micro-masks: it is the unmasked oracle)."""
         dev = resolve_device(device)
-        if accel not in ("auto", "pallas", "brute"):
+        if accel not in ("auto", "pallas", "brute", "beam"):
             raise NotImplementedError(f"accel={accel!r} is not ported")
         self._maybe_flatten_instances()
         n_inst = len(self._inst)
@@ -895,10 +899,31 @@ class SceneBuilder:
         block_g = int(os.environ.get("PT_BLOCK_G", 32))
         block_pops = int(os.environ.get("PT_POPS", 4))
         n_inst_tris = sum(i["count"] for i in self._inst)
+        n_prims = nt + ns + nq + n_inst_tris
         if accel == "auto":
-            small = nt + ns + nq + n_inst_tris < 4096
-            accel = "brute" if small or not (nt or n_inst) else "pallas"
-        if accel == "pallas" and (nt or n_inst):
+            accel = ("brute" if n_prims < 4096 else
+                     "pallas" if nt or n_inst else "beam")
+        if has_motion and accel == "beam":
+            warnings.warn("accel='beam' does not support motion-blurred "
+                          "scenes: falling back to accel='brute' (use "
+                          "pallas for accelerated motion)", stacklevel=2)
+            accel = "brute"
+        if n_inst and accel == "beam":
+            warnings.warn("accel='beam' does not support runtime instances: "
+                          "falling back to accel='brute' (use pallas for "
+                          "accelerated instancing)", stacklevel=2)
+            accel = "brute"
+        if accel == "beam" and n_prims:
+            from ..accel.build import build_beam
+            beam, block_k = build_beam(dict(
+                tri_v=tri_v[:nt] if nt else None,
+                sph_c=arrays["sph_c"][:ns] if ns else None,
+                sph_r=arrays["sph_r"][:ns] if ns else None,
+                quad_q=quad_q[:nq] if nq else None,
+                quad_u=quad_u[:nq] if nq else None,
+                quad_v=quad_v[:nq] if nq else None))
+            arrays.update(beam)
+        elif accel == "pallas" and (nt or n_inst):
             inst = None
             if n_inst:
                 inst = dict(otri_v=arrays["otri_v"], otri_uv=arrays["otri_uv"],

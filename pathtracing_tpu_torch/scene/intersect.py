@@ -1,8 +1,10 @@
 """Ray-scene intersection (counterpart of pathtracing_tpu/scene/intersect.py).
 
-Two backends, chosen by meta.accel:
+Three backends, chosen by meta.accel:
   "brute"  - a chunked scan over every primitive ([N, C] tensor tests),
              the correctness reference;
+  "beam"   - the block-beam walk over a flat block cut of the SAH order
+             (accel/beam.py; plain PyTorch), every shape kind;
   "pallas" - triangles through the traversal kernels (two-level tables:
              accel/trace2.py, single-level ones: accel/trace1.py; the CUDA
              kernel on the card, its plain version on the CPU), analytic
@@ -491,10 +493,20 @@ def _pallas_dispatch(scene, meta, origin, direction, t_max,
     return out
 
 
+def _beam(scene, meta, origin, direction, t_max, any_hit=False):
+    from ..accel.beam import beam_intersect
+    return beam_intersect(scene, origin, direction, t_max, meta.block_k,
+                          any_hit=any_hit,
+                          shapes=(meta.n_tri > 0, meta.n_sph > 0,
+                                  meta.n_quad > 0))
+
+
 def _intersect(scene, meta, origin, direction, t_max, time=None):
     if meta.accel == "pallas":
         return _pallas_dispatch(scene, meta, origin, direction, t_max,
                                 time=time)
+    if meta.accel == "beam":      # static scenes only (the builder's rule)
+        return _beam(scene, meta, origin, direction, t_max)
     motion = meta.has_motion and time is not None
     n = origin.shape[0]
     dev = origin.device
@@ -857,6 +869,9 @@ def _occluded(scene, meta, origin, direction, t_max, rand_key=None,
             return _pallas_dispatch(scene, meta, origin, direction,
                                     t_max - SHADOW_EPS, any_hit=True,
                                     time=time)["valid"]
+        if meta.accel == "beam":
+            return _beam(scene, meta, origin, direction, t_max - SHADOW_EPS,
+                         any_hit=True)["valid"]
         return _intersect(scene, meta, origin, direction,
                           t_max - SHADOW_EPS, time)["valid"]
 

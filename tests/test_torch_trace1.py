@@ -295,38 +295,52 @@ def test_torch_trace1_refuses_what_its_tables_lack():
 # The kernel source as host C++
 # ---------------------------------------------------------------------------
 
+LANES = (1, 16)         # one lane per ray, and the card's group width
+
+
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """csrc/trace1.cu compiled as plain C++ (one loop iteration per CUDA
-    thread, no FMA contraction): the kernel's traversal logic on the CPU."""
+def host_libs(tmp_path_factory):
+    """csrc/trace1.cu compiled as plain C++ (no FMA contraction) at each
+    lane count of LANES: the kernel's group walk on the CPU, each ray's W
+    lanes as W threads meeting at a barrier in every group primitive."""
     import shutil
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source as host code")
-    return trace1.bind(cubuild.host_library(
-        "trace1", tmp_path_factory.mktemp("trace1_host")))
+    out = tmp_path_factory.mktemp("trace1_host")
+    return {w: trace1.bind(cubuild.host_library(
+        "trace1", out, {"TRACE1_LANES": w})) for w in LANES}
 
 
-def _host(lib, tabs, o, d, t_max, any_hit=False, amask=0, time=None):
-    return trace1._launch_kernel(tabs, *_t3(o, d, t_max), any_hit, False,
-                                 amask, time=time, host_lib=lib)[:2]
+def _host(lib, tabs, o, d, t_max, any_hit=False, amask=0, time=None,
+          counters=False):
+    t, k, cnt = trace1._launch_kernel(tabs, *_t3(o, d, t_max), any_hit,
+                                      counters, amask, time=time,
+                                      host_lib=lib)
+    return (t, k, cnt) if counters else (t, k)
 
 
 @pytest.mark.parametrize("mode", ["static", "big", "motion", "inst",
                                   "amask1", "amask2"])
-def test_torch_trace1_kernel_source_matches_plain(host_lib, mode):
-    """The CUDA kernel's traversal (front-to-back buffer with rescans, the
-    instance transform, the motion shift, the mask modes, the any-hit
-    exit) equals the plain version: the same keys (-2 = solid), bit-equal
-    t, 0 flips."""
-    n = 500
+@pytest.mark.parametrize("w", LANES)
+def test_torch_trace1_kernel_source_matches_plain(host_libs, w, mode):
+    """The CUDA kernel's group walk (the coarse front with its refills and
+    union expansions, W lanes per block, the instance transform, the
+    motion shift, the mask modes, the any-hit vote) equals the plain
+    version at W lanes per ray: the same keys (-2 = solid), bit-equal t,
+    0 flips (fewer rays for the threaded build: its barriers are slow)."""
+    n = 500 if w == 1 else 300
     spread = 18.0 if mode == "big" else 6.0
     o, d, t_max = _rays(52, n, spread)
+    t_max[::23] = 0.0                                 # dead lanes
     kw, amask = {}, 0
+    # the small sets in blocks of 32 (the kernel takes any K): >= 9 unions
+    bk = None if mode == "big" else 32
     if mode == "inst":
-        ta, _ = trace1.build_tri_blocks_inst(*_inst_args(11))
+        ta, _ = trace1.build_tri_blocks_inst(*_inst_args(11), block_k=bk)
     elif mode in ("amask1", "amask2"):
         tri_v, uvs = _alpha_cards(51, 1500)
-        ta, _ = trace1.build_tri_blocks(tri_v, tri_mask=_card_masks(uvs))
+        ta, _ = trace1.build_tri_blocks(tri_v, tri_mask=_card_masks(uvs),
+                                        block_k=bk)
         amask = int(mode[-1])
     else:
         nt = 60000 if mode == "big" else 3000
@@ -337,17 +351,99 @@ def test_torch_trace1_kernel_source_matches_plain(host_lib, mode):
                 0, 1, (nt, 3)).astype(np.float32), shutter=(0.0, 1.0))
             kw = dict(time=torch.from_numpy(np.random.default_rng(3).uniform(
                 0, 1, n).astype(np.float32)))
-        ta, _ = trace1.build_tri_blocks(tri_v, **bkw)
+        ta, _ = trace1.build_tri_blocks(tri_v, block_k=bk, **bkw)
     tabs = _T(ta)
+    assert tabs["pk_cbox"].shape[0] >= 9        # several unions
     pt, pk = trace1._plain_slots(tabs, *_t3(o, d, t_max), amask=amask, **kw)
-    ht, hk = _host(host_lib, tabs, o, d, t_max, amask=amask, **kw)
+    ht, hk = _host(host_libs[w], tabs, o, d, t_max, amask=amask, **kw)
     assert (pk >= 0).sum() > 50
     if amask == 2:
         assert (pk == -2).sum() > 50
     assert torch.equal(hk, pk) and torch.equal(ht, pt)
     if not amask:
-        _, hk_any = _host(host_lib, tabs, o, d, t_max, any_hit=True, **kw)
+        _, hk_any = _host(host_libs[w], tabs, o, d, t_max, any_hit=True, **kw)
         assert torch.equal(hk_any >= 0, pk >= 0)
+
+
+def test_torch_trace1_coarse_tables():
+    """The unions K2's front walks on world tables are the JAX package's
+    pk_sblk_lo / pk_sblk_hi (8 consecutive blocks); an instanced table's
+    unions (SAH neighbours among its expanded blocks) partition the
+    blocks, list them ascending, bound them exactly, and are tighter
+    than 8 consecutive expanded blocks."""
+    tri_v = _soup(21, 9000)
+    ja, _ = jt1.build_tri_blocks(tri_v)
+    ta, _ = trace1.build_tri_blocks(tri_v)
+    m = ta["pk_blkbox"].shape[0]
+    box = ta["pk_cbox"]
+    assert box.shape == (-(-m // 8), 8) and box.shape[0] >= 2
+    np.testing.assert_array_equal(box[:, 0:3], ja["pk_sblk_lo"])
+    np.testing.assert_array_equal(box[:, 4:7], ja["pk_sblk_hi"])
+    np.testing.assert_array_equal(ta["pk_cmem"].ravel()[:m], np.arange(m))
+    np.testing.assert_array_equal(ta["pk_cgrp"], np.arange(m) // 8)
+    ti, _ = trace1.build_tri_blocks_inst(*_inst_args(22, n_inst=80),
+                                         block_k=128)
+    mem, grp, box = ti["pk_cmem"], ti["pk_cgrp"], ti["pk_cbox"]
+    m = ti["pk_blkbox"].shape[0]
+    real = mem[mem >= 0]
+    assert sorted(real.tolist()) == list(range(m)) and m > 64
+    assert (np.diff(np.where(mem < 0, m + np.arange(8), mem), axis=1)
+            > 0).all()                                # ascending, pad last
+    np.testing.assert_array_equal(grp[real], np.nonzero(mem >= 0)[0])
+    np.testing.assert_array_equal(box[:, 3].view(np.int32), mem[:, 0])
+    lo = np.where((mem >= 0)[..., None], ti["pk_blkbox"][mem, 0:3], np.inf)
+    hi = np.where((mem >= 0)[..., None], ti["pk_blkbox"][mem, 4:7], -np.inf)
+    np.testing.assert_array_equal(box[:, 0:3], lo.min(1))
+    np.testing.assert_array_equal(box[:, 4:7], hi.max(1))
+    vol = np.prod(box[:, 4:7] - box[:, 0:3], axis=1).sum()
+    cons = trace1.coarse_tables(ti["pk_blk_lo"], ti["pk_blk_hi"])["pk_cbox"]
+    assert vol < np.prod(cons[:, 4:7] - cons[:, 0:3], axis=1).sum()
+
+
+@pytest.mark.parametrize("kind", ["plain", "instanced"])
+def test_torch_trace1_union_entry_bounds_members(kind):
+    """The two facts that make K2's coarse front exact, under the kernel's
+    slab arithmetic (trace2.slab_entries): a union's entry is <= the
+    entry of each member block that is entered, and an entered block has
+    its union entered, for every ray and bound."""
+    from pathtracing_tpu_torch.accel.trace2 import slab_entries
+    from pathtracing_tpu_torch.scene.intersect import _inv_guard
+    if kind == "plain":
+        tabs = _T(trace1.build_tri_blocks(_soup(23, 20000, 6.0, 0.6))[0])
+    else:
+        tabs = _T(trace1.build_tri_blocks_inst(*_inst_args(24, n_inst=80),
+                                               block_k=128)[0])
+    o, d, t_max = _t3(*_rays(25, 3000, 6.0))
+    em = slab_entries(tabs["pk_blkbox"], o, _inv_guard(d), t_max)
+    eu = slab_entries(tabs["pk_cbox"], o, _inv_guard(d), t_max)
+    eu = eu[:, tabs["pk_cgrp"].to(torch.int64)]     # each block's union
+    entered = em < BIG_F32
+    assert tabs["pk_cbox"].shape[0] >= 9 and entered.sum() > 1000
+    assert (eu[entered] < BIG_F32).all()
+    assert (eu[entered] <= em[entered]).all()
+    assert (eu < BIG_F32).sum() > entered.sum()      # the unions are coarser
+
+
+@pytest.mark.parametrize("w", LANES)
+def test_torch_trace1_kernel_counters(host_libs, w):
+    """counters is [N, 5]: front refills, blocks visited, leaf blocks (the
+    same), mask lookups, and top-level slab tests, the fifth at most
+    refills x M (the flat scan's count) and below it in sum; the visited
+    blocks are the touched ones."""
+    tri_v = _soup(31, 9000)
+    tabs = _T(trace1.build_tri_blocks(tri_v)[0])
+    m = tabs["pk_blkbox"].shape[0]
+    o, d, t_max = _rays(53, 300)
+    t, k, cnt = _host(host_libs[w], tabs, o, d, t_max, counters=True)
+    c = cnt["counters"]
+    assert c.shape == (300, 5) and c.dtype == torch.int32
+    assert torch.equal(c[:, 1], c[:, 2]) and not c[:, 3].any()
+    live = torch.from_numpy(t_max) > 0
+    assert (c[live, 0] >= 1).all() and (c[live, 4] >= 1).all()
+    assert (c[:, 4] <= c[:, 0] * m).all()
+    assert int(c[:, 4].sum()) < int((c[:, 0] * m).sum())
+    assert int(cnt["blocks_touched"].sum()) > 0 and (c[:, 1] > 0).any()
+    assert torch.equal(k, trace1._plain_slots(tabs, *_t3(o, d, t_max))[1])
 
 
 # ---------------------------------------------------------------------------
