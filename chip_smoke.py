@@ -85,6 +85,22 @@ device summary only when every phase passed):
      PT_WINDOW=4 (the multipass driver on the mask-free opaque passes, the
      window walk on the alpha passes); its rays per sample, image mean and
      iterations are printed beside phase 5's;
+  5c. [grad] gradients through the renderer: (a) on tests/test_regen_diff.py's
+     scene with a textured floor at 96x72, depth 5, the mat_base and texel
+     gradients of the regenerating form (trace_regen_diff) and the scan
+     form on the card against the port's CPU gradients, relative max-abs
+     error <= GRAD_REL_TOL, and the card's gradients of another sampler
+     seed must read above it (the gate tells a fault); (b) the faithful
+     frame (still phase 5's scene) fwd+bwd with respect to mat_base
+     (tools/bench_grad.py): the regenerating form at depths 8 and 64
+     (65,536 lanes) and the scan form at depth 8 with compact_after=3, one
+     timed run each, with samples/s, the fwd+bwd / plain forward ratio,
+     peak memory, bytes kept per lane per iteration, the forward / backward
+     split, K1 / K2 launches forward and backward (the backward
+     must launch none), finite nonzero gradients, and the recording
+     forward's radiance bit-equal to trace_regen's (every queue group at
+     depth 8, the first at depth 64); with --sections, both regenerating
+     runs once more with a timer around each section of the backward;
   8. path D: spheres_medium at 1920x1080, integrator="volpath", depth 64,
      1 spp, regenerate=True (its own five analytic prims: no kernel; the
      volpath kernel launches come from phase 3's small renders of a medium
@@ -125,7 +141,7 @@ from pathlib import Path
 RES = (1920, 1080)          # both paths: San-Miguel analog at 1080p,
 N_TRIS = 10_500_000         # 10.5M-triangle terrain;
 DEPTH = 32                  # the legacy path's depth,
-DEPTH_FAITHFUL = 64         # the faithful path's
+DEPTH_FAITHFUL = 64         # the faithful path's and path D's,
 FOLIAGE = 2500              # shrub instances (96 alpha triangles each)
 N_TRIS_SMALL = 60_000       # path B: the courtyard at the size of one
 FOLIAGE_SMALL = 600         # imported model, on the single-level kernel
@@ -140,6 +156,13 @@ MASK_BYTES = 32             # mask words of one slot
 MXU_POST_FLOPS = 14         # K4: post-processing of one (ray, triangle) pair
 MULTIPASS = (16, 8, 8)      # path C's PT_MULTIPASS schedule
 LEAF_K2, LEAF_ITERS = 256, 2000    # K4's defaults (the JAX tool's)
+GRAD_PROBE_RES = (96, 72)   # [grad] a: card against CPU gradients
+# card against CPU gradients, relative max-abs error: sound readings are
+# ~2e-7; the gradient of other samples (sampler seed 10 for 9), a fault
+# that decorrelates every path, reads ~2e-2 (both printed each run)
+GRAD_REL_TOL = 1e-4
+GRAD_SCAN_DEPTH = 8         # [grad] b: the scan form's depth and tail
+GRAD_COMPACT = 3            # compaction (bench.py's BENCH_BWD_COMPACT)
 # K1 schedules held against the window=1, pops=1 walk (results must not
 # change) and the visit caps held against the plain capped walk
 SCHEDULES = (dict(window=2, pops=4), dict(window=4, pops=8),
@@ -1200,6 +1223,213 @@ def _medium_mesh_scene(two_level, window=None, device="cpu"):
         builder_mod.TWOLEVEL_MIN = saved
 
 
+def _grad_probe_scene(device):
+    """tests/test_regen_diff.py's scene (a floor, a rough diffuse and a
+    metal sphere, a one-sided area light, a sky) with its floor textured
+    (an 8x8 texture drawn from a seed), so texel gradients are held too."""
+    import math
+    import numpy as np
+    from pathtracing_tpu_torch import SceneBuilder
+    b = SceneBuilder()
+    tid = b.textures.add_image(np.random.default_rng(7).uniform(
+        0.2, 0.9, (8, 8, 3)).astype(np.float32))
+    b.add_quad([-8, 0, -8], [16, 0, 0], [0, 0, 16],
+               material=b.add_diffuse((0.65, 0.6, 0.55), base_tex=tid))
+    b.add_sphere([0, 1, 0], 1.0,
+                 material=b.add_diffuse((0.5, 0.3, 0.25), roughness=0.6))
+    b.add_sphere([2.2, 0.8, -1.0], 0.8,
+                 material=b.add_conductor((0.9, 0.7, 0.4)))
+    b.add_quad([-1, 4, -1], [2, 0, 0], [0, 0, 2],
+               emission=(14.0, 12.0, 10.0), one_sided=True)
+    b.add_uniform_inf_light((0.3, 0.4, 0.55))
+    b.set_camera([0, 2.5, -7], [0, 1, 0], math.radians(45), GRAD_PROBE_RES)
+    return b.build(device=device)
+
+
+_GRAD_NAMES = ("mat_base", "tex_texels")
+
+
+def _probe_cfg(seed):
+    from pathtracing_tpu_torch import RenderConfig, SamplerConfig
+    return RenderConfig(spp=1, max_depth=5, integrator="path",
+                        sampler=SamplerConfig(x_samples=4, y_samples=2,
+                                              seed=seed))
+
+
+def _probe_regen_grads(scene, cam, meta, cfg, device):
+    """The probe's gradients through trace_regen_diff (two waves, half as
+    many lanes as pixels), one CPU tensor per name of _GRAD_NAMES."""
+    import torch
+    from pathtracing_tpu_torch.integrators.regen_diff import trace_regen_diff
+    w, h = cam["resolution"]
+    pix = torch.arange(w * h, device=device)
+    leaves = {k: scene[k].clone().requires_grad_() for k in _GRAD_NAMES}
+    trace_regen_diff(dict(scene, **leaves), cam, meta, cfg, pix, 2, 0,
+                     lanes=w * h // 2, device=device).sum().backward()
+    return [leaves[k].grad.cpu() for k in _GRAD_NAMES]
+
+
+def _rel_err(got, ref):
+    return float((got - ref).abs().max()) / float(ref.abs().max())
+
+
+def _grad_parity(dev):
+    """[grad] a: the probe scene's mat_base and texel gradients on the card
+    against the port's CPU gradients (which the CPU tests hold to the JAX
+    package), through the regenerating form and the scan form (one trace
+    per wave).  The gate must also tell a fault: the card's regenerating
+    gradients of other samples (sampler seed 10) must read above
+    GRAD_REL_TOL against the CPU's of seed 9."""
+    import dataclasses
+    import torch
+    from pathtracing_tpu_torch.integrators.path import trace
+    from pathtracing_tpu_torch.sensor.camera import camera_lanes
+    cfg = _probe_cfg(9)
+    scan_cfg = dataclasses.replace(cfg, differentiable=True)
+    names = _GRAD_NAMES
+    got = {}
+    for device in ("cpu", dev):
+        t0 = time.perf_counter()
+        scene, cam, meta = _grad_probe_scene(device)
+        w, h = cam["resolution"]
+        pix = torch.arange(w * h, device=device)
+        regen = _probe_regen_grads(scene, cam, meta, cfg, device)
+        leaves = {k: scene[k].clone().requires_grad_() for k in names}
+        for wave in range(2):
+            px, py = pix % w, pix // w
+            sidx = torch.full_like(pix, wave)
+            o, d, tm, _ = camera_lanes(cam, cfg.sampler, px, py, sidx)
+            trace(dict(scene, **leaves), cam, meta, scan_cfg, o, d, tm, px,
+                  py, sidx, device=device).sum().backward()
+        scan = [leaves[k].grad.cpu() for k in names]
+        got[str(device)] = dict(regen=regen, scan=scan)
+        print(f"[grad] probe {w}x{h} depth {cfg.max_depth} on {device}: "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+    for form in ("regen", "scan"):
+        for name, g_card, g_cpu in zip(names, got[str(dev)][form],
+                                       got["cpu"][form]):
+            scale = float(g_cpu.abs().max())
+            err = _rel_err(g_card, g_cpu)
+            ok = bool(torch.isfinite(g_card).all()) and scale > 0 \
+                and err <= GRAD_REL_TOL
+            print(f"[grad] card vs cpu {form} d(sum)/d({name}): relative "
+                  f"max-abs error {err:.3e} (tolerance {GRAD_REL_TOL:g}), "
+                  f"max |grad| {scale:.4g}: {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"card {form} gradients of {name} "
+                                   f"disagree with the CPU's")
+    scene, cam, meta = _grad_probe_scene(dev)
+    other = _probe_regen_grads(scene, cam, meta, _probe_cfg(10), dev)
+    for name, g_other, g_cpu in zip(names, other, got["cpu"]["regen"]):
+        err = _rel_err(g_other, g_cpu)
+        print(f"[grad] a fault's reading: card regen d(sum)/d({name}) of "
+              f"sampler seed 10 against the CPU's of seed 9: relative "
+              f"max-abs error {err:.3e} (must exceed {GRAD_REL_TOL:g}): "
+              f"{'ok' if err > GRAD_REL_TOL else 'FAIL'}", flush=True)
+        if not err > GRAD_REL_TOL:
+            raise RuntimeError(f"the [grad] gate does not tell other "
+                               f"samples' gradients of {name} from a match")
+
+
+def _same_outputs(label, outs, ref_outs):
+    """The recording forward's radiance against trace_regen's, group by
+    group: bit-equal or a failure."""
+    import torch
+    same = [bool(torch.equal(a, b)) for a, b in zip(outs, ref_outs)]
+    diff = max(float((a - b).abs().max()) for a, b in zip(outs, ref_outs))
+    print(f"[grad] recording forward vs trace_regen, {label}: "
+          f"{sum(same)} of {len(same)} queue groups bit-equal (max |diff| "
+          f"{diff:.3e})", flush=True)
+    if not all(same):
+        raise RuntimeError(f"the recording forward ({label}) is not "
+                           f"trace_regen's")
+
+
+def _grad_frames(scene, cam, meta, frame_s, frame_launches, sections):
+    """[grad] b: fwd+bwd of the faithful frame with respect to mat_base:
+    the regenerating form at depths 8 and DEPTH_FAITHFUL, the scan form at
+    GRAD_SCAN_DEPTH with compact_after=GRAD_COMPACT; one timed run each, no
+    warm run (eager PyTorch compiles nothing, and the kernels are built
+    and warm from the earlier phases), no timer inside a backward pass.
+    The fwd+bwd / forward ratios divide by the plain regenerating forward
+    over the same queue groups at depth 8 (timed here) and by the faithful
+    frame's render at DEPTH_FAITHFUL (frame_s, phase 5; frame_launches its
+    K1 + K2 launches).  The recording forward's radiance is held to
+    trace_regen's: every group at depth 8, the first group at
+    DEPTH_FAITHFUL.  sections: run both regenerating forms once more with
+    a synchronized timer around each section of the backward pass, and
+    print its split into shade replay and autograd.grad."""
+    from pathtracing_tpu_torch.tools import bench_grad as bg
+    w, h = cam["resolution"]
+    plain = bg.regen_forward(scene, cam, meta, 8)
+    print(f"[grad] plain regenerating forward d8 (trace_regen over the same "
+          f"queue groups): {plain['seconds']:.2f}s, K1/K2 launches by group "
+          f"{plain['launches']}", flush=True)
+    runs = [("regen d8", plain["seconds"],
+             lambda: bg.fwd_bwd_regen(scene, cam, meta, 8)),
+            (f"regen d{DEPTH_FAITHFUL}", frame_s,
+             lambda: bg.fwd_bwd_regen(scene, cam, meta, DEPTH_FAITHFUL)),
+            (f"scan d{GRAD_SCAN_DEPTH} compact_after={GRAD_COMPACT}",
+             plain["seconds"],
+             lambda: bg.fwd_bwd_frame(scene, cam, meta, GRAD_SCAN_DEPTH,
+                                      GRAD_COMPACT))]
+    out = {}
+    for label, fwd_s, fn in runs:
+        _reset_counts()
+        r = fn()
+        modes = {k: v for k, v in _launch_counts().items() if v}
+        per = r.get("bytes_per_lane_iter", r.get("bytes_per_lane_bounce"))
+        unit = "iteration" if "bytes_per_lane_iter" in r else \
+            "bounce (memory held by a tile's forward)"
+        extra = {k: r[k] for k in ("iterations", "rays_per_sample", "groups",
+                                   "launches_fwd_by_group", "tiles",
+                                   "tile_rows", "fwd_s", "bwd_s",
+                                   "backward_replay_s", "backward_grad_s")
+                 if r.get(k) is not None}
+        print(f"[grad] faithful {w}x{h} fwd+bwd {label}: timed "
+              f"{r['seconds']:.2f}s, camera samples/s "
+              f"{r['samples_per_s']:.1f}, fwd+bwd / plain forward "
+              f"{r['seconds'] / fwd_s:.3f}, "
+              f"peak memory {(r['peak_bytes'] or 0) / 2**30:.3f} GiB, "
+              f"{per or 0:.1f} B per lane per {unit}, K1/K2 launches forward "
+              f"{r['launches_fwd']} backward {r['launches_bwd']} (by kernel "
+              f"and mode {modes}), gradients finite {r['finite']}, {extra}",
+              flush=True)
+        if not r["finite"]:
+            raise RuntimeError(f"{label}: a gradient is not finite")
+        if any(r["launches_bwd"].values()):
+            raise RuntimeError(f"{label}: the backward pass launched a "
+                               f"traversal kernel")
+        _need(modes, [f"trace2[{m}]" for m in ("closest", "any_hit", "amask1",
+                                               "amask2")], label)
+        if not float(r["grad"].abs().sum()) > 0:
+            raise RuntimeError(f"{label}: the gradient is zero")
+        out[label] = r
+    _same_outputs("d8, the whole frame", out["regen d8"]["outs"],
+                  plain["outs"])
+    deep = out[f"regen d{DEPTH_FAITHFUL}"]
+    first = bg.regen_forward(scene, cam, meta, DEPTH_FAITHFUL, n_groups=1)
+    _same_outputs(f"d{DEPTH_FAITHFUL}, the first group", deep["outs"][:1],
+                  first["outs"])
+    print(f"[grad] recording forward d{DEPTH_FAITHFUL}: "
+          f"{sum(deep['launches_fwd'].values())} K1/K2 launches, the "
+          f"faithful frame's render {frame_launches}; first group "
+          f"{deep['launches_fwd_by_group'][0]} against trace_regen's "
+          f"{first['launches'][0]}", flush=True)
+    if not sections:
+        return out
+    for depth in (8, DEPTH_FAITHFUL):
+        r = bg.fwd_bwd_regen(scene, cam, meta, depth, sections=True)
+        print(f"[sections] fwd+bwd regen d{depth} with a synchronized timer "
+              f"per backward section: {r['seconds']:.2f}s (forward "
+              f"{r['fwd_s']:.2f}s, backward {r['bwd_s']:.2f}s: shade replay "
+              f"{r['backward_replay_s']:.2f}s, autograd.grad "
+              f"{r['backward_grad_s']:.2f}s), gradients finite "
+              f"{r['finite']}", flush=True)
+    return out
+
+
 class _Tee:
     """stdout that also lands in a file, so a long output is kept whole."""
 
@@ -1227,7 +1457,9 @@ def main() -> int:
     ap.add_argument("--sections", action="store_true",
                     help="also render one more faithful frame with a timer "
                     "and a device synchronize around each section of the "
-                    "bounce loop, and print each section's share")
+                    "bounce loop, and print each section's share; and run "
+                    "the [grad] phase's regenerating fwd+bwd once more with "
+                    "a timer around each section of the backward pass")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1611,6 +1843,14 @@ def main() -> int:
     if not (abs(mpw["rays_per_sample"] / flat["rays_per_sample"] - 1) < 0.02
             and abs(mpw["mean"] / flat["mean"] - 1) < 0.02):
         raise RuntimeError("path C does not land beside the flattened frame")
+
+    # ---- 5c. [grad] gradients through the renderer: the probe scene on
+    # the card against the CPU, then the faithful frame's fwd+bwd
+    _grad_parity(dev)
+    _grad_frames(scene, cam, meta, flat["seconds"],
+                 sum(faithful.get(f"{mod.__name__.split('.')[-1]}[{m}]", 0)
+                     for mod in (trace2, trace1) for m in mod.MODES),
+                 args.sections)
     del scene
 
     # ---- 6. path A: the foliage kept as run-time instances

@@ -45,6 +45,10 @@ def _sel(c, a, b):
             torch.where(c, a[2], b[2]))
 
 
+def _detached(a):
+    return (a[0].detach(), a[1].detach(), a[2].detach())
+
+
 # ---------------------------------------------------------------------------
 # Fresnel
 # ---------------------------------------------------------------------------
@@ -202,7 +206,9 @@ def _diffuse_sample(mat, g, u, uv2):
     prob = _diffuse_sample_prob(roughness)
     wo = sto_local(t, b, n, *_neg(g["rd"]))
     take_spec = u >= prob
-    wh_s = _ggx_sample_vndf(wo, alpha, uv2[..., 0], uv2[..., 1])
+    # detached sampling: the sampled half-vector is a constant for
+    # autograd; f and pdf stay differentiable in roughness through D / G
+    wh_s = _detached(_ggx_sample_vndf(wo, alpha, uv2[..., 0], uv2[..., 1]))
     wi_s = sreflect(*_neg(wo), *wh_s)
     wi_d = _cosine_sample_hemisphere(uv2)
     wh_d = ssafe_normalize(wo[0] + wi_d[0], wo[1] + wi_d[1],
@@ -289,8 +295,8 @@ def _dielectric_sample(mat, g, u, uv2):
     flags_smooth = torch.full_like(u, FLAG_TRANSMISSIVE | FLAG_SPECULAR,
                                    dtype=torch.int32)
 
-    # ---- rough path
-    wh = _ggx_sample_vndf(wo, alpha, uv2[..., 0], uv2[..., 1])
+    # ---- rough path; wh detached (see _diffuse_sample)
+    wh = _detached(_ggx_sample_vndf(wo, alpha, uv2[..., 0], uv2[..., 1]))
     f_r = fresnel_dielectric(_dot(wo, wh), 1.0 / eta)
     r_r = f_r
     t_r = 1.0 - r_r
@@ -454,7 +460,11 @@ ALL_MATS = (True, True, True, True)
 def bsdf_sample(mat, ray_dir, it, u, uv2, present=ALL_MATS):
     """Material scatter for every lane.  `present` statically skips the
     material models absent from the scene.  Returns
-    (wi [N,3], f [N,3], pdf, flags, valid, origin [N,3])."""
+    (wi [N,3], f [N,3], pdf, flags, valid, origin [N,3]).  The sampling
+    decisions are detached (u, uv2, wi, origin); f and pdf stay
+    differentiable in the material parameters."""
+    u = u.detach()
+    uv2 = uv2.detach()
     g = _geom(ray_dir, it)
     fns = [_diffuse_sample, _dielectric_sample, _thin_sample,
            _conductor_sample]
@@ -478,7 +488,7 @@ def bsdf_sample(mat, ray_dir, it, u, uv2, present=ALL_MATS):
     if out is None:
         out = list(_diffuse_sample(mat, g, u, uv2))
     wi3, f, pdf, flags, valid, origin = out
-    return pack3(*wi3), f, pdf, flags, valid, origin
+    return pack3(*wi3).detach(), f, pdf, flags, valid, origin.detach()
 
 
 def bsdf_eval_pdf(mat, ray_dir, it, wi_world, present=ALL_MATS):

@@ -27,11 +27,15 @@ def medium_sample(sigma_t, sigma_s, t_max, u_channel, u_dist):
       scattered  True where a real scattering event falls before t_max;
       t_scatter  the sampled distance, min(dist, t_max);
       weight     the throughput factor, tr * sigma_s / pdf (scatter) or
-                 tr / pdf (passed through)."""
+                 tr / pdf (passed through).
+    The sampling decisions (channel, distance) are detached; the weight
+    stays differentiable in sigma_t and sigma_s."""
+    u_channel = u_channel.detach()
+    u_dist = u_dist.detach()
     channel = torch.clamp((u_channel * 3.0).to(torch.int64), max=2)
     sig_c = torch.gather(sigma_t, -1, channel[..., None])[..., 0]
     sig_c = torch.clamp(sig_c, min=1e-18)
-    dist = -flog(torch.clamp(1.0 - u_dist, min=1e-18)) / sig_c
+    dist = (-flog(torch.clamp(1.0 - u_dist, min=1e-18)) / sig_c).detach()
     scattered = dist < t_max
     t_scatter = torch.minimum(dist, t_max)
     tr = medium_tr(sigma_t, t_scatter)

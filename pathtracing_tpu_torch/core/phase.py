@@ -24,7 +24,8 @@ def hg_pdf(w_in, w_out, g):
 
 def hg_sample(w_in, g, uv):
     """Sample an outgoing direction around the incoming one (local +z is
-    w_in); returns (w_out, pdf)."""
+    w_in); returns (w_out, pdf).  The direction is detached (detached
+    sampling); the pdf, the phase value, stays differentiable in g."""
     u0, u1 = uv[..., 0], uv[..., 1]
     iso = torch.abs(g) < 1e-3
     cos_iso = 1.0 - 2.0 * u0
@@ -39,4 +40,4 @@ def hg_sample(w_in, g, uv):
     t, b = sonb_from_normal(*n)
     w_out = safe_normalize(torch.stack(sto_world(t, b, n, lx, ly, cos_theta),
                                        -1))
-    return w_out, phase_hg(cos_theta, g)
+    return w_out.detach(), phase_hg(cos_theta.detach(), g)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device, to_device
 from ..core.math import BIG_F32, SHADOW_EPS
@@ -56,8 +57,19 @@ _REHIT_T = 1e-4
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Same fields as the reference package's RenderConfig.  Not in this
-    package yet: differentiable=True and compact_after (they raise)."""
+    """Same fields as the reference package's RenderConfig.
+
+    differentiable=True makes `trace` (and so `render_tile`) the scan form:
+    exactly max_depth bounces, no early exit, gradients through autograd to
+    the material, texture, light and medium arrays (sampling and geometry
+    are detached).  remat=True runs each of its bounces under
+    torch.utils.checkpoint with the traversal outputs kept, so the backward
+    pass recomputes the shade math only and launches no traversal kernel.
+    With regenerate=True as well, `render` drains its queues through
+    regen_diff.trace_regen_diff (the recording wavefront); volpath keeps
+    the scan form.  compact_after=c: after c bounces, on batches of 4,096
+    lanes or more, the surviving lanes continue in a quarter-width batch
+    (both forms of `trace`; the regenerating tracer ignores it)."""
     spp: int = 16
     max_depth: int = 8
     integrator: str = "path"        # simple | path | volpath
@@ -66,9 +78,9 @@ class RenderConfig:
     filter: FilterConfig = mitchell()
     rr_start: int = 3               # Russian roulette after this many scatters
     rays_per_batch: int = 1 << 16   # lanes in flight per batch
-    differentiable: bool = False
-    remat: bool = True
-    compact_after: int | None = None
+    differentiable: bool = False    # the scan form (gradients)
+    remat: bool = True              # checkpoint each bounce of the scan form
+    compact_after: int | None = None    # tail compaction (None: off)
     regenerate: bool = False        # persistent wavefront (trace_regen)
 
 
@@ -79,10 +91,6 @@ def _check_cfg(cfg: RenderConfig, meta):
             "textures)")
     if cfg.integrator not in ("path", "simple", "volpath"):
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
-    if cfg.differentiable:
-        raise NotImplementedError("differentiable rendering is not ported yet")
-    if cfg.compact_after is not None:
-        raise NotImplementedError("tail compaction is not ported yet")
 
 
 def resolve_material(scene, meta, it):
@@ -177,7 +185,7 @@ def transmittance(scene, meta, origin, direction, dist, medium, active,
 def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
               alpha_salt, active, occ_stats=None, time=None,
               is_medium_vertex=None, medium=None, g_lanes=None,
-              volumetric: bool = False):
+              volumetric: bool = False, occ=None, want_occ: bool = False):
     """One-light next-event estimate.  alpha_salt keys the shadow
     predicate's BLEND random numbers; occ_stats is handed to it
     (scene/intersect.py::_occluded); time [N] is the rays' shutter time
@@ -186,9 +194,12 @@ def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
     vertices, which take the HG phase function (asymmetry g_lanes) in
     place of the BSDF and no backface rejection; shadow rays march through
     the medium boundaries from `medium` (transmittance) in place of the
-    shadow predicate."""
+    shadow predicate.  occ [N] bool: recorded shadow-predicate results to
+    use in place of the predicate (the replaying bounce); want_occ=True
+    returns (contribution, occ) so a recording bounce can keep them."""
     if meta.n_lights == 0:
-        return torch.zeros_like(ray_dir)
+        z = torch.zeros_like(ray_dir)
+        return (z, torch.zeros_like(active)) if want_occ else z
 
     lidx, pmf, lvalid = L.sample_light_index(scene, meta, u_select)
     ref_p = it["p"]
@@ -229,8 +240,13 @@ def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
                                     medium, active, time)
         vis = ~blocked
     else:
-        vis = ~_occluded(scene, meta, ref_p, sdir, t_shadow,
-                         rand_key=alpha_salt, stats=occ_stats, time=time)
+        if occ is None:
+            # the predicate's inputs are detached: its result is boolean,
+            # and a recording bounce saves nothing for autograd in it
+            occ = _occluded(scene, meta, ref_p, sdir.detach(),
+                            t_shadow.detach(), rand_key=alpha_salt,
+                            stats=occ_stats, time=time)
+        vis = ~occ
 
     l_val = L.light_sample_L(scene, meta, lidx, ls, sdir)
     shape_pdf = L.light_sample_pdf(scene, meta, lidx, ls, ref_p, sdir)
@@ -246,7 +262,10 @@ def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
                                       0.0))
     if tr is not None:
         contrib = tr * contrib
-    return torch.where((active & vis)[:, None], contrib, 0.0)
+    out = torch.where((active & vis)[:, None], contrib, 0.0)
+    if want_occ:
+        return out, (torch.zeros_like(active) if occ is None else occ)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -254,14 +273,25 @@ def sample_ld(scene, meta, cfg, ray_dir, it, mat, u_select, uv_light, u_cell,
 # ---------------------------------------------------------------------------
 
 def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
-                 occ_stats=None):
+                 occ_stats=None, record: bool = False, replay=None):
     """One-bounce step for a bound lane set (time [n]: each lane's shutter
     time, used only on a moving scene).  `bounce(state, b)` advances
     every lane one bounce; b is an int or a per-lane [n] tensor (trace_regen,
     where each lane sits at its own depth).  occ_stats (a dict) accumulates
-    the shadow predicate's "calls" and "restarts"."""
+    the shadow predicate's "calls" and "restarts".
+
+    record=True makes `bounce` return (state, aux), aux the traversal
+    outputs {hit_t, hit_kind, hit_idx, hit_valid, occ}; replay=aux runs
+    the shade math only, with those outputs in place of the closest-hit
+    pass and the shadow predicate (no traversal, no kernel launch).
+    Sampling and shading are deterministic, so a replay recomputes the
+    recorded bounce exactly.  Media are refused in both modes (volpath's
+    transmittance marches are traversals of their own)."""
     simple = cfg.integrator == "simple"
     volumetric = cfg.integrator == "volpath"
+    if volumetric and (record or replay is not None):
+        raise NotImplementedError("recording / replaying bounces do not "
+                                  "support media (volpath)")
     media = volumetric and meta.n_media > 0
     s = cfg.sampler
     present = meta.mats_present
@@ -276,9 +306,13 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
         radiance = state["radiance"]
         n_rays = state["n_rays"] + alive.sum()
 
-        # dead lanes get t_max = 0: they miss and cost the kernel nothing
-        hit = _intersect(scene, meta, o, d, torch.where(alive, BIG_F32, 0.0),
-                         time)
+        if replay is not None:
+            hit = dict(t=replay["hit_t"], kind=replay["hit_kind"],
+                       idx=replay["hit_idx"], valid=replay["hit_valid"])
+        else:
+            # dead lanes get t_max = 0: they miss and cost the kernel nothing
+            hit = _intersect(scene, meta, o, d,
+                             torch.where(alive, BIG_F32, 0.0), time)
         it = make_interaction(scene, meta, o, d, hit, time=time)
         missed = alive & ~hit["valid"]
 
@@ -405,13 +439,17 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
         new_spec = (flags & FLAG_SPECULAR) > 0
 
         # ---- NEE from the surface
+        occ_rec = None
         if not simple:
             nee_active = scattered & ~new_spec
             vkw = dict(is_medium_vertex=torch.zeros_like(nee_active),
                        **vol) if volumetric else {}
             nee = sample_ld(scene, meta, cfg, d, it, mat, u_select, uv_light,
                             u_cell, alpha_salt, nee_active, occ_stats, time,
-                            **vkw)
+                            occ=None if replay is None else replay["occ"],
+                            want_occ=record, **vkw)
+            if record:
+                nee, occ_rec = nee
             radiance = radiance + torch.where(nee_active[:, None],
                                               tput * nee, 0.0)
             n_rays = n_rays + nee_active.sum()
@@ -467,10 +505,16 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
         alive = alive & ~absorbed & ~rr_kill
         alive = alive & (did_scatter | boundary)
         alive = alive & (torch.sum(tput, dim=-1) > 0.0)
-        return dict(o=o_next, d=d_next, tput=tput, radiance=radiance,
-                    prev_pdf=new_prev_pdf, spec=spec, alive=alive,
-                    medium=medium, rr_depth=rr_depth, n_rays=n_rays,
-                    t_hit=hit["t"])
+        out = dict(o=o_next, d=d_next, tput=tput, radiance=radiance,
+                   prev_pdf=new_prev_pdf, spec=spec, alive=alive,
+                   medium=medium, rr_depth=rr_depth, n_rays=n_rays,
+                   t_hit=hit["t"])
+        if record:
+            return out, dict(hit_t=hit["t"], hit_kind=hit["kind"],
+                             hit_idx=hit["idx"], hit_valid=hit["valid"],
+                             occ=(torch.zeros_like(alive) if occ_rec is None
+                                  else occ_rec))
+        return out
 
     return bounce
 
@@ -489,18 +533,88 @@ def _fresh_state(o, d, n, medium):
                 n_rays=torch.zeros((), dtype=torch.int64, device=dev))
 
 
+def _gather(v, take):
+    """Rows `take` of a per-lane tensor; scalars and None pass."""
+    return v[take] if isinstance(v, torch.Tensor) and v.dim() else v
+
+
+def _checkpointed_bounce(make_bounce):
+    """The scan form's bounce under torch.utils.checkpoint: the forward
+    runs the recording bounce and keeps its traversal outputs; the
+    backward's recomputation replays the shade math on them, so it
+    launches no traversal kernel (the counterpart of the reference's
+    remat policy that saves the values named "traversal")."""
+    def step(state, b):
+        kept = {}
+
+        def run(st):
+            if "aux" in kept:
+                return make_bounce(replay=kept["aux"])(st, b)
+            out, kept["aux"] = make_bounce(record=True)(st, b)
+            return out
+        return checkpoint(run, state, use_reentrant=False)
+    return step
+
+
 def _trace(scene, meta, cfg, origin, direction, time, px, py, sample_idx,
            with_stats=False):
     _check_cfg(cfg, meta)
     n = origin.shape[0]
     state = _fresh_state(origin, direction, n, meta.camera_medium)
-    bounce = _make_bounce(scene, meta, cfg, px, py,
-                          time if meta.has_motion else None, sample_idx, n)
-    b = 0
-    # data-dependent loop: one host sync per bounce (the .item() below)
-    while b < cfg.max_depth and bool(state["alive"].any().item()):
-        state = bounce(state, b)
-        b += 1
+    time = time if meta.has_motion else None
+
+    def bounce_for(take=None, **kw):
+        """The bounce of every lane, or of the lanes `take` (compaction)."""
+        if take is None:
+            return _make_bounce(scene, meta, cfg, px, py, time, sample_idx,
+                                n, **kw)
+        return _make_bounce(scene, meta, cfg, px[take], py[take],
+                            _gather(time, take), _gather(sample_idx, take),
+                            take.shape[0], **kw)
+
+    def step_for(take=None):
+        if not (cfg.differentiable and cfg.remat):
+            return bounce_for(take)
+        if cfg.integrator == "volpath":
+            # volpath's marches are traversals a replay cannot inject:
+            # its backward recomputes the whole bounce
+            bounce = bounce_for(take)
+            return lambda st, b: checkpoint(bounce, st, b,
+                                            use_reentrant=False)
+        return _checkpointed_bounce(lambda **kw: bounce_for(take, **kw))
+
+    def run(state, step, b0, b1):
+        """Bounces b0 .. b1-1: all of them in the scan form, until every
+        lane is dead in the forward form (one host sync per bounce, the
+        .item() below).  Returns (state, the next bounce index)."""
+        b = b0
+        while b < b1 and (cfg.differentiable
+                          or bool(state["alive"].any().item())):
+            state = step(state, b)
+            b += 1
+        return state, b
+
+    compact = (cfg.compact_after is not None
+               and cfg.compact_after < cfg.max_depth and n >= 4096)
+    state, b = run(state, step_for(), 0,
+                   cfg.compact_after if compact else cfg.max_depth)
+    if compact:
+        # tail compaction: the (<= cap) surviving lanes, live first in a
+        # stable order, continue in a quarter-width batch and their radiance
+        # is scattered back; the RNG is keyed on (pixel, sample, bounce),
+        # so the result is the full-width one (gather and scatter are
+        # linear: gradients route back exactly)
+        cap = max(1024, -(-(n // 4) // 1024) * 1024)
+        live = state["alive"]
+        if int(live.sum().item()) <= cap:
+            take = torch.argsort((~live).to(torch.int8), stable=True)[:cap]
+            sub = {k: _gather(v, take) for k, v in state.items()}
+            sub, _ = run(sub, step_for(take), b, cfg.max_depth)
+            state = dict(state, n_rays=sub["n_rays"],
+                         radiance=state["radiance"].index_put(
+                             (take,), sub["radiance"]))
+        else:
+            state, _ = run(state, step_for(), b, cfg.max_depth)
     if with_stats:
         return state["radiance"], dict(n_rays=state["n_rays"])
     return state["radiance"]
@@ -524,26 +638,37 @@ def trace(scene, cam, meta, cfg: RenderConfig, origin, direction, time,
 # Persistent wavefront (ray regeneration)
 # ---------------------------------------------------------------------------
 
-def _trace_regen(scene, cam, meta, cfg, pixel_idx, waves, sample_offset,
-                 lanes=None, with_stats=False):
+def _queue_entries(cam, cfg, pixel_idx, sample_offset, qi):
+    """Camera state (px, py, sample index, origin, direction, time) of the
+    regeneration queue's entries `qi`: entry q is sample sample_offset +
+    q // n_pixels of pixel pixel_idx[q % n_pixels]."""
     from ..sensor.camera import camera_lanes
+    n_pix = pixel_idx.shape[0]
+    w = cam["resolution"][0]
+    pix = pixel_idx[qi % n_pix]
+    px = pix % w
+    py = pix // w
+    sidx = int(sample_offset) + qi // n_pix
+    o, d, tme, _ = camera_lanes(cam, cfg.sampler, px, py, sidx)
+    return px, py, sidx, o, d, tme
+
+
+def _trace_regen(scene, cam, meta, cfg, pixel_idx, waves, sample_offset,
+                 lanes=None, with_stats=False, records=None):
+    """The regenerating tracer (trace_regen's docstring).  records, a list,
+    makes it the recording forward of regen_diff.trace_regen_diff: each
+    iteration appends its inputs, its schedule and the traversal outputs of
+    its bounce (_make_bounce(record=True))."""
     _check_cfg(cfg, meta)
     dev = pixel_idx.device
     n_pix = pixel_idx.shape[0]
     q_total = n_pix * waves
     k = min(lanes, q_total) if lanes else n_pix
-    w = cam["resolution"][0]
-    offset = int(sample_offset)
 
     def fresh(qi):
         """Camera state for queue entries `qi` (stale lanes give garbage
         that callers mask)."""
-        pix = pixel_idx[qi % n_pix]
-        px = pix % w
-        py = pix // w
-        sidx = offset + qi // n_pix
-        o, d, tme, _ = camera_lanes(cam, cfg.sampler, px, py, sidx)
-        return px, py, sidx, o, d, tme
+        return _queue_entries(cam, cfg, pixel_idx, sample_offset, qi)
 
     motion = meta.has_motion
     qi = torch.arange(k, dtype=torch.int64, device=dev)
@@ -559,9 +684,16 @@ def _trace_regen(scene, cam, meta, cfg, pixel_idx, waves, sample_offset,
     # data-dependent loop: one host sync per iteration (the .item() below)
     while bool(st["alive"].any().item()):
         bounce = _make_bounce(scene, meta, cfg, px, py,
-                              tme if motion else None, sidx, k, occ_stats)
+                              tme if motion else None, sidx, k, occ_stats,
+                              record=records is not None)
         prev_alive = st["alive"]
-        st = bounce(st, b)
+        if records is None:
+            st = bounce(st, b)
+        else:
+            rec = _record(st, qi, b, head)
+            st, aux = bounce(st, b)
+            rec.update(_record_aux(aux), rad_ok=torch.isfinite(st["radiance"]))
+            records.append(rec)
         if with_stats:
             iterations += 1
             is_deep = prev_alive & (b >= _DEEP_BOUNCE)
@@ -607,6 +739,21 @@ def _trace_regen(scene, cam, meta, cfg, pixel_idx, waves, sample_offset,
                          iterations=iterations, deep_bounces=deep[0],
                          deep_rehits=deep[1])
     return out
+
+
+def _record(st, qi, b, head):
+    """An iteration's inputs and schedule, in the narrowest dtypes that hold
+    them (the recording forward keeps one per iteration)."""
+    return dict(o=st["o"], d=st["d"], tput=st["tput"],
+                prev_pdf=st["prev_pdf"], spec=st["spec"], alive=st["alive"],
+                rr_depth=st["rr_depth"].to(torch.int16),
+                qi=qi.to(torch.int32), b=b.to(torch.int16), head=head)
+
+
+def _record_aux(aux):
+    return dict(hit_t=aux["hit_t"], hit_kind=aux["hit_kind"].to(torch.int8),
+                hit_idx=aux["hit_idx"].to(torch.int32),
+                hit_valid=aux["hit_valid"], occ=aux["occ"])
 
 
 def trace_regen(scene, cam, meta, cfg: RenderConfig, pixel_idx, waves: int,

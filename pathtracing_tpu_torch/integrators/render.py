@@ -3,7 +3,10 @@
 The image is processed as row-aligned pixel batches x sample waves; each
 batch's samples splat into the film through the dense row-tile path
 (film.splat_rows) - no scatter.  With cfg.regenerate the batches of a few
-row tiles form one persistent-wavefront queue (path.trace_regen).
+row tiles form one persistent-wavefront queue (path.trace_regen; with
+cfg.differentiable, regen_diff.trace_regen_diff).  The film's splats are
+differentiable: gradients of a loss on the film reach the scene's
+parameter arrays.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from ..core.device import resolve_device, to_device
 from ..sensor.camera import camera_lanes, film_position
 from ..sensor import film as filmmod
 from .path import RenderConfig, _trace, _trace_regen
+from .regen_diff import _trace_regen_diff
 
 
 def render_tile(scene, cam, meta, cfg: RenderConfig, film, pixel_idx,
@@ -20,7 +24,8 @@ def render_tile(scene, cam, meta, cfg: RenderConfig, film, pixel_idx,
                 row0: int | None = None):
     """`n_samples` sample waves for one pixel batch.  When the batch covers
     whole image rows [row0, row0+rows) in row-major order the splat is the
-    dense row-tile one, else a scatter with out-of-range pixels dropped."""
+    dense row-tile one, else a scatter with out-of-range pixels dropped.
+    With cfg.differentiable each wave is the scan form of path.trace."""
     w, h = cam["resolution"]
     px = pixel_idx % w
     py = pixel_idx // w
@@ -50,19 +55,27 @@ def render_tile_regen(scene, cam, meta, cfg: RenderConfig, film, pixel_idx,
                       row0: int | None = None, lanes: int | None = None,
                       stats: dict | None = None):
     """Regenerative render of `waves` consecutive sample indices for one
-    pixel batch (one trace_regen queue drain by `lanes` lanes), then one
-    splat per wave — the film contract of render_tile.  `stats`, when
-    given, accumulates "n_rays" (closest-hit + shadow rays traced),
+    pixel batch (one trace_regen queue drain by `lanes` lanes; with
+    cfg.differentiable, trace_regen_diff's recording drain), then one splat
+    per wave — the film contract of render_tile.  `stats`, when given,
+    accumulates "n_rays" (closest-hit + shadow rays traced),
     "occluded_calls" (shadow-predicate calls on a scene with alpha
     materials), "chain_restarts" (alpha restart-chain iterations),
     "iterations" (bounce iterations of the drain), "deep_bounces" (lane
     bounces at depth 20 or more: the drain's tail) and "deep_rehits" (those
-    whose closest hit lies nearer than 1e-4)."""
+    whose closest hit lies nearer than 1e-4); with cfg.differentiable,
+    "n_rays", "iterations" and "residual_bytes" (trace_regen_diff)."""
     w, h = cam["resolution"]
     px = pixel_idx % w
     py = pixel_idx // w
-    out, st = _trace_regen(scene, cam, meta, cfg, pixel_idx, waves,
-                           sample_offset, lanes=lanes, with_stats=True)
+    if cfg.differentiable:
+        st = {}
+        out = _trace_regen_diff(scene, cam, meta, cfg, pixel_idx, waves,
+                                sample_offset, lanes=lanes, stats=st)
+        st.pop("lanes", None)
+    else:
+        out, st = _trace_regen(scene, cam, meta, cfg, pixel_idx, waves,
+                               sample_offset, lanes=lanes, with_stats=True)
     if stats is not None:
         for key, val in st.items():
             stats[key] = stats.get(key, 0) + int(val)
@@ -98,7 +111,10 @@ def render(scene, cam, meta, cfg: RenderConfig, film=None, spp=None,
     Runs on the GPU unless device="cpu".  With cfg.regenerate, `stats`
     (a dict) accumulates "n_rays", the rays traced, the shadow predicate's
     "occluded_calls" and "chain_restarts", and the drain's "iterations",
-    "deep_bounces" and "deep_rehits" (render_tile_regen)."""
+    "deep_bounces" and "deep_rehits" (render_tile_regen).  With
+    cfg.differentiable the film is differentiable in the scene's parameter
+    arrays: regenerating renders of "path" / "simple" go through
+    trace_regen_diff, volpath through the scan form (render_tile)."""
     dev = resolve_device(device)
     scene = to_device(scene, dev)
     cam = to_device(cam, dev)
@@ -113,7 +129,11 @@ def render(scene, cam, meta, cfg: RenderConfig, film=None, spp=None,
         film = filmmod.new_film(cam["resolution"], device=dev)
     else:
         film = to_device(film, dev)
-    if cfg.regenerate:
+    # the recording wavefront keeps no transmittance marches, so a
+    # differentiable volpath render takes the scan form
+    use_regen = cfg.regenerate and not (cfg.differentiable
+                                        and cfg.integrator == "volpath")
+    if use_regen:
         # queue groups of (consecutive row tiles) x (sample waves)
         g_tiles, wpg = regen_schedule(n_tiles, spp)
         t = 0

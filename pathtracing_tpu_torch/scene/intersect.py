@@ -801,7 +801,7 @@ def make_interaction(scene, meta, origin, direction, hit, time=None,
     up = p_raw.new_tensor([0.0, 0.0, 1.0]).expand_as(p_raw)
     right = p_raw.new_tensor([1.0, 0.0, 0.0]).expand_as(p_raw)
     # miss lanes: with t = BIG_F32 the hit point overflows; sanitize them
-    return dict(
+    it = dict(
         valid=ok, t=t, kind=kind, idx=hit["idx"],
         p_raw=torch.where(okn, p_raw, 0.0),
         p=torch.where(okn, pick(p_t, p_s, p_q), 0.0),
@@ -812,6 +812,10 @@ def make_interaction(scene, meta, origin, direction, hit, time=None,
         mat_id=torch.where(ok, mat_id, -1),
         light_id=torch.where(ok, pick_id(1), -1),
         med_id=torch.where(ok, pick_id(2), -1))
+    # geometry is detached from autograd: gradients reach material,
+    # texture, light and medium parameters (the detached-sampling
+    # estimator); geometric derivatives need estimators of their own
+    return {k: v.detach() for k, v in it.items()}
 
 
 def _chain_interaction(scene, meta, origin, direction, hit):

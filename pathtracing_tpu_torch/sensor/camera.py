@@ -27,7 +27,8 @@ def generate_ray(cam, p, time_u, lens_uv):
     dir_dof = safe_normalize(direction * cam["focus_distance"] - offset)
     origin = torch.where(no_dof, cam["origin"], cam["origin"] + offset)
     direction = torch.where(no_dof, direction, dir_dof)
-    return origin, direction, t
+    # camera parameters are not gradient targets (detached sampling)
+    return origin.detach(), direction.detach(), t.detach()
 
 
 def film_position(sampler, px, py, sample_idx):

@@ -22,6 +22,15 @@ from pathtracing_tpu_torch.core.filters import mitchell as t_mitchell
 from pathtracing_tpu_torch.scene import lights as tl
 from pathtracing_tpu_torch.sensor import camera as tc
 from pathtracing_tpu_torch.sensor import film as tf
+from test_torch_native import jax_native_builder
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_builder():
+    """Compare only with JAX builds made by its native SAH builder
+    (test_torch_native.py)."""
+    jax_native_builder()
+
 
 torch.set_num_threads(2)
 

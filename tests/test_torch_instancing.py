@@ -37,6 +37,15 @@ from pathtracing_tpu_torch.scene.types import SHAPE_ITRI
 
 from test_torch_trace1 import (_J, _T, _alpha_cards, _card_masks, _inst_args,
                                _rays, _same, _same_as_jax, _t3, _xf)
+from test_torch_native import jax_native_builder
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_builder():
+    """Compare only with JAX builds made by its native SAH builder
+    (test_torch_native.py)."""
+    jax_native_builder()
+
 
 torch.set_num_threads(2)
 

@@ -17,6 +17,15 @@ from pathtracing_tpu_torch.accel import cubuild, trace2
 from pathtracing_tpu_torch.scene.intersect import _inv_guard
 from test_torch_trace1 import (_T, _alpha_cards, _card_masks, _inst_args,
                                _soup)
+from test_torch_native import jax_native_builder
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_builder():
+    """Compare only with JAX builds made by its native SAH builder
+    (test_torch_native.py)."""
+    jax_native_builder()
+
 
 torch.set_num_threads(2)
 

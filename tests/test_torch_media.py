@@ -28,6 +28,15 @@ from pathtracing_tpu_torch.integrators import path as tpath
 from pathtracing_tpu_torch.integrators.path import RenderConfig as TConfig
 from pathtracing_tpu_torch.integrators.render import render_image as t_render
 from pathtracing_tpu_torch.scene import builder as tbuilder
+from test_torch_native import jax_native_builder
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_builder():
+    """Compare only with JAX builds made by its native SAH builder
+    (test_torch_native.py)."""
+    jax_native_builder()
+
 
 torch.set_num_threads(2)
 

@@ -31,6 +31,15 @@ from pathtracing_tpu_torch.scene import lights as tlights
 from test_torch_instancing import _PF, _PV, _carry, _tf
 from test_torch_trace1 import (_J, _T, _grid_mesh, _rays, _same,
                                _same_as_jax, _soup, _t3)
+from test_torch_native import jax_native_builder
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_builder():
+    """Compare only with JAX builds made by its native SAH builder
+    (test_torch_native.py)."""
+    jax_native_builder()
+
 
 torch.set_num_threads(2)
 

@@ -20,6 +20,15 @@ from pathtracing_tpu_torch.accel import cubuild, trace1
 from pathtracing_tpu_torch.scene import builder as tbuilder
 from pathtracing_tpu_torch.scene.alphamask import build_tri_alpha_masks
 from pathtracing_tpu_torch.scene.textures import TexturePool
+from test_torch_native import jax_native_builder
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_builder():
+    """Compare only with JAX builds made by its native SAH builder
+    (test_torch_native.py)."""
+    jax_native_builder()
+
 
 torch.set_num_threads(2)
 
