@@ -8,9 +8,9 @@ device summary only when every phase passed):
   1. build the three CUDA sources (csrc/trace2.cu, the two-level traversal
      K1, csrc/trace1.cu, the single-level traversal K2, and csrc/leaf.cu,
      the leaf micro-benchmark K4), one nvcc each, started together; print
-     each instance's registers, stack frame and spills, and K1's and K2's
-     blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-     unstaged and for K1's window kernel;
+     each instance's registers, stack frame and spills, and K1's (group
+     and window kernels) and K2's blocks per SM
+     (cudaOccupancyMaxActiveBlocksPerMultiprocessor) unstaged;
   2. hold every kernel mode against its plain PyTorch version on the card,
      no flip allowed:
      a. K1 and K2 closest hit and any-hit on a 200K-triangle soup (K2: cut
@@ -27,7 +27,10 @@ device summary only when every phase passed):
      d. (after phase 5's scene build) K1 amask 1 and 2 on the faithful
         scene's full alpha tables (240,000 foliage triangles) with 65,280
         rays through the foliage, the same way; the share of lanes mode 1
-        culled and mode 2 resolved as `solid` must both be > 0;
+        culled and mode 2 resolved as `solid` must both be > 0; then the
+        window walk as path C runs it there (windows 2 / 4 at pops 4,
+        amask 1 and 2) against the window=1 walk and the plain walk, with
+        its times beside the window=1 walk's and its bounds;
      e. synthetic instanced and moving soups (300 sheared, non-uniformly
         scaled instances of two models over world triangles; random
         velocities and ray times): K1 instanced closest / any-hit, K1
@@ -106,15 +109,18 @@ device summary only when every phase passed):
      volpath kernel launches come from phase 3's small renders of a medium
      bounded by a 4,992-triangle mesh, through K2 and through K1);
   9. K4 (csrc/leaf.cu, tools/bench_leaf.py): every mode against its plain
-     version at n_iter=16, then the JAX tool's defaults (K2=256,
-     n_iter=2000) with microseconds per child test, and the plain versions'
-     and the library product's times;
+     version at n_iter=16 (the scalar modes at every lane count), then the
+     JAX tool's defaults (K2=256, n_iter=2000) in ROUNDS interleaved rounds
+     (the scalar modes at every lane count: the lanes A/B) with
+     microseconds per child test and the error against vpu, the plain
+     versions' and the library product's times, and each mode's bound on
+     the card and on the one SM its block runs on;
   10. print the kernel table JSON, the card's name and power limit, and
      the device summary.
 Every K1 mode is timed at pops 1 ("ms") and at the main path's pops 4
-("ms_pops4").  Every K1 and K2 row is timed in ROUNDS interleaved rounds,
-each round timing every mode of the phase in turn: "ms" is the median,
-"ms_spread" (max - min) / median.
+("ms_pops4").  Every K1, K2 and K4 row is timed in ROUNDS interleaved
+rounds, each round timing every mode of the phase in turn: "ms" is the
+median, "ms_spread" (max - min) / median.
 Writes chiprun_out/sanmiguel_{legacy,faithful,multipass,tlas,small}.ppm,
 chiprun_out/spheres_medium.ppm and the whole output to
 chiprun_out/chip_smoke.log.
@@ -154,8 +160,10 @@ MT_FLOPS = 45               # one ray/triangle Moller-Trumbore test
 MASK_FLOPS = 20             # one alpha-cell lookup (affine map, bit tests)
 MASK_BYTES = 32             # mask words of one slot
 MXU_POST_FLOPS = 14         # K4: post-processing of one (ray, triangle) pair
+N_SM = 132                  # H100 SXM SMs (K4's one block runs on one)
 MULTIPASS = (16, 8, 8)      # path C's PT_MULTIPASS schedule
 LEAF_K2, LEAF_ITERS = 256, 2000    # K4's defaults (the JAX tool's)
+LIB_CALLS = 10              # K4's library product: x 20 calls per sample
 GRAD_PROBE_RES = (96, 72)   # [grad] a: card against CPU gradients
 # card against CPU gradients, relative max-abs error: sound readings are
 # ~2e-7; the gradient of other samples (sampler seed 10 for 9), a fault
@@ -1056,6 +1064,7 @@ def _measure_schedules(scene, o, d, t_max, label):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     rows = {}
+    smem = trace2.staged_bytes(scene)
     scheds = (("capped", dict(max_visits=16)),
               ("frontier", dict(max_visits=16, frontier=True)),
               ("window2", dict(window=2, pops=4)),
@@ -1078,9 +1087,70 @@ def _measure_schedules(scene, o, d, t_max, label):
                                        ms_spread=spread, plain_ms=p_ms,
                                        bound_ms=b_ms, bound_by=b_by,
                                        schedule=str(kw))
+        occ = (f", window kernel {trace2.occupancy('closest', window=True,
+                                                       smem=smem)} blocks "
+               f"of 128 per SM" if "window" in kw else "")
         print(f"[kernel] {label} {name} {kw}: {ms:.3f} ms (median of "
-              f"{ROUNDS} interleaved rounds, spread {spread:.1%}), plain "
-              f"{p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"{ROUNDS} interleaved rounds, spread {spread:.1%}){occ}, "
+              f"plain {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+    return rows
+
+
+def _measure_windows(scene, o, d, t_max, label):
+    """K1's window walk on alpha tables, as path C runs it on its amask 1
+    / 2 passes: windows 2 and 4 at the main path's pops 4 against the
+    plain amask walk on every lane (valid, tri, solid equal, t to its
+    max abs error), then timed in interleaved rounds beside the window=1
+    walk at pops 4, each with its bound from its own counters and the
+    window kernel's blocks per SM with these tables staged.  Returns rows
+    keyed trace2[window<w>_amask<a>]."""
+    import torch
+    from pathtracing_tpu_torch.accel import trace2
+    fns = {(a, w): (lambda a=a, w=w: trace2.tri_intersect2(
+        scene, o, d, t_max, amask=a, window=w if w > 1 else None, pops=4))
+        for a in (1, 2) for w in (1, 2, 4)}
+    smem = trace2.staged_bytes(scene)
+    errs, plain = {}, {}
+    for a in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = trace2.tri_intersect2_plain(scene, o, d, t_max, amask=a)
+        torch.cuda.synchronize()
+        plain[a] = (time.perf_counter() - t0) * 1e3
+        for w in (2, 4):
+            got = fns[(a, w)]()
+            diff = _diff_counts(got, ref, True, a)
+            both = got["valid"] & ref["valid"]
+            errs[(a, w)] = float((got["t"][both] - ref["t"][both]).abs()
+                                 .max()) if bool(both.any()) else 0.0
+            print(f"[window] {label} amask={a} window={w} pops=4 vs the "
+                  f"plain walk: hits {int(ref['valid'].sum())}, lanes "
+                  f"differing {diff}, t max abs err {errs[(a, w)]:.3e}",
+                  flush=True)
+            if diff["valid"] or diff["tri"] or diff.get("solid", 0):
+                raise RuntimeError(f"K1 window {w} amask {a} disagrees with "
+                                   f"the plain walk on {label}")
+    times = _time_rounds(fns)
+    rows = {}
+    for a in (1, 2):
+        occ = trace2.occupancy(f"amask{a}", window=True, smem=smem)
+        w1, w1_spread = times[(a, 1)]
+        for w in (2, 4):
+            ms, spread = times[(a, w)]
+            b_ms, b_by, _ = _bound_ms(trace2, scene, o, d, t_max, amask=a,
+                                      window=w, pops=4)
+            rows[f"trace2[window{w}_amask{a}]"] = dict(
+                max_abs_err=errs[(a, w)], ms=ms, ms_spread=spread,
+                plain_ms=plain[a], bound_ms=b_ms, bound_by=b_by,
+                schedule=str(dict(window=w, pops=4, amask=a)),
+                ms_window1=w1, ms_window1_spread=w1_spread)
+            print(f"[kernel] {label} window{w} amask{a} (pops 4): {ms:.3f} ms "
+                  f"(median of {ROUNDS} interleaved rounds, spread "
+                  f"{spread:.1%}; the window=1 walk {w1:.3f} ms, spread "
+                  f"{w1_spread:.1%}), {occ} blocks of 128 per SM with {smem} "
+                  f"B staged, plain {plain[a]:.1f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
     return rows
 
 
@@ -1116,12 +1186,18 @@ def _multipass_check(scene, o, d, t_max, label):
 
 
 def _leaf_phase():
-    """K4: build leaf.cu, hold every mode against its plain version at a
-    small n_iter (the vpu modes bit for bit; the tensor-core modes within
-    the tolerances below), then run the JAX tool's defaults through the
-    port's entry point with the launch counts set to 0 just before and
-    read just after, and time the plain versions and the library product.
-    Returns (rows keyed leaf[mode], launches by mode)."""
+    """K4: hold every mode against its plain version at a small n_iter (the
+    vpu modes bit for bit in the build of every lane count, the
+    tensor-core modes within the tolerances below), then run the JAX
+    tool's defaults through the port's entry point (bench_leaf.bench:
+    ROUNDS interleaved rounds, the scalar modes in every lane count's
+    build, the package's first; the other builds' launches are not
+    counted) with the launch
+    counts set to 0 just before and read just after, and time the plain
+    versions and the library product (ROUNDS interleaved rounds).  Each
+    mode's bound is printed for the card and for the one SM its single
+    block runs on (x 132).  Returns (rows keyed leaf[mode], launches by
+    mode)."""
     import torch
     from pathtracing_tpu_torch.tools import bench_leaf as bl
     k2 = LEAF_K2
@@ -1131,21 +1207,28 @@ def _leaf_phase():
     # f32 ulps of det/t*det; mxu_3x / mxu_1x: bf16 operands, the tensor
     # cores sum the exact products in another order than the plain loop
     tol = dict(mxu_hi=1e-4, mxu_3x=1e-3, mxu_1x=1e-3)
+    lanes = (bl.DEFAULT_LANES,) + tuple(w for w in bl.LANES
+                                        if w != bl.DEFAULT_LANES)
+    libs = {w: bl.build(lanes=w) if w != bl.DEFAULT_LANES else None
+            for w in lanes}
     abs_err = {}
     for mode in bl.MODES:
-        got = bl.leaf_run(mode, tabs, k2, 16)
         ref = bl.leaf_plain(mode, tabs, k2, 16)
-        err = bl.max_rel_err(got, ref)
-        abs_err[mode] = float((got - ref).abs().max())
-        print(f"[leaf] {mode} n_iter=16 vs plain: max rel err {err:.3e} "
-              f"(allowed {tol.get(mode, 0.0):.0e}); hits "
-              f"{int((ref < 1e29).sum())}/128", flush=True)
-        if not err <= tol.get(mode, 0.0):
-            raise RuntimeError(f"leaf mode {mode} disagrees with its plain "
-                               f"version")
+        for w in (lanes if not mode.startswith("mxu") else lanes[:1]):
+            got = bl.leaf_run(mode, tabs, k2, 16, libs[w])
+            err = bl.max_rel_err(got, ref)
+            if w == bl.DEFAULT_LANES:
+                abs_err[mode] = float((got - ref).abs().max())
+            print(f"[leaf] {mode} n_iter=16 vs plain"
+                  f"{'' if mode.startswith('mxu') else f' W={w}'}: max rel "
+                  f"err {err:.3e} (allowed {tol.get(mode, 0.0):.0e}); hits "
+                  f"{int((ref < 1e29).sum())}/128", flush=True)
+            if not err <= tol.get(mode, 0.0):
+                raise RuntimeError(f"leaf mode {mode} disagrees with its "
+                                   f"plain version")
     torch.cuda.synchronize()
     _reset_counts()
-    res = bl.bench(k2, LEAF_ITERS,
+    res = bl.bench(k2, LEAF_ITERS, ROUNDS, lanes,
                    printer=lambda x: print(f"[leaf] {x}", flush=True))
     torch.cuda.synchronize()
     counts = _schedule_counts()
@@ -1168,6 +1251,15 @@ def _leaf_phase():
                               + torch.matmul(al, bh).float()),
            "mxu_1x": lambda: torch.matmul(ah, bh)}
     torch.backends.cuda.matmul.allow_tf32 = False
+
+    def calls(fn, n=LIB_CALLS):
+        def run():
+            for _ in range(n):
+                fn()
+        return run
+    # ms per call: median, spread (each sample LIB_CALLS x 20 calls)
+    lib_t = {k: (m / LIB_CALLS, sp) for k, (m, sp) in _time_rounds(
+        {k: calls(fn) for k, fn in lib.items()}).items()}
     rows = {}
     for mode in bl.MODES:
         r = res[mode]
@@ -1183,10 +1275,12 @@ def _leaf_phase():
             ops = passes * 2 * 128 * 16 * 4 * k2 * LEAF_ITERS
             peak = TF32_PEAK if mode == "mxu_hi" else BF16_PEAK
             bound = max(ops / peak, pairs * MXU_POST_FLOPS / FP32_PEAK) * 1e3
-            lib_ms = _sync_time(lib[mode], reps=200) * LEAF_ITERS
+            lib_ms = lib_t[mode][0] * LEAF_ITERS
             lib_txt = (f"library: {LEAF_ITERS} x one torch.matmul of the "
                        f"[128,16] x [16,{4 * k2}] product at this precision "
-                       f"({lib_ms / LEAF_ITERS * 1e3:.2f} us each)")
+                       f"({lib_t[mode][0] * 1e3:.2f} us each, median of "
+                       f"{ROUNDS} interleaved rounds, spread "
+                       f"{lib_t[mode][1]:.1%})")
         else:
             ops_ms = pairs * MT_FLOPS / FP32_PEAK * 1e3
             streamed = (LEAF_ITERS if mode in ("vpu_dma", "vpu_while")
@@ -1195,14 +1289,20 @@ def _leaf_phase():
             lib_ms = None
             lib_txt = "library: none (no PyTorch call runs a ray/triangle test)"
         rows[f"leaf[{mode}]"] = dict(
-            max_abs_err=abs_err[mode], ms=r["ms"], plain_ms=plain_ms,
-            bound_ms=bound, bound_by="operations", library_ms=lib_ms,
+            max_abs_err=abs_err[mode], ms=r["ms"], ms_spread=r["spread"],
+            plain_ms=plain_ms, bound_ms=bound, bound_by="operations",
+            bound_one_sm_ms=bound * N_SM, library_ms=lib_ms,
             us_per_child=r["us_per_child"], library=lib_txt,
-            max_rel_err_vs_vpu=r["err_vs_vpu"])
+            max_rel_err_vs_vpu=r["err_vs_vpu"],
+            ms_by_lanes={str(w): m for w, (m, _) in r["by_lanes"].items()})
+        faster = (f"; {lib_ms / r['ms']:.2f}x faster than the library"
+                  if lib_ms else "")
         print(f"[kernel] leaf {mode}: {r['ms']:.3f} ms per run of "
-              f"{LEAF_ITERS} child tests ({r['us_per_child']:.3f} us/child), "
-              f"plain {plain_ms:.1f} ms, bound {bound:.4f} ms (operations), "
-              f"{lib_txt}", flush=True)
+              f"{LEAF_ITERS} child tests (median of {ROUNDS} interleaved "
+              f"rounds, spread {r['spread']:.1%}; {r['us_per_child']:.3f} "
+              f"us/child), plain {plain_ms:.1f} ms, bound {bound:.4f} ms on "
+              f"the card, {bound * N_SM:.3f} ms on the one SM it runs on "
+              f"(operations), {lib_txt}{faster}", flush=True)
     return rows, counts
 
 
@@ -1498,19 +1598,19 @@ def main() -> int:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                 for k, v in tabs.items()}
 
-    # ---- 1. build (one nvcc per source, started together)
+    # ---- 1. build (one nvcc per source, started together; K4 also in
+    # the scalar modes' other lane counts, for its lanes A/B)
     t0 = time.perf_counter()
-    cubuild.build_all(("trace2", "trace1", "leaf"))
+    cubuild.build_all(("trace2", "trace1", "leaf") + tuple(
+        ("leaf", bench_leaf.build_defines(lanes=w)) for w in bench_leaf.LANES
+        if w != bench_leaf.DEFAULT_LANES))
     trace2.build_kernel()
     trace1.build_kernel()
     bench_leaf.build_kernel()
     print(f"[build] trace2.cu + trace1.cu + leaf.cu built+loaded in "
           f"{time.perf_counter() - t0:.2f}s ({cubuild.BUILD_SECONDS})",
           flush=True)
-    for line in cubuild.BUILD_LOG.get("leaf", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] leaf {line.strip()}", flush=True)
-    for stem in ("trace2", "trace1"):
+    for stem in ("trace2", "trace1", "leaf"):
         for name, line in cubuild.kernel_resources(stem):
             print(f"[build] {stem} {name}: {line}", flush=True)
     for mode in trace2.MODES:
@@ -1789,6 +1889,9 @@ def main() -> int:
     r = _measure(trace2, alpha, of, df, tf_, label, ("amask1", "amask2"))
     kern["trace2[amask1]"] = r["amask1"]
     kern["trace2[amask2]"] = r["amask2"]
+    # the window walk as path C runs it on these passes
+    _compare_schedules(alpha, of, df, tf_, label, amasks=(1, 2))
+    kern.update(_measure_windows(alpha, of, df, tf_, label))
     del alpha
 
     cfg = RenderConfig(spp=1, max_depth=DEPTH_FAITHFUL, integrator="path",
@@ -1832,6 +1935,7 @@ def main() -> int:
     finally:
         del os.environ["PT_MULTIPASS"], os.environ["PT_WINDOW"]
     _need(path_c, ("trace2[capped]", "trace2[frontier]", "trace2[window4]",
+                   "trace2[window4_amask1]", "trace2[window4_amask2]",
                    "trace2[amask1]", "trace2[amask2]"), "path C")
     print(f"[path C vs flattened] rays/sample {mpw['rays_per_sample']:.3f} "
           f"vs {flat['rays_per_sample']:.3f}; image mean {mpw['mean']:.5f} "
@@ -1953,18 +2057,26 @@ def main() -> int:
     replaces = {"trace2": "pathtracing_tpu/accel/pallas_trace2.py:438",
                 "trace1": "pathtracing_tpu/accel/pallas_trace.py:289",
                 "leaf": "tools/bench_mxu_leaf.py:63"}
+    # rows of a schedule no entry point runs on those tables
+    no_entry = {"trace2[pair]": (
+        "none: no entry point passes pair=True (the reference package's "
+        "dispatch does not either); timed and held to the window=1 walk "
+        "only")}
+    for a in (1, 2):
+        no_entry[f"trace2[window2_amask{a}]"] = (
+            "none: path C runs window 4 on the alpha passes, and PT_WINDOW=2 "
+            "reaches only the volpath mesh render's closest passes; timed and "
+            "held to the window=1 walk and the plain walk only")
     rows = []
     for name in sorted(kern):
         stem = name.split("[")[0]
         n_launch, where = next(((c[name], w) for w, c in frames
                                 if c.get(name, 0) > 0),
                                (small_counts.get(name, 0), small_from))
-        if n_launch <= 0 and name != "trace2[pair]":
+        if n_launch <= 0 and name not in no_entry:
             raise RuntimeError(f"{name} was never launched by a render")
-        if name == "trace2[pair]":
-            where = ("none: no entry point passes pair=True (the reference "
-                     "package's dispatch does not either); timed and held "
-                     "to the window=1 walk only")
+        if n_launch <= 0:
+            where = no_entry[name]
         row = {"name": name, "route": "cuda",
                "source": f"pathtracing_tpu_torch/csrc/{stem}.cu",
                "replaces": replaces[stem],

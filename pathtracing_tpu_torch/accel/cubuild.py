@@ -4,7 +4,8 @@
 library with a plain C interface, at first use, into the package's
 `_build/` directory (cached by a hash of the source, the shared header and
 the flags) and returns it as a ctypes library.  `build_all` starts one
-nvcc per source at the same time.  Everything is built with --fmad=false:
+nvcc per build at the same time; `load(stem, defines)` builds the same
+source with -D flags (the A/B tools' variants).  Everything is built with --fmad=false:
 FMA contraction would change Moller-Trumbore's rounding and flip edge hits
 against the plain PyTorch versions.
 
@@ -90,46 +91,52 @@ def key(stem: str, defines=None) -> str:
         (defines or {}).items()))
 
 
-def load(stem: str):
-    """The ctypes library of csrc/<stem>.cu, compiled if not built yet."""
+def load(stem: str, defines=None):
+    """The ctypes library of csrc/<stem>.cu, compiled if not built yet;
+    `defines` ({name: value}, passed as -D flags) make another build of
+    the same source, named key(stem, defines) in BUILD_LOG and
+    BUILD_SECONDS (the A/B tools build their variants so)."""
+    name = key(stem, defines)
     with _guard:
-        lock = _locks.setdefault(stem, threading.Lock())
+        lock = _locks.setdefault(name, threading.Lock())
     with lock:
-        if stem in _libs:
-            return _libs[stem]
+        if name in _libs:
+            return _libs[name]
         t0 = time.perf_counter()
         src = source(stem)
+        flags = _NVCC_FLAGS + _dflags(defines)
         tag = hashlib.sha256(_inlined(src).encode()
-                             + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+                             + " ".join(flags).encode()).hexdigest()[:16]
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = _BUILD_DIR / f"{stem}_{tag}.so"
+        so = _BUILD_DIR / f"{name}_{tag}.so"
         if not so.exists():
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            res = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                                  str(src)], capture_output=True, text=True)
-            BUILD_LOG[stem] = res.stdout + res.stderr
+            res = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
+                                 capture_output=True, text=True)
+            BUILD_LOG[name] = res.stdout + res.stderr
             if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name}:\n"
-                                   + BUILD_LOG[stem])
+                raise RuntimeError(f"nvcc failed on {src.name} {defines or ''}"
+                                   ":\n" + BUILD_LOG[name])
             tmp.replace(so)
-        _libs[stem] = ctypes.CDLL(str(so))
-        BUILD_SECONDS[stem] = time.perf_counter() - t0
-        return _libs[stem]
+        _libs[name] = ctypes.CDLL(str(so))
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        return _libs[name]
 
 
-def build_all(stems=("trace2", "trace1", "leaf")) -> float:
+def build_all(builds=("trace2", "trace1", "leaf")) -> float:
     """Build (if needed) and load every source, one nvcc each, all started
-    together.  Returns the seconds spent."""
+    together.  A build is a stem or a (stem, defines) pair.  Returns the
+    seconds spent."""
     t0 = time.perf_counter()
     errors = []
 
-    def one(stem):
+    def one(b):
         try:
-            load(stem)
+            load(*((b,) if isinstance(b, str) else b))
         except Exception as e:      # re-raised below, on the caller's thread
             errors.append(e)
 
-    threads = [threading.Thread(target=one, args=(s,)) for s in stems]
+    threads = [threading.Thread(target=one, args=(b,)) for b in builds]
     for t in threads:
         t.start()
     for t in threads:
@@ -146,12 +153,20 @@ def kernel_resources(stem: str) -> list:
     (ptxas prints a "Used N registers" line per entry function and a
     "Function properties" block per function)."""
     def name_of(line):
-        m = re.search(r"(trace[12]_kernel|trace2_window_kernel|leaf_kernel"
-                      r"|window_walk)ILi(\d)ELb(\d)ELb(\d)E(Li(\d+)E)?",
-                      line)
-        lanes = f" W={m.group(6)}" if m and m.group(6) else ""
-        return (f"{m.group(1)} AMASK={m.group(2)} INST={m.group(3)} "
-                f"MOTION={m.group(4)}{lanes}" if m else line.strip())
+        m = re.search(r"(trace[12]_kernel|trace2_window_kernel)ILi(\d)ELb"
+                      r"(\d)ELb(\d)E(Li(\d+)E)?", line)
+        if m:
+            lanes = f" W={m.group(6)}" if m.group(6) else ""
+            return (f"{m.group(1)} AMASK={m.group(2)} INST={m.group(3)} "
+                    f"MOTION={m.group(4)}{lanes}")
+        m = re.search(r"(leaf_scalar_kernel|leaf_mxu_kernel)ILi(\d)E"
+                      r"(Li(\d+)E)?", line)
+        if m:
+            mode = ("vpu", "mxu_hi", "mxu_3x", "mxu_1x", "vpu_rec",
+                    "vpu_cond", "vpu_dma", "vpu_while")[int(m.group(2))]
+            lanes = f" W={m.group(4)}" if m.group(4) else ""
+            return f"{m.group(1)} {mode}{lanes}"
+        return line.strip()
 
     out, entry, func = [], "?", "?"
     for line in BUILD_LOG.get(stem, "").splitlines():

@@ -857,10 +857,11 @@ def _ptr(x):
 
 
 def schedule_names(max_visits=None, frontier=False, window=1, pair=False,
-                   pops=1):
+                   pops=1, mode=None):
     """The launch-count keys of a schedule: "capped" and "frontier" for a
     capped walk and its resume outputs, then one of "window2" /
-    "window4", "pair" or "pops<p>" (p > 1) for the walk's order."""
+    "window4" (and, given the mode, "window<w>_<mode>"), "pair" or
+    "pops<p>" (p > 1) for the walk's order."""
     names = []
     if max_visits is not None:
         names.append("capped")
@@ -868,6 +869,8 @@ def schedule_names(max_visits=None, frontier=False, window=1, pair=False,
         names.append("frontier")
     if window > 1:
         names.append(f"window{window}")
+        if mode is not None:
+            names.append(f"window{window}_{mode}")
     elif pair:
         names.append("pair")
     elif pops > 1:
@@ -972,10 +975,11 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
         raise RuntimeError(f"trace2 kernel launch failed (cudaError {rc})")
     if host_lib is None:
         tri_intersect2.launches += 1
-        tri_intersect2.launches_by_mode[mode_name(
-            any_hit, amask, inst, time is not None)] += 1
+        mode = mode_name(any_hit, amask, inst, time is not None)
+        tri_intersect2.launches_by_mode[mode] += 1
         by_sched = tri_intersect2.launches_by_schedule
-        for k in schedule_names(max_visits, frontier, window, pair, pops):
+        for k in schedule_names(max_visits, frontier, window, pair, pops,
+                                mode):
             by_sched[k] = by_sched.get(k, 0) + 1
     extra = None
     if counters:

@@ -80,8 +80,17 @@
 //     so rounding in the slab test cannot drop a hit that lies on a box face.
 //   * no tensor cores: the hit decision stays in the plain version's fp32
 //     arithmetic, bit for bit.
-// The window walk (window 2 / 4) stays one thread per ray with the flat
-// top-level scan (trace2_window_kernel).
+// The window walk (window 2 / 4, trace2_window_kernel) is the same group
+// walk with a wider child phase: the group's front yields the `window`
+// nearest L1 entries that can still beat the bound (the entries window 1
+// would take next, in the same order), their window x G child entries are
+// split over the lanes in registers (entry q = j * G + c on lane q mod W)
+// and drained nearest first by group minimum on (entry, q), `pops`
+// children per read of the bound.  Its width TRACE2_WINDOW_LANES (16) and
+// its launch bounds TRACE2_WINDOW_BLOCKS (at least 6 blocks of 128 per SM:
+// 80 registers, with small spills in the instanced modes) were chosen by
+// the interleaved A/B of tools/bench_window.py on path C's alpha passes
+// (PERF.md, section 6).
 //
 // Bound on the H100: the work is data dependent.  Per ray it is ~20 flops per
 // top-level slab test (unions and members, counted by the kernel), ~20 per
@@ -107,10 +116,11 @@
 //   window   2 or 4: the resident-window drain (pallas_trace2.py:918-1160):
 //            take the `window` nearest L1 entries that can still beat the
 //            bound, slab-test all their children (each in its own space),
-//            and drain the union nearest first; ties go to the L1 taken
-//            first (nearest entry, then least index), then the least child.
-//            The TPU's VMEM double buffering has no counterpart: children
-//            are read through the cache.
+//            and drain the union nearest first, `pops` children per read
+//            of the bound; ties go to the L1 taken first (nearest entry,
+//            then least index), then the least child.  The TPU's VMEM
+//            double buffering has no counterpart: children are read
+//            through the cache.
 //
 // Visit cap and multipass resume state (max_visits > 0, frontier outputs):
 // the walk stops after max_visits L1 visits.  On the TPU the cap counts a
@@ -149,31 +159,6 @@ struct Tabs {
   unsigned char* touched;
 };
 
-// The front-to-back L1 iterator: the buffer be / bi holds the FRONT_BUF
-// nearest entered L1s above the cursor and is refilled from the last of
-// them when used up.  Its position stays apart from the arrays, so it
-// lives in registers.
-struct Front {
-  int cnt, k;
-  bool more;   // the last fill was full: entries may remain above it
-};
-
-// True when an entry is available at be[f.k] (refilling with `bound` when
-// the buffer is used up); n_pass counts the table passes.
-__device__ __forceinline__ bool front_peek(Front& f, float* be, int* bi,
-                                           const Tabs& tb, const Ray& r,
-                                           float bound, int& n_pass) {
-  if (f.k < f.cnt) return true;
-  if (!f.more) return false;
-  const float ce = f.cnt ? be[f.cnt - 1] : -1.0f;
-  const int ci = f.cnt ? bi[f.cnt - 1] : -1;
-  ++n_pass;
-  f.cnt = front_fill(tb.l1box, tb.m1, r, bound, ce, ci, be, bi);
-  f.more = f.cnt == FRONT_BUF;
-  f.k = 0;
-  return f.cnt > 0;
-}
-
 // The ray of L1 entry b in its source space (object space of b's instance).
 template <bool INST, bool MOTION>
 __device__ __forceinline__ Ray l1_ray(const Tabs& tb, int b, const Ray& r,
@@ -186,84 +171,6 @@ __device__ __forceinline__ Ray l1_ray(const Tabs& tb, int b, const Ray& r,
                           time, r);
   }
   return r;
-}
-
-// What a walk leaves behind: the best hit and the counters.
-struct WalkOut {
-  Best best;
-  int n_pass, n_l1, n_leaf, n_mask;
-};
-
-// The resident-window walk (window 2 or 4; see the header).  Out of line,
-// with its inputs taken by value and its results returned: its child-entry
-// array stays out of the other walks' frame, and the kernel's best hit and
-// counters need no address (they would otherwise live in local memory on
-// every walk).
-template <int AMASK, bool INST, bool MOTION>
-__device__ __noinline__ WalkOut window_walk(const Tabs tb, const Ray r,
-                                            float time, float tmax0,
-                                            int any_hit, int window,
-                                            int pops) {
-  WalkOut o{{tmax0, NO_SLOT, tmax0, NO_SLOT}, 0, 0, 0, 0};
-  Best& best = o.best;
-  Front f{0, 0, true};
-  float be[FRONT_BUF];
-  int bi[FRONT_BUF];
-  int wb[4], wbase[4];
-  Ray wr[4];
-  float ce[256];   // window * G <= 4 * 64 child entries
-  while (true) {
-    const float bnd0 = cull_bound<AMASK>(best) * WIDEN;
-    int nw = 0;
-    while (nw < window &&
-           front_peek(f, be, bi, tb, r, cull_bound<AMASK>(best), o.n_pass) &&
-           be[f.k] <= bnd0)
-      wb[nw++] = bi[f.k++];
-    if (nw == 0) return o;
-    o.n_l1 += nw;
-    unsigned long long wm[4] = {0ull, 0ull, 0ull, 0ull};
-    const float cb = cull_bound<AMASK>(best);
-    for (int j = 0; j < nw; ++j) {
-      if (tb.touched) tb.touched[wb[j]] = 1;
-      wbase[j] = tb.l1_base[INST ? tb.blk_src[wb[j]] : wb[j]];
-      wr[j] = l1_ray<INST, MOTION>(tb, wb[j], r, time);
-      for (int c = 0; c < tb.g; ++c) {
-        const int q = j * tb.g + c;
-        const float e = slab_entry(tb.l2box + 2 * (wbase[j] + c), wr[j], cb);
-        ce[q] = e;
-        if (e < BIG_F32) wm[q >> 6] |= 1ull << (q & 63);
-      }
-    }
-    bool left = true;
-    while (left) {
-      const float bnd = cull_bound<AMASK>(best) * WIDEN;
-      for (int p = 0; p < pops; ++p) {
-        float em = BIG_F32;
-        int qm = -1;
-        for (int w = 0; w < 4; ++w)
-          for (unsigned long long m = wm[w]; m; m &= m - 1) {
-            const int q = 64 * w + __ffsll((long long)m) - 1;
-            if (ce[q] < em) {
-              em = ce[q];
-              qm = q;
-            }
-          }
-        if (qm < 0 || em > bnd) {   // drained, or nothing left can help
-          left = false;
-          break;
-        }
-        wm[qm >> 6] &= ~(1ull << (qm & 63));
-        const int j = qm / tb.g, c = qm - j * tb.g;
-        ++o.n_leaf;
-        if (tb.touched) tb.touched[tb.m1 + wbase[j] + c] = 1;
-        if (test_leaf<AMASK, INST, MOTION>(
-                tb.tri, tb.tri_mask, wbase[j] + c, tb.k2, wb[j],
-                INST ? c * tb.k2 : (wbase[j] + c) * tb.k2, wr[j], time,
-                tmax0, best, o.n_mask) && any_hit)
-          return o;
-      }
-    }
-  }
 }
 
 // Visit L1 entry b with the group: the lanes slab-test its G children (lane
@@ -319,9 +226,168 @@ __device__ __forceinline__ bool visit_l1_group(const Group<W>& g,
   }
 }
 
+constexpr int WINDOW_MAX = 4;
+
+// Element k of a WINDOW_MAX array held in registers (no runtime index, so
+// the array stays out of local memory).
+__device__ __forceinline__ int pick(const int (&a)[WINDOW_MAX], int k) {
+  int v = a[0];
+#pragma unroll
+  for (int j = 1; j < WINDOW_MAX; ++j)
+    if (k == j) v = a[j];
+  return v;
+}
+
+// The resident-window walk of a group (window 2 or 4; see the header):
+// take up to `window` L1 entries off the front, the nearest first, while
+// they can beat the bound read when the window opened; slab-test their
+// window x G children against that bound, entry q = j * G + c (window slot
+// j, child c) on lane q mod W in registers; drain them nearest first by
+// group minimum on (entry, q), so ties go to the L1 taken first, then the
+// least child, `pops` children per read of the bound.  Every lane tests
+// triangles lane, lane + W, ... of the drained child in the space of its
+// L1 (the instance transform is recomputed per child: no per-slot ray is
+// kept), and the group reduces its best hit; any-hit ends on a ballot.
+// Returns true when an any-hit walk found an occluder.
+template <int AMASK, bool INST, bool MOTION, int W, int N>
+__device__ __forceinline__ bool window_walk(
+    const Group<W>& g, Front2<N>& f, const Top& top, const Tabs& tb,
+    const Ray& r, float time, float tmax0, int any_hit, int window, int pops,
+    Best& best, int& n_pass, int& n_l1, int& n_leaf, int& n_mask,
+    int& n_top) {
+  constexpr int CPL = (WINDOW_MAX * 64 + W - 1) / W;   // entries per lane
+  while (true) {
+    const float cb = cull_bound<AMASK>(best);
+    int wb[WINDOW_MAX] = {}, wbase[WINDOW_MAX] = {};
+    int nw = 0;
+    float he;
+    int ho;
+    while (nw < window &&
+           front_head(g, f, top, r, cb, he, ho, n_pass, n_top) &&
+           he <= cb * WIDEN) {
+      front_take(f, he, ho);
+#pragma unroll
+      for (int j = 0; j < WINDOW_MAX; ++j)
+        if (j == nw) wb[j] = ho >> 1;
+      ++nw;
+    }
+    if (nw == 0) return false;   // front-to-back: no entry left can help
+    n_l1 += nw;
+    float ce[CPL];   // this lane's child entries, BIG_F32 once taken
+#pragma unroll
+    for (int s = 0; s < CPL; ++s) ce[s] = BIG_F32;
+    for (int j = 0; j < nw; ++j) {
+      const int b = pick(wb, j);
+      if (tb.touched && g.lane == 0) tb.touched[b] = 1;
+      const int base = tb.l1_base[INST ? tb.blk_src[b] : b];
+#pragma unroll
+      for (int k = 0; k < WINDOW_MAX; ++k)
+        if (k == j) wbase[k] = base;
+      const Ray rl = l1_ray<INST, MOTION>(tb, b, r, time);
+#pragma unroll
+      for (int s = 0; s < CPL; ++s) {
+        const int c = g.lane + s * W - j * tb.g;
+        if (c >= 0 && c < tb.g)
+          ce[s] = slab_entry(tb.l2box + 2 * (base + c), rl, cb);
+      }
+    }
+    bool left = true;
+    while (left) {
+      const float bnd = cull_bound<AMASK>(best) * WIDEN;
+      for (int p = 0; p < pops; ++p) {
+        float em = BIG_F32;
+        int qm = INT_MAX;
+#pragma unroll
+        for (int s = 0; s < CPL; ++s)
+          if (key_less(ce[s], g.lane + s * W, em, qm)) {
+            em = ce[s];
+            qm = g.lane + s * W;
+          }
+        group_min(g, em, qm);
+        // drained, or nearest first: nothing left can help
+        if (em >= BIG_F32 || em > bnd) {
+          left = false;
+          break;
+        }
+#pragma unroll
+        for (int s = 0; s < CPL; ++s)
+          if (qm == g.lane + s * W) ce[s] = BIG_F32;
+        const int j = qm / tb.g, c = qm - j * tb.g;
+        const int b = pick(wb, j), base = pick(wbase, j);
+        const Ray rl = l1_ray<INST, MOTION>(tb, b, r, time);
+        ++n_leaf;
+        if (tb.touched && g.lane == 0) tb.touched[tb.m1 + base + c] = 1;
+        Best lb = best;
+        const bool any = test_leaf<AMASK, INST, MOTION>(
+            tb.tri, tb.tri_mask, base + c, tb.k2, b,
+            INST ? c * tb.k2 : (base + c) * tb.k2, rl, time, tmax0, lb,
+            n_mask, g.lane, W);
+        group_best<AMASK, INST, W>(g, lb);
+        best = lb;
+        if (any_hit && g.any(any)) return true;
+      }
+    }
+  }
+}
+
 #ifndef TRACE2_LANES
 #define TRACE2_LANES 8     // lanes per ray of the group walk
 #endif
+#ifndef TRACE2_WINDOW_LANES
+#define TRACE2_WINDOW_LANES 16   // lanes per ray of the window walk
+#endif
+#ifndef TRACE2_WINDOW_BLOCKS
+#define TRACE2_WINDOW_BLOCKS 6   // its __launch_bounds__ blocks per SM
+#endif
+
+// Ray i of the launch, with its reciprocals.
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ orig,
+                                        const float* __restrict__ dirs,
+                                        int i) {
+  Ray r;
+  r.ox = orig[3 * i];
+  r.oy = orig[3 * i + 1];
+  r.oz = orig[3 * i + 2];
+  r.dx = dirs[3 * i];
+  r.dy = dirs[3 * i + 1];
+  r.dz = dirs[3 * i + 2];
+  r.ix = inv_guard(r.dx);
+  r.iy = inv_guard(r.dy);
+  r.iz = inv_guard(r.dz);
+  return r;
+}
+
+// A front with nothing filled yet: every lane is dry below a horizon
+// under every key, so the first head refills from below every key.
+template <int N>
+__device__ __forceinline__ void front_start(Front2<N>& f) {
+  front_clear(f.lane);
+  f.lane.he = -1.0f;
+  f.lane.ho = -1;
+  f.ce = -1.0f;
+  f.co = -1;
+}
+
+// Ray i's result and counters (written by lane 0 of its group).
+template <int AMASK, bool INST>
+__device__ __forceinline__ void store_result(
+    const Best& best, int i, float* __restrict__ out_t,
+    int* __restrict__ out_slot, int* __restrict__ out_blk,
+    int* __restrict__ counters, int n_pass, int n_l1, int n_leaf, int n_mask,
+    int n_top) {
+  const bool solid = AMASK == 2 && best.t_opq < best.t;
+  const bool hit = best.slot != NO_SLOT && !solid;
+  out_t[i] = hit ? best.t : BIG_F32;
+  out_slot[i] = solid ? -2 : (hit ? best.slot : -1);
+  if (INST) out_blk[i] = hit ? best.blk : -1;
+  if (counters) {
+    counters[5 * i] = n_pass;
+    counters[5 * i + 1] = n_l1;
+    counters[5 * i + 2] = n_leaf;
+    counters[5 * i + 3] = n_mask;
+    counters[5 * i + 4] = n_top;
+  }
+}
 
 // The group walk (window 1): one ray per W lanes.  The coarse table is
 // staged in shared memory when `stage` (every thread of the block takes
@@ -346,16 +412,7 @@ trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
   const Group<W> g;
   const int i = blockIdx.x * (blockDim.x / W) + threadIdx.x / W;
   if (i >= n) return;
-  Ray r;
-  r.ox = orig[3 * i];
-  r.oy = orig[3 * i + 1];
-  r.oz = orig[3 * i + 2];
-  r.dx = dirs[3 * i];
-  r.dy = dirs[3 * i + 1];
-  r.dz = dirs[3 * i + 2];
-  r.ix = inv_guard(r.dx);
-  r.iy = inv_guard(r.dy);
-  r.iz = inv_guard(r.dz);
+  const Ray r = load_ray(orig, dirs, i);
   const float tmax0 = tmax[i];
   const float time = MOTION ? times[i] : 0.0f;
   Best best{tmax0, NO_SLOT, tmax0, NO_SLOT};
@@ -365,11 +422,7 @@ trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
 
   if (tmax0 > 0.0f) {
     Front2<LaneFrontSize<W>::value> f;
-    front_clear(f.lane);
-    f.lane.he = -1.0f;            // nothing filled yet: everything beyond
-    f.lane.ho = -1;
-    f.ce = -1.0f;
-    f.co = -1;
+    front_start(f);
     const int per_iter = pair ? 2 : 1;
     bool live = true;
     float he;
@@ -399,66 +452,50 @@ trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
   n_mask = group_sum(g, n_mask);
   n_top = group_sum(g, n_top);
   if (g.lane != 0) return;
-  const bool solid = AMASK == 2 && best.t_opq < best.t;
-  const bool hit = best.slot != NO_SLOT && !solid;
-  out_t[i] = hit ? best.t : BIG_F32;
-  out_slot[i] = solid ? -2 : (hit ? best.slot : -1);
-  if (INST) out_blk[i] = hit ? best.blk : -1;
+  store_result<AMASK, INST>(best, i, out_t, out_slot, out_blk, counters,
+                            n_pass, n_l1, n_leaf, n_mask, n_top);
   if (out_en) {
     out_en[i] = e_next;
     out_bn[i] = b_next;
   }
-  if (counters) {
-    counters[5 * i] = n_pass;
-    counters[5 * i + 1] = n_l1;
-    counters[5 * i + 2] = n_leaf;
-    counters[5 * i + 3] = n_mask;
-    counters[5 * i + 4] = n_top;
-  }
 }
 
-// The resident-window walk (window 2 or 4): one thread per ray, the flat
-// top-level scan of front_fill.
-template <int AMASK, bool INST, bool MOTION>
-__global__ void __launch_bounds__(128)
+// The resident-window walk (window 2 or 4): one ray per W lanes, on the
+// group walk's front and staged coarse table.
+template <int AMASK, bool INST, bool MOTION, int W>
+__global__ void __launch_bounds__(128, TRACE2_WINDOW_BLOCKS)
 trace2_window_kernel(const float* __restrict__ orig,
                      const float* __restrict__ dirs,
                      const float* __restrict__ tmax, int n, Tabs tb,
+                     const float4* __restrict__ coarse, int nc,
+                     const int4* __restrict__ members,
+                     const int* __restrict__ union_of, int stage,
                      int any_hit, int window, int pops,
                      const float* __restrict__ times,
                      float* __restrict__ out_t, int* __restrict__ out_slot,
                      int* __restrict__ out_blk, int* __restrict__ counters) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const Top top{tb.l1box, stage_rows(coarse, 2 * nc, stage != 0), nc,
+                members, union_of};
+  const Group<W> g;
+  const int i = blockIdx.x * (blockDim.x / W) + threadIdx.x / W;
   if (i >= n) return;
-  Ray r;
-  r.ox = orig[3 * i];
-  r.oy = orig[3 * i + 1];
-  r.oz = orig[3 * i + 2];
-  r.dx = dirs[3 * i];
-  r.dy = dirs[3 * i + 1];
-  r.dz = dirs[3 * i + 2];
-  r.ix = inv_guard(r.dx);
-  r.iy = inv_guard(r.dy);
-  r.iz = inv_guard(r.dz);
+  const Ray r = load_ray(orig, dirs, i);
   const float tmax0 = tmax[i];
   const float time = MOTION ? times[i] : 0.0f;
-  WalkOut w{{tmax0, NO_SLOT, tmax0, NO_SLOT}, 0, 0, 0, 0};
-  if (tmax0 > 0.0f)
-    w = window_walk<AMASK, INST, MOTION>(tb, r, time, tmax0, any_hit, window,
-                                         pops);
-  const Best& best = w.best;
-  const bool solid = AMASK == 2 && best.t_opq < best.t;
-  const bool hit = best.slot != NO_SLOT && !solid;
-  out_t[i] = hit ? best.t : BIG_F32;
-  out_slot[i] = solid ? -2 : (hit ? best.slot : -1);
-  if (INST) out_blk[i] = hit ? best.blk : -1;
-  if (counters) {
-    counters[5 * i] = w.n_pass;
-    counters[5 * i + 1] = w.n_l1;
-    counters[5 * i + 2] = w.n_leaf;
-    counters[5 * i + 3] = w.n_mask;
-    counters[5 * i + 4] = w.n_pass * tb.m1;
+  Best best{tmax0, NO_SLOT, tmax0, NO_SLOT};
+  int n_pass = 0, n_l1 = 0, n_leaf = 0, n_mask = 0, n_top = 0;
+  if (tmax0 > 0.0f) {
+    Front2<LaneFrontSize<W>::value> f;
+    front_start(f);
+    window_walk<AMASK, INST, MOTION, W>(g, f, top, tb, r, time, tmax0,
+                                        any_hit, window, pops, best, n_pass,
+                                        n_l1, n_leaf, n_mask, n_top);
   }
+  n_mask = group_sum(g, n_mask);
+  n_top = group_sum(g, n_top);
+  if (g.lane != 0) return;
+  store_result<AMASK, INST>(best, i, out_t, out_slot, out_blk, counters,
+                            n_pass, n_l1, n_leaf, n_mask, n_top);
 }
 
 }  // namespace
@@ -513,10 +550,11 @@ extern "C" int trace2_launch(const float* orig, const float* dirs,
 #define TRACE2_CASE(MODE, AMASK, INST, MOTION)                               \
   case MODE:                                                                 \
     if (window > 1)                                                          \
-      return launch_groups<1>(trace2_window_kernel<AMASK, INST, MOTION>, n,  \
-                              0, stream, orig, dirs, tmax, n, tb, any_hit,   \
-                              window, pops, times, out_t, out_slot, out_blk, \
-                              counters);                                     \
+      return launch_groups<TRACE2_WINDOW_LANES>(                             \
+          trace2_window_kernel<AMASK, INST, MOTION, TRACE2_WINDOW_LANES>, n, \
+          smem, stream, orig, dirs, tmax, n, tb, (const float4*)coarse, nc,  \
+          (const int4*)members, union_of, stage, any_hit, window, pops,      \
+          times, out_t, out_slot, out_blk, counters);                        \
     return launch_groups<TRACE2_LANES>(                                      \
         trace2_kernel<AMASK, INST, MOTION, TRACE2_LANES>, n, smem, stream,   \
         orig, dirs, tmax, n, tb, (const float4*)coarse, nc,                  \
@@ -530,16 +568,18 @@ extern "C" int trace2_launch(const float* orig, const float* dirs,
 }
 
 // Blocks of 128 threads per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-// of mode `mode`'s group kernel with `smem` bytes of staged coarse table
-// (window = 0) or of its window kernel (window = 1).
+// of mode `mode`'s group kernel (window = 0) or of its window kernel
+// (window = 1), with `smem` bytes of staged coarse table.
 extern "C" int trace2_occupancy(int mode, int window, int smem, int* blocks) {
 #ifdef __CUDACC__
   switch (mode) {
 #define TRACE2_OCC(MODE, AMASK, INST, MOTION)                                 \
   case MODE:                                                                  \
     return (int)(window ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(      \
-                              blocks, trace2_window_kernel<AMASK, INST,       \
-                                                           MOTION>, 128, 0)   \
+                              blocks,                                         \
+                              trace2_window_kernel<AMASK, INST, MOTION,       \
+                                                   TRACE2_WINDOW_LANES>,      \
+                              128, smem)                                      \
                         : cudaOccupancyMaxActiveBlocksPerMultiprocessor(      \
                               blocks,                                         \
                               trace2_kernel<AMASK, INST, MOTION,              \

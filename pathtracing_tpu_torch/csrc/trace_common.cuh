@@ -3,11 +3,11 @@
 // micro-benchmark (csrc/leaf.cu) runs the same leaf test.
 //
 // Replaces the in-kernel helpers of pathtracing_tpu/accel/_kernel_common.py
-// (entry_phase + make_select + make_recull -> front_fill / the cull bound,
-// instance_transform -> instance_ray, moller_trumbore -> test_leaf,
-// alpha_cell_bits -> alpha_cell).  Keeping them here keeps the two kernels
-// in lock-step: the slab epsilon, the tie-break and the leaf arithmetic are
-// one definition.
+// (make_recull -> the cull bound, instance_transform -> instance_ray,
+// moller_trumbore -> test_leaf, alpha_cell_bits -> alpha_cell; entry_phase
+// and make_select became group_walk.cuh's front).  Keeping them here keeps
+// the two kernels in lock-step: the slab epsilon, the tie-break and the
+// leaf arithmetic are one definition.
 //
 // One definition of a tie: the hit with the least t wins; exact ties in t go
 // to the least (block, slot) pair, where for plain tables `block` is unused
@@ -30,7 +30,6 @@ namespace {
 constexpr float BIG_F32 = 3.0e38f;
 constexpr float SHADOW_EPS = 1e-5f;
 constexpr float WIDEN = 1.0000005f;   // conservative slab exit (+~4 ulp)
-constexpr int FRONT_BUF = 16;
 constexpr int NO_SLOT = 0x7fffffff;
 
 __device__ __forceinline__ float inv_guard(float c) {
@@ -209,38 +208,6 @@ __device__ __forceinline__ bool test_leaf(const float4* __restrict__ tri,
     }
   }
   return any;
-}
-
-// One pass over a table of m boxes: the FRONT_BUF entered boxes nearest
-// above the cursor (cur_e, cur_i), sorted by (entry, index), into be / bi.
-// Returns how many were kept; fewer than FRONT_BUF means no entered box is
-// left above the cursor.  Visiting the buffer in order and calling this again
-// with the cursor at the last visited entry walks every entered box in exact
-// front-to-back order (warps read the same box at the same time, so the
-// table streams through L1 cache as broadcasts).
-__device__ __forceinline__ int front_fill(const float4* __restrict__ boxes,
-                                          int m, const Ray& r, float bound,
-                                          float cur_e, int cur_i, float* be,
-                                          int* bi) {
-  int cnt = 0;
-  for (int b = 0; b < m; ++b) {
-    const float e = slab_entry(boxes + 2 * b, r, bound);
-    if (e >= BIG_F32) continue;
-    if (e < cur_e || (e == cur_e && b <= cur_i)) continue;
-    if (cnt == FRONT_BUF && (e > be[FRONT_BUF - 1] ||
-                             (e == be[FRONT_BUF - 1] && b > bi[FRONT_BUF - 1])))
-      continue;
-    int j = cnt < FRONT_BUF ? cnt : FRONT_BUF - 1;
-    while (j > 0 && (be[j - 1] > e || (be[j - 1] == e && bi[j - 1] > b))) {
-      be[j] = be[j - 1];
-      bi[j] = bi[j - 1];
-      --j;
-    }
-    be[j] = e;
-    bi[j] = b;
-    if (cnt < FRONT_BUF) ++cnt;
-  }
-  return cnt;
 }
 
 }  // namespace

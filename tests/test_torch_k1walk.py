@@ -1,10 +1,11 @@
 """K1's group walk (csrc/trace2.cu with csrc/group_walk.cuh): the coarse
-front over the unions of 8 top-level entries and W lanes per ray.  The
-kernel source runs on the CPU through the host build (each ray's W lanes
-as W threads), for W = 1 and for the lane count the card uses, and is held
-to the plain version (itself held to the JAX package's kernel in
-test_torch_trace2.py and test_torch_instancing.py) with no lane differing;
-the coarse tables are the JAX package's."""
+front over the unions of 8 top-level entries and W lanes per ray, and the
+window walk on the same front.  The kernel source runs on the CPU through
+the host build (each ray's W lanes as W threads), for W = 1 and for the
+lane counts the card uses, and is held to the plain version (itself held
+to the JAX package's kernel in test_torch_trace2.py and
+test_torch_instancing.py) with no lane differing; the coarse tables are
+the JAX package's."""
 import shutil
 
 import numpy as np
@@ -30,6 +31,7 @@ def _jax_native_builder():
 torch.set_num_threads(2)
 
 LANES = (1, 8)          # one lane per ray, and the card's group width
+WINDOW_LANES = (1, 8, 16)   # ... and the card's window-walk width
 
 
 def _rays(seed, n, spread, t_far):
@@ -89,12 +91,14 @@ def _tables(kind):
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    """csrc/trace2.cu as host code at each lane count of LANES."""
+    """csrc/trace2.cu as host code at each lane count of LANES (the group
+    walk's and the window walk's)."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source as host code")
     out = tmp_path_factory.mktemp("k1walk")
     return {w: trace2.bind(cubuild.host_library(
-        "trace2", out, {"TRACE2_LANES": w})) for w in LANES}
+        "trace2", out, {"TRACE2_LANES": w, "TRACE2_WINDOW_LANES": w}))
+        for w in sorted(set(LANES + WINDOW_LANES))}
 
 
 def test_torch_k1walk_coarse_tables_match_jax():
@@ -213,3 +217,38 @@ def test_torch_k1walk_modes_match_plain(host_libs, w, kind):
             _, k, _ = trace2._launch_kernel(tabs, o, d, t_max, True, False,
                                             0, time, host_lib=host_libs[w])
             assert torch.equal(k >= 0, pk >= 0)
+
+
+@pytest.mark.parametrize("kind", ["masked", "instanced_masked"])
+@pytest.mark.parametrize("w", WINDOW_LANES)
+def test_torch_k1walk_window_masked(host_libs, w, kind):
+    """The window walk (windows 2 and 4, pops = 2 * window) at W lanes per
+    ray on alpha-masked tables, plain and instanced, as path C runs it on
+    its amask 1 / 2 passes: against the window=1, pops=1 walk the same
+    keys (-2 = solid) and bit-equal t at amask 1 and 2, and (amask 0) the
+    same occlusion flags of any-hit walks; the keys also equal the plain
+    version's."""
+    tabs, time, amasks = _tables(kind)
+    o, d, t_max = _rays(28, 400, 6.0, 9.0)
+    lib = host_libs[w]
+    for amask in (0,) + amasks:
+        for any_hit in ((False, True) if amask == 0 else (False,)):
+            bt, bk, _ = trace2._launch_kernel(tabs, o, d, t_max, any_hit,
+                                              False, amask, time,
+                                              host_lib=lib)
+            if not any_hit:
+                pt, pk = trace2._plain_slots(tabs, o, d, t_max, amask=amask,
+                                             time=time)
+                assert torch.equal(bk, pk) and torch.equal(bt, pt), amask
+            assert (bk >= 0).sum() > 50
+            if amask == 2:
+                assert (bk == -2).sum() > 20
+            for window in (2, 4):
+                t, k, _ = trace2._launch_kernel(
+                    tabs, o, d, t_max, any_hit, False, amask, time,
+                    host_lib=lib, window=window, pops=2 * window)
+                if any_hit:
+                    assert torch.equal(k >= 0, bk >= 0), window
+                else:
+                    assert torch.equal(k, bk) and torch.equal(t, bt), \
+                        (amask, window)

@@ -88,38 +88,59 @@ def test_torch_leaf_inputs_are_the_tool_construction(jax_tool, inputs):
 
 @pytest.fixture(scope="module")
 def host_leaf(tmp_path_factory):
-    """csrc/leaf.cu's scalar modes compiled as plain C++ (its host entry:
-    the tensor-core and cp.async code is CUDA only)."""
+    """csrc/leaf.cu's scalar modes compiled as plain C++ at each lane count
+    the kernel can be built for (its host entry, W lanes per ray as W
+    threads: the tensor-core and cp.async code is CUDA only)."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source as host code")
-    return bl.bind(cubuild.host_library("leaf",
-                                        tmp_path_factory.mktemp("leaf")))
+    out = tmp_path_factory.mktemp("leaf")
+    return {w: bl.bind(cubuild.host_library("leaf", out, {"LEAF_LANES": w}))
+            for w in bl.LANES}
 
 
+@pytest.mark.parametrize("lanes", bl.LANES)
 @pytest.mark.parametrize("mode", ["vpu", "vpu_rec", "vpu_cond", "vpu_dma",
                                   "vpu_while"])
 @pytest.mark.parametrize("k2", [16, 64])
-def test_torch_leaf_kernel_source_matches_plain(host_leaf, mode, k2):
-    """The kernel's scalar modes (their arithmetic and loop-carried
-    updates, through the host build) equal the plain version bit for
-    bit."""
+def test_torch_leaf_kernel_source_matches_plain(host_leaf, mode, k2, lanes):
+    """The kernel's scalar modes (their arithmetic, the lane split with
+    its (t, least slot) group reduction and the loop-carried updates,
+    through the host build) equal the plain version bit for bit at every
+    lane count the kernel can be built for."""
     tabs = bl.kernel_tables(bl.make_inputs(k2, seed=3), "cpu")
     n_iter = 40
     out = np.empty(128, np.float32)
-    rc = host_leaf.leaf_host(bl.MODES.index(mode),
-                             tabs["tri_rows"].data_ptr(),
-                             tabs["rays"].data_ptr(),
-                             tabs["hbm_rows"].data_ptr(), k2, bl.N_BLK,
-                             n_iter, out.ctypes.data)
+    lib = host_leaf[lanes]
+    rc = lib.leaf_host(bl.MODES.index(mode), tabs["tri_rows"].data_ptr(),
+                       tabs["rays"].data_ptr(), tabs["hbm_rows"].data_ptr(),
+                       k2, bl.N_BLK, n_iter, out.ctypes.data)
     assert rc == 0
     want = bl.leaf_plain(mode, tabs, k2, n_iter).numpy()
     assert (want < 1e29).sum() > 5
     np.testing.assert_array_equal(out, want)
     # the host entry refuses the tensor-core modes
-    assert host_leaf.leaf_host(1, tabs["tri_rows"].data_ptr(),
-                               tabs["rays"].data_ptr(),
-                               tabs["hbm_rows"].data_ptr(), k2, bl.N_BLK,
-                               1, out.ctypes.data) != 0
+    assert lib.leaf_host(1, tabs["tri_rows"].data_ptr(),
+                         tabs["rays"].data_ptr(), tabs["hbm_rows"].data_ptr(),
+                         k2, bl.N_BLK, 1, out.ctypes.data) != 0
+
+
+@pytest.mark.parametrize("mode", ["mxu_hi", "mxu_3x", "mxu_1x"])
+def test_torch_leaf_mxu_staging_model(mode):
+    """The tensor-core modes stage B in wgmma's core-matrix layout: a model
+    of that staging (bench_leaf.stage_b), read back through the addresses
+    of the kernel's descriptors (unstage_b), gives B exactly, so the
+    product through it is bench_leaf._product's result bit for bit."""
+    k2 = 128
+    inp = bl.make_inputs(k2, seed=5)
+    trib = torch.from_numpy(inp["trib"])
+    flat = bl.stage_b(trib, mode)
+    assert flat.shape == (16 * 4 * k2,)
+    assert not torch.equal(flat, trib.reshape(-1))      # a real permutation
+    back = bl.unstage_b(flat, mode, k2)
+    assert torch.equal(back, trib)
+    a = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(128, 16)).astype(np.float32))
+    assert torch.equal(bl._mxu_q(mode, a, back), bl._mxu_q(mode, a, trib))
 
 
 def test_torch_leaf_run_refuses_bad_input():
@@ -131,13 +152,16 @@ def test_torch_leaf_run_refuses_bad_input():
 @pytest.mark.cuda
 def test_torch_leaf_kernel_matches_plain_on_card():
     """On the card: every mode of csrc/leaf.cu against its plain version
-    (vpu modes bit for bit, tensor-core modes within 1e-3 relative)."""
+    (vpu modes bit for bit in the build of every lane count, tensor-core
+    modes within 1e-3 relative)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tabs = bl.kernel_tables(bl.make_inputs(256), "cuda")
-    for mode in bl.MODES:
-        got = bl.leaf_run(mode, tabs, 256, 16)
-        ref = bl.leaf_plain(mode, tabs, 256, 16)
-        torch.cuda.synchronize()
-        assert bl.max_rel_err(got, ref) <= (1e-3 if mode.startswith("mxu")
-                                            else 0.0), mode
+    for lanes in bl.LANES:
+        lib = bl.build(lanes=lanes) if lanes != bl.DEFAULT_LANES else None
+        for mode in bl.MODES:
+            got = bl.leaf_run(mode, tabs, 256, 16, lib)
+            ref = bl.leaf_plain(mode, tabs, 256, 16)
+            torch.cuda.synchronize()
+            assert bl.max_rel_err(got, ref) <= (
+                1e-3 if mode.startswith("mxu") else 0.0), (mode, lanes)
