@@ -71,7 +71,7 @@ device summary only when every phase passed):
      and any-hit on the plain opaque tables, K1 instanced amask 1 / 2 on
      the alpha tables; its rays per sample and image mean are printed
      beside phase 5's;
-  7. path B: sanmiguel_analog(n_tris=60,000, foliage=600), same settings,
+  7. path B: sanmiguel_analog(n_tris=60,000, foliage=600), depth 32,
      one frame: K2 in its four plain modes;
      h. (after phase 5's frame) K1's new modes on the faithful scene's
         10.5M-triangle opaque tables with 65,280 bounce rays: the schedules
@@ -104,10 +104,30 @@ device summary only when every phase passed):
      forward's radiance bit-equal to trace_regen's (every queue group at
      depth 8, the first at depth 64); with --sections, both regenerating
      runs once more with a timer around each section of the backward;
-  8. path D: spheres_medium at 1920x1080, integrator="volpath", depth 64,
+  8. path D: spheres_medium at 1920x1080, integrator="volpath", depth 32,
      1 spp, regenerate=True (its own five analytic prims: no kernel; the
      volpath kernel launches come from phase 3's small renders of a medium
      bounded by a 4,992-triangle mesh, through K2 and through K1);
+  8b. [cli] the command line and what it reaches: (1) writes
+     sanmiguel_analog(faithful=False)'s geometry (10.5M triangles, two
+     diffuse materials as factors, no image) as a .glb; (2) runs
+     `pathtracing_tpu_torch.__main__.main(["render", "--model", <glb>,
+     "--cache", <npz>, ...])` at 1920x1080, 1 spp, depth 32, --regen,
+     --env-light 0.35 --sun 3 and the legacy camera, printing the import,
+     build, cache-save and render seconds, RenderTimer's JSON line, K1's
+     launches in the frame (> 0) and accel; (3) runs it again from the
+     cache: the film must be bit-equal, the cache-load seconds printed
+     beside the build's; (4) renders the same model lit by a 2048x1024
+     HDR sky (io/hdr.write_hdr, add_env_light_from_file: 1024x512 tables)
+     through render() at 1920x1080, depth 32: finite, mean > 0, its
+     seconds and rays per sample; (5) holds the card to the CPU by the
+     99% rule on a 4,802-triangle OBJ through the native parser (K2, then
+     K1 under PT_TWOLEVEL_MIN=0), a glTF with an emissive-textured quad
+     (texture through the builder's pool) and a function light with an
+     env map, resumes an interrupted --checkpoint run bit-equal to one
+     uninterrupted run and prints --adaptive's mean spp; (6) holds
+     render_sharded on a one-rank nccl group to render() (rtol=2e-4,
+     atol=2e-5).  The .glb, the cache and the sky are deleted after;
   9. K4 (csrc/leaf.cu, tools/bench_leaf.py): every mode against its plain
      version at n_iter=16 (the scalar modes at every lane count), then the
      JAX tool's defaults (K2=256, n_iter=2000) in ROUNDS interleaved rounds
@@ -122,7 +142,8 @@ Every K1 mode is timed at pops 1 ("ms") and at the main path's pops 4
 rounds, each round timing every mode of the phase in turn: "ms" is the
 median, "ms_spread" (max - min) / median.
 Writes chiprun_out/sanmiguel_{legacy,faithful,multipass,tlas,small}.ppm,
-chiprun_out/spheres_medium.ppm and the whole output to
+chiprun_out/spheres_medium.ppm, chiprun_out/cli_{legacy,hdr}.ppm and the
+whole output to
 chiprun_out/chip_smoke.log.
 
 The script imports nothing of JAX.  Tolerances: a kernel and its plain
@@ -139,6 +160,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import struct
 import subprocess
 import sys
 import time
@@ -147,7 +170,9 @@ from pathlib import Path
 RES = (1920, 1080)          # both paths: San-Miguel analog at 1080p,
 N_TRIS = 10_500_000         # 10.5M-triangle terrain;
 DEPTH = 32                  # the legacy path's depth,
-DEPTH_FAITHFUL = 64         # the faithful path's and path D's,
+DEPTH_FAITHFUL = 64         # the faithful path's, path C's and path A's,
+DEPTH_BD = 32               # paths B and D (cut from 64 so the whole script,
+                            # [cli] included, stays well inside its limit)
 FOLIAGE = 2500              # shrub instances (96 alpha triangles each)
 N_TRIS_SMALL = 60_000       # path B: the courtyard at the size of one
 FOLIAGE_SMALL = 600         # imported model, on the single-level kernel
@@ -1530,6 +1555,395 @@ def _grad_frames(scene, cam, meta, frame_s, frame_launches, sections):
     return out
 
 
+# ---------------------------------------------------------------------------
+# [cli]: the command line and what it reaches
+# ---------------------------------------------------------------------------
+
+LEGACY_CAM = ("6,26,6", "60,2,60", 65.0)    # look-from, look-at, fov (deg)
+HDR_SKY = (2048, 1024)                      # the HDR frame's sky, W x H
+SHARD_TOL = dict(rtol=2e-4, atol=2e-5)      # tests/test_parallel.py's
+
+
+def _glb_bytes(meshes):
+    """A binary glTF of `meshes`: (positions [V,3] f32, indices [F,3],
+    (base rgb, roughness)) each, one node, one mesh and one material per
+    entry (factors only: no image, so no Pillow is needed to load it)."""
+    import numpy as np
+    blob, views, accs, nodes, gmeshes, mats = b"", [], [], [], [], []
+    for k, (pos, idx, (rgb, rough)) in enumerate(meshes):
+        pos = np.ascontiguousarray(pos, np.float32)
+        idx = np.ascontiguousarray(idx, np.uint32).reshape(-1)
+        for arr, typ, comp in ((pos, "VEC3", 5126), (idx, "SCALAR", 5125)):
+            views.append({"buffer": 0, "byteOffset": len(blob),
+                          "byteLength": arr.nbytes})
+            acc = {"bufferView": len(views) - 1, "componentType": comp,
+                   "count": len(arr), "type": typ}
+            if typ == "VEC3":
+                acc.update(min=pos.min(0).tolist(), max=pos.max(0).tolist())
+            accs.append(acc)
+            blob += arr.tobytes()
+        gmeshes.append({"primitives": [{
+            "attributes": {"POSITION": len(accs) - 2},
+            "indices": len(accs) - 1, "material": k}]})
+        mats.append({"pbrMetallicRoughness": {
+            "baseColorFactor": [*map(float, rgb), 1.0],
+            "roughnessFactor": float(rough), "metallicFactor": 0.0}})
+        nodes.append({"mesh": k})
+    g = {"asset": {"version": "2.0"}, "scene": 0,
+         "scenes": [{"nodes": list(range(len(nodes)))}], "nodes": nodes,
+         "meshes": gmeshes, "materials": mats,
+         "buffers": [{"byteLength": len(blob)}], "bufferViews": views,
+         "accessors": accs}
+    js = json.dumps(g).encode()
+    js += b" " * (-len(js) % 4)
+    blob += b"\0" * (-len(blob) % 4)
+    body = (struct.pack("<II", len(js), 0x4E4F534A) + js
+            + struct.pack("<II", len(blob), 0x004E4942) + blob)
+    return struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body
+
+
+def _legacy_glb(path, n_tris=N_TRIS):
+    """sanmiguel_analog(faithful=False)'s geometry (scenes.py) as a .glb:
+    the displaced terrain grid of n_tris triangles and the four wall
+    quads (as 8 triangles), with its two diffuse materials."""
+    import numpy as np
+    from pathtracing_tpu_torch.scenes import _sm_height
+    side = max(2, int(math.isqrt(n_tris // 2)) + 1)
+    xs = np.linspace(0.0, 100.0, side, dtype=np.float32)
+    x, z = np.meshgrid(xs, xs, indexing="ij")
+    v = np.stack([x, _sm_height(x, z), z], -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(side - 1), np.arange(side - 1),
+                       indexing="ij")
+    a = (i * side + j).ravel()
+    f = np.concatenate([np.stack([a, a + 1, a + side], -1),
+                        np.stack([a + 1, a + side + 1, a + side], -1)], 0)
+    walls = []
+    for q, u in (([0, -5, 0], [100, 0, 0]), ([0, -5, 100], [100, 0, 0]),
+                 ([0, -5, 0], [0, 0, 100]), ([100, -5, 0], [0, 0, 100])):
+        q, u, w = np.float32(q), np.float32(u), np.float32([0, 30, 0])
+        walls += [q, q + u, q + u + w, q + w]
+    wv = np.stack(walls)
+    wf = np.concatenate([[[4 * k, 4 * k + 1, 4 * k + 2],
+                          [4 * k, 4 * k + 2, 4 * k + 3]] for k in range(4)])
+    Path(path).write_bytes(_glb_bytes([
+        (v, f, ((0.62, 0.55, 0.45), 0.8)), (wv, wf, ((0.55, 0.42, 0.32),
+                                                     0.9))]))
+    return len(f) + len(wf)
+
+
+def _hdr_sky(path):
+    """A procedural HDR sky (HDR_SKY texels: a horizon gradient and a
+    bright sun disc) written with io/hdr.write_hdr."""
+    import numpy as np
+    from pathtracing_tpu_torch.io.hdr import write_hdr
+    w, h = HDR_SKY
+    v, u = np.meshgrid((np.arange(h) + 0.5) / h, (np.arange(w) + 0.5) / w,
+                       indexing="ij")
+    up = np.clip(1.0 - 2.0 * v, 0.0, 1.0)[..., None]
+    img = (0.25 + 0.9 * up) * np.asarray([0.45, 0.6, 1.0]) \
+        + (1.0 - up) * np.asarray([0.35, 0.3, 0.25])
+    sun = ((u - 0.3) ** 2 + (v - 0.2) ** 2) < 0.0006
+    img[sun] = (60.0, 55.0, 45.0)
+    write_hdr(path, img.astype(np.float32))
+
+
+def _small_grid_obj(path):
+    """An OBJ of 4,802 triangles (a 50 x 50 vertex grid), its rows split
+    between four MTL materials, one of them emissive."""
+    lines = ["mtllib grid.mtl"]
+    side = 50
+    for i in range(side):
+        for j in range(side):
+            lines.append(f"v {i * 0.1} {0.05 * math.sin(i * 0.7 + j)} "
+                         f"{j * 0.1}")
+    for i in range(side - 1):
+        lines.append("usemtl " + ("red", "grey", "mirror", "glow")[i % 4])
+        for j in range(side - 1):
+            a = i * side + j + 1
+            lines.append(f"f {a} {a + 1} {a + side}\n"
+                         f"f {a + 1} {a + side + 1} {a + side}")
+    Path(path).write_text("\n".join(lines) + "\n")
+    Path(path).with_name("grid.mtl").write_text(
+        "newmtl red\nKd 0.8 0.2 0.1\nNs 100\nnewmtl grey\nKd 0.5 0.5 0.5\n"
+        "newmtl mirror\nKd 0.02 0.02 0.02\nKs 0.9 0.9 0.9\n"
+        "newmtl glow\nKd 0.1 0.1 0.1\nKe 4 3 2\n")
+
+
+def _small_cam(b, look_from=(2.5, 3.0, -2.0), look_at=(2.5, 0.0, 2.5)):
+    """A sky and a 48x36 camera."""
+    b.add_uniform_inf_light((0.4, 0.5, 0.7))
+    b.set_camera(look_from, look_at, math.radians(50), (48, 36))
+
+
+def _cli_small_checks(render_image, card_counts):
+    """[cli] 5: the card against the CPU (_card_vs_cpu's 99% rule) on a
+    native-parsed OBJ (K2, then K1 under PT_TWOLEVEL_MIN=0), a glTF
+    with an emissive-textured quad, a function light with an env map;
+    an interrupted --checkpoint run resumed bit-equal to one
+    uninterrupted run; --adaptive's mean spp."""
+    import os
+    import numpy as np
+    import torch
+    from pathtracing_tpu_torch import RenderConfig, SamplerConfig
+    from pathtracing_tpu_torch.__main__ import main as cli
+    from pathtracing_tpu_torch.io import load_gltf, load_obj
+    from pathtracing_tpu_torch.native.loader import native_parse_obj
+    from pathtracing_tpu_torch.scene.builder import SceneBuilder
+    from pathtracing_tpu_torch.scenes import cornell_box
+    from pathtracing_tpu_torch.utils.checkpoint import render_with_checkpoints
+    out = Path("chiprun_out") / "cli_small"
+    out.mkdir(parents=True, exist_ok=True)
+    cfg = RenderConfig(spp=4, max_depth=4, integrator="path",
+                       regenerate=True,
+                       sampler=SamplerConfig(x_samples=2, y_samples=2,
+                                             seed=13))
+    obj = out / "grid.obj"
+    _small_grid_obj(obj)
+    if native_parse_obj(obj) is None:
+        raise RuntimeError("the native OBJ parser did not build or load")
+    for two_level in (False, True):
+        if two_level:
+            os.environ["PT_TWOLEVEL_MIN"] = "0"
+        try:
+            b = SceneBuilder()
+            stats = load_obj(obj, b)
+            _small_cam(b)
+            scene, cam, meta = b.build(device="cpu")
+        finally:
+            os.environ.pop("PT_TWOLEVEL_MIN", None)
+        lvl = "K1" if two_level else "K2"
+        if ("pk_l1_base" in scene) != two_level or meta.accel != "pallas":
+            raise RuntimeError(f"the OBJ's tables are not {lvl}'s")
+        counts = {}
+        _card_vs_cpu(render_image, scene, cam, meta, cfg,
+                     f"[cli] OBJ {stats['n_tris']:,} tris (native parser) on "
+                     f"{lvl}, 48x36", counts=counts)
+        _need(counts, ("trace2[closest]",) if two_level
+              else ("trace1[closest]",), f"the OBJ render on {lvl}")
+        for k, v in counts.items():
+            card_counts[k] = card_counts.get(k, 0) + v
+
+    # glTF + an emissive quad textured through the builder's pool
+    glb = out / "terrain.glb"
+    _legacy_glb(glb, n_tris=20_000)
+    b = SceneBuilder()
+    load_gltf(glb, b, scale=0.1)
+    texel = np.random.default_rng(5).uniform(0.0, 6.0, (16, 16, 3))
+    tid = b.textures.add_image(texel.astype(np.float32))
+    b.add_quad([3.0, 1.5, 3.0], [2.0, 0, 0], [0, 0, 2.0], emission=(1, 1, 1),
+               em_tex=tid)
+    _small_cam(b, (1.0, 4.0, -1.0), (5.0, 0.0, 5.0))
+    scene, cam, meta = b.build(device="cpu")
+    if not meta.has_emissive_tex:
+        raise RuntimeError("the glTF scene has no textured emitter")
+    _card_vs_cpu(render_image, scene, cam, meta, cfg,
+                 "[cli] glTF 20K tris + emissive-textured quad, 48x36",
+                 counts=card_counts)
+
+    # a function light and an env map
+    b = SceneBuilder()
+    m = b.add_diffuse((0.6, 0.55, 0.5))
+    b.add_quad([-4, 0, -4], [8, 0, 0], [0, 0, 8], material=m)
+    b.add_sphere([0, 1, 0], 1.0, material=b.add_dielectric(1.5))
+    b.add_sphere([-2, 0.7, 1], 0.7, material=m)
+    sky = np.random.default_rng(6).uniform(0.1, 1.0, (64, 128, 3))
+    sky[10:16, 30:40] *= 40.0
+    b.add_env_light(b.textures.add_image(sky.astype(np.float32)))
+    b.add_function_inf_light(lambda d: np.stack(
+        [1.0 + d[:, 1], 0.5 + 0.5 * d[:, 0] ** 2, np.full(len(d), 0.8)],
+        -1), nx=128, ny=64, scale=0.5)
+    b.set_camera([0, 2.5, -6], [0, 1, 0], 0.75, (48, 36))
+    scene, cam, meta = b.build(device="cpu")
+    _card_vs_cpu(render_image, scene, cam, meta, cfg,
+                 f"[cli] env map + function light (n_env={meta.n_env}), "
+                 f"48x36")
+
+    # --checkpoint: two of four samples, interrupted, then resumed by the
+    # CLI, against one uninterrupted CLI run
+    base = ["render", "--scene", "cornell", "--resolution", "64", "48",
+            "--max-depth", "5", "--spp", "4", "--out",
+            str(out / "cornell.ppm")]
+    ck = out / "ck.npz"
+    render_with_checkpoints(*cornell_box(resolution=(64, 48), device="cuda"),
+                            RenderConfig(spp=4, max_depth=5, sampler=
+                                         SamplerConfig(x_samples=2,
+                                                       y_samples=2, seed=0)),
+                            2, ck, every=1)
+    resumed = cli(base + ["--checkpoint", str(ck), "--checkpoint-every",
+                          "1"])["film"]
+    straight = cli(base)["film"]
+    same = all(torch.equal(resumed[k], straight[k]) for k in ("rgb",
+                                                              "weight"))
+    print(f"[cli] --checkpoint: 2 of 4 samples, interrupted, resumed by the "
+          f"CLI: film bit-equal to one uninterrupted run: {same}",
+          flush=True)
+    if not same:
+        raise RuntimeError("the resumed checkpoint differs")
+    # --spp 16: 4 x 4 strata (the stratified sampler's permutation loops
+    # forever on sample indices past a non-power-of-two strata count, in
+    # both packages, and adaptive waves go past spp; ROADMAP.md section
+    # 3); the textured quad converges within ~10 waves (the Cornell box's
+    # light keeps a few pixels to all 128)
+    r = cli(["render", "--scene", "textured", "--resolution", "48", "36",
+             "--max-depth", "5", "--spp", "16", "--adaptive", "1.5",
+             "--regen", "--out", str(out / "adaptive.ppm")])
+    img = r["film"]["rgb"]
+    print(f"[cli] --adaptive 1.5 (textured_quad 48x36, base 4 spp, up to "
+          f"128 waves): mean_spp "
+          f"{r['adaptive']['mean_spp']:.2f}, traced samples "
+          f"{r['adaptive']['traced_samples']:,}, finite "
+          f"{bool(torch.isfinite(img).all())}", flush=True)
+    if not torch.isfinite(img).all():
+        raise RuntimeError("the adaptive render is not finite")
+
+
+def _shard_check():
+    """[cli] 6: render_sharded on a one-rank nccl group against render()
+    (the regenerating schedule, several tiles)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from pathtracing_tpu_torch import RenderConfig, render
+    from pathtracing_tpu_torch.parallel.distributed import initialize
+    from pathtracing_tpu_torch.parallel.mesh import make_mesh, render_sharded
+    from pathtracing_tpu_torch.scenes import cornell_box
+    from pathtracing_tpu_torch.sensor.film import finalize
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    info = initialize(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        scene, cam, meta = cornell_box(resolution=(96, 64), device="cuda")
+        cfg = RenderConfig(spp=4, max_depth=5, rays_per_batch=1024,
+                           regenerate=True)
+        mesh = make_mesh()
+        got = finalize(render_sharded(scene, cam, meta, cfg, mesh=mesh))
+        want = finalize(render(scene, cam, meta, cfg))
+        ok = torch.allclose(got, want, **SHARD_TOL)
+        print(f"[cli] render_sharded on a one-rank nccl group ({info}, mesh "
+              f"dp={mesh.dp} sp={mesh.sp}) against render(): max |diff| "
+              f"{float((got - want).abs().max()):.3e}, within rtol=2e-4 "
+              f"atol=2e-5: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError("render_sharded disagrees with render()")
+    finally:
+        dist.destroy_process_group()
+
+
+def _cli_phase(render, render_image, filmmod):
+    """[cli]: the CLI on the legacy scene's geometry imported from a .glb
+    (then again from its scene cache, bit-equal), an HDR-lit frame of the
+    same model through the API, the small card-vs-CPU checks and the
+    one-rank sharding check.  Returns the launch counts of the first CLI
+    frame."""
+    import gc
+    import torch
+    from pathtracing_tpu_torch import RenderConfig, SceneBuilder
+    from pathtracing_tpu_torch.__main__ import main as cli
+    from pathtracing_tpu_torch.accel import trace1, trace2
+    from pathtracing_tpu_torch.io import load_gltf
+    out = Path("chiprun_out")
+    glb, npz, hdr = out / "cli_legacy.glb", out / "cli_legacy.npz", \
+        out / "cli_sky.hdr"
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        n = _legacy_glb(glb)
+        print(f"[cli] wrote {glb} ({n:,} triangles, "
+              f"{glb.stat().st_size / 2**20:.1f} MiB) in "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+        look_from, look_at, fov = LEGACY_CAM
+        args = ["render", "--model", str(glb), "--cache", str(npz),
+                "--resolution", str(RES[0]), str(RES[1]), "--spp", "1",
+                "--max-depth", str(DEPTH), "--regen", "--env-light", "0.35",
+                "--sun", "3", "--look-from", look_from, "--look-at", look_at,
+                "--fov", str(fov), "--out", str(out / "cli_legacy.ppm")]
+        runs = []
+        for k in range(2):
+            _reset_counts()
+            t0 = time.perf_counter()
+            r = cli(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _launch_counts()
+            img = filmmod.finalize(r["film"])
+            mean, finite = float(img.mean()), bool(torch.isfinite(img).all())
+            k1 = trace2.tri_intersect2.launches
+            times = {key: round(v, 3) for key, v in r["times"].items()}
+            print(f"[cli] run {k + 1} ({'from the cache' if k else 'import + '
+                  'build + cache save'}): accel={r['meta'].accel} "
+                  f"n_tri={r['meta'].n_tri:,}, seconds {times}, whole run "
+                  f"{wall:.2f}s, K1 launches in the frame {k1} (K2 "
+                  f"{trace1.tri_intersect1.launches}) by mode "
+                  f"{ {m: v for m, v in counts.items() if v} }, image mean "
+                  f"{mean:.5f} finite {finite}", flush=True)
+            print(f"[cli] run {k + 1} RenderTimer: "
+                  f"{json.dumps(r['metrics'])}", flush=True)
+            if not (finite and mean > 0.0 and k1 > 0
+                    and r["meta"].accel == "pallas"):
+                raise RuntimeError(f"CLI run {k + 1} failed its checks")
+            runs.append((r, counts))
+        (r1, counts), (r2, _) = runs
+        same = all(torch.equal(r1["film"][key], r2["film"][key])
+                   for key in ("rgb", "weight"))
+        print(f"[cli] second run's film bit-equal to the first: {same}; "
+              f"cache load {r2['times']['cache_load_s']:.2f}s against "
+              f"import {r1['times']['import_s']:.2f}s + build "
+              f"{r1['times']['build_s']:.2f}s (+ cache save "
+              f"{r1['times']['cache_save_s']:.2f}s, "
+              f"{npz.stat().st_size / 2**30:.2f} GiB)", flush=True)
+        if not same:
+            raise RuntimeError("the cached run's film differs")
+        _need(counts, ("trace2[closest]", "trace2[any_hit]"),
+              "the CLI frame")
+        del runs, r1, r2
+        npz.unlink()
+        gc.collect()
+
+        # 4. an HDR-lit frame of the same model through the API
+        t0 = time.perf_counter()
+        _hdr_sky(hdr)
+        t_sky = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = SceneBuilder()
+        load_gltf(glb, b)
+        b.add_env_light_from_file(hdr)
+        b.set_camera([float(x) for x in look_from.split(",")],
+                     [float(x) for x in look_at.split(",")],
+                     math.radians(fov), RES)
+        scene, cam, meta = b.build(device="cuda")
+        torch.cuda.synchronize()
+        print(f"[cli] HDR-lit scene: sky {HDR_SKY[0]}x{HDR_SKY[1]} written "
+              f"in {t_sky:.2f}s; import + env tables "
+              f"{meta.env_nx}x{meta.env_ny} (n_env={meta.n_env}) + build "
+              f"{time.perf_counter() - t0:.2f}s, accel={meta.accel}",
+              flush=True)
+        if (meta.env_nx, meta.env_ny, meta.n_env) != (1024, 512, 1):
+            raise RuntimeError("the HDR sky's env tables are not 1024x512")
+        cfg = RenderConfig(spp=1, max_depth=DEPTH, integrator="path",
+                           rays_per_batch=65536, regenerate=True)
+        hdr_counts, hdr_frame = _frame(render, filmmod, scene, cam, meta, cfg,
+                                       f"[cli] HDR-lit imported model d{DEPTH}",
+                                       "cli_hdr.ppm")
+        _need(hdr_counts, ("trace2[closest]", "trace2[any_hit]"),
+              "the HDR-lit frame")
+        del scene, cam
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for f in (glb, npz, hdr):
+            f.unlink(missing_ok=True)
+
+    # 5. small card-vs-CPU checks; 6. one-rank sharding
+    small_counts = {}
+    _cli_small_checks(render_image, small_counts)
+    _shard_check()
+    print(f"[cli] phase {time.perf_counter() - t_phase:.1f}s (HDR frame "
+          f"{hdr_frame['seconds']:.2f}s, {hdr_frame['rays_per_sample']:.3f} "
+          f"rays per sample)", flush=True)
+    return counts
+
+
 class _Tee:
     """stdout that also lands in a file, so a long output is kept whole."""
 
@@ -2018,8 +2432,9 @@ def main() -> int:
     kern["trace1[amask1]"] = r["amask1"]
     kern["trace1[amask2]"] = r["amask2"]
     del alpha, ob, db, of, df
-    path_b, _ = _frame(render, filmmod, scene, cam, meta, cfg,
-                       f"path B d{DEPTH_FAITHFUL} (single-level kernel)",
+    path_b, _ = _frame(render, filmmod, scene, cam, meta,
+                       dataclasses.replace(cfg, max_depth=DEPTH_BD),
+                       f"path B d{DEPTH_BD} (single-level kernel)",
                        "sanmiguel_small.ppm")
     _need(path_b, [f"trace1[{m}]" for m in ("closest", "any_hit", "amask1",
                                             "amask2")], "path B")
@@ -2028,12 +2443,15 @@ def main() -> int:
 
     # ---- 8. path D: volpath on the scene's own analytic prims
     scene, cam, meta = spheres_medium(resolution=RES, device=dev)
-    cfg_d = RenderConfig(spp=1, max_depth=DEPTH_FAITHFUL, integrator="volpath",
+    cfg_d = RenderConfig(spp=1, max_depth=DEPTH_BD, integrator="volpath",
                          rays_per_batch=65536, regenerate=True)
     path_d, _ = _frame(render, filmmod, scene, cam, meta, cfg_d,
-                       f"path D volpath spheres_medium d{DEPTH_FAITHFUL}",
+                       f"path D volpath spheres_medium d{DEPTH_BD}",
                        "spheres_medium.ppm")
     del scene
+
+    # ---- 8b. [cli]: the command line and what it reaches
+    cli_counts = _cli_phase(render, render_image, filmmod)
 
     # ---- 9. K4, the leaf micro-benchmark, through its own entry point
     leaf_rows, leaf_counts = _leaf_phase()
@@ -2047,7 +2465,7 @@ def main() -> int:
     frames = (("the faithful frame, 1080p depth 64", faithful),
               ("the path C frame, 1080p depth 64", path_c),
               ("the path A frame, 1080p depth 64", path_a),
-              ("the path B frame, 1080p depth 64", path_b),
+              (f"the path B frame, 1080p depth {DEPTH_BD}", path_b),
               (f"the K4 run at its defaults (K2={LEAF_K2}, n_iter="
                f"{LEAF_ITERS}; warm-up, timed runs and the n_iter=0 "
                f"baseline)", leaf_counts))
@@ -2088,6 +2506,7 @@ def main() -> int:
                "launches_path_a": path_a.get(name, 0),
                "launches_path_b": path_b.get(name, 0),
                "launches_path_d": path_d.get(name, 0),
+               "launches_cli_frame": cli_counts.get(name, 0),
                "library_ms": None}
         row.update(kern[name])
         if row["library_ms"] is None and "library" not in row:

@@ -7,8 +7,8 @@ camera, and `dataclasses.asdict(meta)`) and returns this package's
 (scene, cam, SceneMeta) on `device`.  Nothing of the JAX package is
 imported: the caller does the NumPy conversion.
 
-Geometry, material, texture, light and media tables carry over as they
-are, the run-time instance tables (otri_*, inst_*, ilight_map) and the
+Geometry, material, texture, light (environment tables and emission
+textures included) and media tables carry over as they are, the run-time instance tables (otri_*, inst_*, ilight_map) and the
 velocities (*_vel) included.  The reference's traversal tables are laid
 out for its TPU kernels, so for a meta.accel == "pallas" scene the
 tables (single- or two-level as the reference scene has them, plain or
@@ -39,7 +39,8 @@ _SCENE_KEYS = (
     "tex_texels", "tex_info_i", "tex_info_f",
     "light_type", "light_color", "light_vec", "light_shape", "light_flags",
     "light_area", "light_power", "light_cdf", "light_total_power",
-    "inf_idx", "scene_lo", "scene_hi")
+    "inf_idx", "scene_lo", "scene_hi", "light_emtex", "light_env_slot",
+    "env_weights", "env_cdf", "env_total")
 _INST_KEYS = ("otri_v", "otri_n", "otri_uv", "otri_tan", "otri_prop",
               "inst_fwd", "inst_inv", "inst_nrm", "inst_base", "inst_count",
               "inst_slot_base", "inst_vel", "ilight_map")
@@ -53,18 +54,10 @@ _CAM_KEYS = ("origin", "u", "v", "w", "half_wh", "defocus_radius",
              "focus_distance", "shutter")
 
 
-def _check_supported(f: dict):
-    unsupported = [k for k in ("n_env", "has_emissive_tex") if f.get(k)]
-    if unsupported:
-        raise NotImplementedError(
-            f"scene uses features not ported yet: {unsupported}")
-
-
 def from_numpy_scene(scene: dict, cam: dict, meta_fields: dict, device=None):
     """(scene, cam, meta) of the reference package, as NumPy / Python
     values -> this package's (scene, cam, SceneMeta) on `device`."""
     dev = resolve_device(device)
-    _check_supported(meta_fields)
     arrays = {k: np.asarray(scene[k]) for k in _SCENE_KEYS
               if k in scene and k != "tri_pack"}
     n_tri = int(meta_fields.get("n_tri", 0))

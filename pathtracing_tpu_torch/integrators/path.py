@@ -85,10 +85,6 @@ class RenderConfig:
 
 
 def _check_cfg(cfg: RenderConfig, meta):
-    if meta.n_env or meta.has_emissive_tex:
-        raise NotImplementedError(
-            "scene uses features not ported yet (environment or emissive "
-            "textures)")
     if cfg.integrator not in ("path", "simple", "volpath"):
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
 

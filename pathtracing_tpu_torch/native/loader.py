@@ -1,6 +1,6 @@
 """ctypes loaders for the native C++ helpers: the SAH BVH builder
-(bvh_builder.cpp) and the C library's float32 sin/cos/atan2 over arrays
-(libm_vec.cpp).
+(bvh_builder.cpp), the C library's float32 sin/cos/atan2 over arrays
+(libm_vec.cpp) and the Wavefront OBJ geometry parser (obj_parser.cpp).
 
 Each source compiles with g++ on first use into
 `pathtracing_tpu_torch/_build/<name>_<hash>.so` (a plain C ABI loaded with
@@ -123,3 +123,66 @@ def native_build_bvh(lo: np.ndarray, hi: np.ndarray, leaf_max: int):
     nn = int(counts[0])
     return (wlo[:nn].copy(), whi[:nn].copy(), wchild[:nn].copy(),
             order, int(counts[1]))
+
+
+def _declare_obj(lib):
+    lib.obj_open.restype = ctypes.c_void_p
+    lib.obj_open.argtypes = [ctypes.c_char_p]
+    lib.obj_counts.restype = None
+    lib.obj_counts.argtypes = [ctypes.c_void_p] + \
+        [ctypes.POINTER(ctypes.c_int64)] * 8
+    lib.obj_fill.restype = None
+    lib.obj_fill.argtypes = [
+        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_char_p]
+    lib.obj_free.restype = None
+    lib.obj_free.argtypes = [ctypes.c_void_p]
+
+
+def _get_obj_lib():
+    return _load("obj_parser", ["-O3", "-march=native", "-std=c++20"],
+                 _declare_obj)
+
+
+def native_parse_obj(path):
+    """Parse OBJ geometry with the C++ parser.  Returns dict(v [V,3] f32,
+    vn [N,3] f32, vt [T,2] f32, tri [F,3,3] i64 (vi, ti, ni; -1 absent),
+    tri_mat [F] i32 (usemtl index, -1 none), usemtl [list[str]],
+    mtllib [list[str]]), or None without a toolchain or when the file
+    cannot be read."""
+    lib = _get_obj_lib()
+    if lib is None:
+        return None
+    h = lib.obj_open(str(path).encode())
+    if not h:
+        return None
+    try:
+        c = [ctypes.c_int64(0) for _ in range(8)]
+        lib.obj_counts(h, *[ctypes.byref(x) for x in c])
+        nv, nvn, nvt, ntri, _, use_b, _, lib_b = [int(x.value) for x in c]
+        v = np.empty((nv, 3), np.float32)
+        vn = np.empty((nvn, 3), np.float32)
+        vt = np.empty((nvt, 2), np.float32)
+        tri = np.empty((ntri, 3, 3), np.int64)
+        tri_mat = np.empty((ntri,), np.int32)
+        use_blob = ctypes.create_string_buffer(max(use_b, 1))
+        lib_blob = ctypes.create_string_buffer(max(lib_b, 1))
+
+        def p(a, t):
+            return a.ctypes.data_as(ctypes.POINTER(t))
+
+        lib.obj_fill(h, p(v, ctypes.c_float), p(vn, ctypes.c_float),
+                     p(vt, ctypes.c_float), p(tri, ctypes.c_int64),
+                     p(tri_mat, ctypes.c_int32), use_blob, lib_blob)
+
+        def names(blob, n):
+            return (blob.raw[:n].decode(errors="replace").split("\0")[:-1]
+                    if n else [])
+
+        return dict(v=v, vn=vn, vt=vt, tri=tri, tri_mat=tri_mat,
+                    usemtl=names(use_blob, use_b),
+                    mtllib=names(lib_blob, lib_b))
+    finally:
+        lib.obj_free(h)

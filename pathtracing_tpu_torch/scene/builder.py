@@ -4,11 +4,13 @@ Same API for the features this package runs: the texture pool,
 materials (diffuse, dielectric, thin dielectric, conductor) with base /
 roughness / metallic / normal / alpha textures and alpha modes, spheres,
 quads and triangle meshes with uvs and authored tangents (emissive ones
-become area lights), models instanced as world triangles or kept as
-run-time instances (with per-instance area lights for emissive models),
-linear motion (`velocity=` on shapes, meshes, instances and point
-lights, `set_camera(shutter=)`), uniform-infinite / distant / point
-lights, homogeneous media and the camera.  `build()` packs NumPy tables
+become area lights, with a flat or a textured emission), models instanced
+as world triangles or kept as run-time instances (with per-instance area
+lights for emissive models), linear motion (`velocity=` on shapes,
+meshes, instances and point lights, `set_camera(shutter=)`),
+uniform-infinite, environment-map (from a texture, an image file or a
+function of direction, each with its own importance table), distant and
+point lights, homogeneous media and the camera.  `build()` packs NumPy tables
 into torch tensors on the device, builds the traversal tables for
 triangle scenes (`build_traversal_tables`: single- or two-level, plain or
 instanced, split into an opaque and an alpha set, the latter with
@@ -17,7 +19,7 @@ material) or the beam backend's block cut (accel/build.py::build_beam)
 and returns (scene, cam, SceneMeta).
 
 Not in this package yet, and refused with NotImplementedError:
-environment / function / emissive-texture lights and accel="bvh".
+accel="bvh" (the reference package's per-ray wide-BVH backend).
 """
 from __future__ import annotations
 
@@ -34,9 +36,9 @@ from ..core.bsdf import (MAT_DIFFUSE, MAT_DIELECTRIC, MAT_THIN_DIELECTRIC,
                          MAT_CONDUCTOR)
 from .alphamask import build_tri_alpha_masks
 from .textures import TexturePool
-from .types import (SceneMeta, LIGHT_UNIFORM_INF, LIGHT_DISTANT, LIGHT_POINT,
-                    LIGHT_AREA, SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD, SHAPE_ITRI,
-                    ALPHA_OPAQUE)
+from .types import (SceneMeta, LIGHT_UNIFORM_INF, LIGHT_ENV_TEX, LIGHT_DISTANT,
+                    LIGHT_POINT, LIGHT_AREA, SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD,
+                    SHAPE_ITRI, ALPHA_OPAQUE)
 
 BUILD_SECONDS = dict(masks=0.0, tables=0.0)   # of the last table build
 
@@ -62,16 +64,32 @@ def alpha_masks_on() -> bool:
     return os.environ.get("PT_ALPHA_MASK", "1") != "0"
 
 
+_LUM_W = (0.2126, 0.7152, 0.0722)
+
+
 def _lum(c):
-    return float(np.dot(np.asarray(c, np.float64), [0.2126, 0.7152, 0.0722]))
-
-
-def _refuse(what: str):
-    raise NotImplementedError(f"{what} is not in pathtracing_tpu_torch yet")
+    return float(np.dot(np.asarray(c, np.float64), _LUM_W))
 
 
 def _moves(velocity) -> bool:
     return bool(np.abs(np.asarray(velocity, np.float32)).max() > 0)
+
+
+def _table_sphere_uv(d):
+    """core.math.sphere_uv of the env tables' cell-centre directions [K,3]
+    (CPU float32), evaluated as the reference package's builder evaluates
+    it, one operation at a time: |d|^2 summed in order, no fused
+    multiply-add, acos(y) as atan2(sqrt((1 - y)(1 + y)), y), so the
+    tables equal the reference's bit for bit."""
+    from ..core.math import INV_PI, fatan2, fsqrt
+    n2 = ((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])[:, None]
+    pos = n2 > 1e-12
+    p = torch.where(pos, d / fsqrt(torch.where(pos, n2, 1.0)), d)
+    y = torch.clamp(p[:, 1], -1.0, 1.0)
+    theta = fatan2(fsqrt((1.0 - y) * (1.0 + y)), y)
+    phi = fatan2(p[:, 2], p[:, 0])
+    phi = torch.where(phi < 0, phi + 2.0 * np.pi, phi)
+    return torch.stack([phi * (0.5 * INV_PI), theta * INV_PI], -1)
 
 
 class _ChunkedRows:
@@ -349,15 +367,17 @@ class SceneBuilder:
 
     def _maybe_area_light(self, shape_kind, shape_idx, emission, em_tex,
                           one_sided) -> int:
-        if em_tex >= 0:
-            _refuse("an emissive texture")
-        if emission is None:
+        """An area light on the shape when it emits: a flat `emission` or
+        the texture `em_tex` (which takes its place where set)."""
+        if emission is None and em_tex < 0:
             return -1
         self._lights.append(dict(type=LIGHT_AREA,
-                                 color=np.asarray(emission, np.float32),
+                                 color=np.zeros(3, np.float32)
+                                 if emission is None
+                                 else np.asarray(emission, np.float32),
                                  vec=np.zeros(3, np.float32),
                                  shape=(shape_kind, shape_idx),
-                                 one_sided=bool(one_sided)))
+                                 emtex=int(em_tex), one_sided=bool(one_sided)))
         return len(self._lights) - 1
 
     def add_sphere(self, center, radius, material=-1, medium=-1,
@@ -422,17 +442,19 @@ class SceneBuilder:
         first = len(self._tri["v"])
         f = len(indices)
         lids = np.full(f, -1, np.int64)
-        if em_tex >= 0:
-            _refuse("an emissive texture")
-        if emission is not None and _lum(emission) > 0:
+        em_lum = 0.0 if emission is None else _lum(emission)
+        if (emission is not None and em_lum > 0) or em_tex >= 0:
             v0 = vertices[indices[:, 0]]
             e1 = vertices[indices[:, 1]] - v0
             e2 = vertices[indices[:, 2]] - v0
             areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
-            powers = 2.0 * areas * _lum(emission)
-            for t in np.nonzero(powers > emissive_power_cull)[0]:
+            # a textured emitter counts with a 1e-6 luminance floor and is
+            # never culled here
+            powers = 2.0 * areas * max(em_lum, 1e-6 if em_tex >= 0 else 0)
+            for t in np.nonzero((powers > emissive_power_cull)
+                                | (em_tex >= 0))[0]:
                 lids[t] = self._maybe_area_light(SHAPE_TRI, first + int(t),
-                                                 emission, -1, False)
+                                                 emission, em_tex, False)
         self._tri["v"].extend(np.ascontiguousarray(vertices[indices],
                                                    np.float32))
         self._tri["n"].extend(np.ascontiguousarray(normals[indices],
@@ -453,33 +475,62 @@ class SceneBuilder:
 
     # -- lights ---------------------------------------------------------------
 
-    def add_uniform_inf_light(self, color):
-        self._lights.append(dict(type=LIGHT_UNIFORM_INF,
-                                 color=np.asarray(color, np.float32),
-                                 vec=np.zeros(3, np.float32), shape=(-1, -1),
-                                 one_sided=False))
+    def _add_light(self, kind, color, vec=(0.0, 0.0, 0.0), emtex=-1,
+                   **extra):
+        self._lights.append(dict(type=kind, color=np.asarray(color,
+                                                             np.float32),
+                                 vec=np.asarray(vec, np.float32),
+                                 shape=(-1, -1), emtex=int(emtex),
+                                 one_sided=False, **extra))
         return len(self._lights) - 1
 
+    def add_uniform_inf_light(self, color):
+        return self._add_light(LIGHT_UNIFORM_INF, color)
+
     def add_distant_light(self, direction, color):
-        self._lights.append(dict(type=LIGHT_DISTANT,
-                                 color=np.asarray(color, np.float32),
-                                 vec=np.asarray(direction, np.float32),
-                                 shape=(-1, -1), one_sided=False))
-        return len(self._lights) - 1
+        return self._add_light(LIGHT_DISTANT, color, direction)
 
     def add_point_light(self, position, color, velocity=(0.0, 0.0, 0.0)):
         """velocity: the position at ray time t is position + velocity * t."""
-        self._lights.append(dict(type=LIGHT_POINT,
-                                 color=np.asarray(color, np.float32),
-                                 vec=np.asarray(position, np.float32),
-                                 vel=np.asarray(velocity, np.float32),
-                                 shape=(-1, -1), one_sided=False))
-        return len(self._lights) - 1
+        return self._add_light(LIGHT_POINT, color, position,
+                               vel=np.asarray(velocity, np.float32))
 
-    def add_env_light(self, *args, **kwargs):
-        _refuse("an environment-map or function light")
+    def add_env_light(self, tex_id: int, scale: float = 1.0):
+        """Environment light: texture `tex_id` over the sphere_uv
+        parameterisation, times `scale`, importance-sampled through its
+        own luminance table (built at build())."""
+        return self._add_light(LIGHT_ENV_TEX, np.full(3, scale, np.float32),
+                               emtex=tex_id)
 
-    add_env_light_from_file = add_function_inf_light = add_env_light
+    def add_env_light_from_file(self, path, scale: float = 1.0):
+        """Environment light from an image file: .hdr through io/hdr.py,
+        other formats through Pillow (sRGB to linear)."""
+        from pathlib import Path
+        p = Path(path)
+        if p.suffix.lower() == ".hdr":
+            from ..io.hdr import read_hdr
+            # the texture pool samples with a bottom-left origin
+            tid = self.textures.add_image(read_hdr(p)[::-1])
+        else:
+            from PIL import Image
+            arr = np.asarray(Image.open(p).convert("RGB"), np.float32) / 255.0
+            tid = self.textures.add_image(arr[::-1], srgb=True)
+        return self.add_env_light(tid, scale=scale)
+
+    def add_function_inf_light(self, fn, nx=512, ny=256, scale=1.0):
+        """Procedural sky: `fn` maps directions [K,3] to rgb [K,3]
+        (vectorised NumPy); it is baked to an nx x ny equirect texture and
+        becomes an environment light."""
+        xs = (np.arange(nx) + 0.5) / nx
+        ys = (np.arange(ny) + 0.5) / ny
+        u, v = np.meshgrid(xs, ys)              # [ny, nx]
+        theta = np.pi * v
+        phi = 2.0 * np.pi * u
+        dirs = np.stack([np.sin(theta) * np.cos(phi), np.cos(theta),
+                         np.sin(theta) * np.sin(phi)], -1).reshape(-1, 3)
+        rgb = np.asarray(fn(dirs.astype(np.float32)),
+                         np.float32).reshape(ny, nx, 3)
+        return self.add_env_light(self.textures.add_image(rgb), scale=scale)
 
     # -- media ---------------------------------------------------------------
 
@@ -504,8 +555,6 @@ class SceneBuilder:
                   emission=None, em_tex=-1) -> int:
         """Register a reusable model; instance it with add_model_instance.
         Content-identical registrations share one model id."""
-        if em_tex >= 0:
-            _refuse("an emissive texture")
         h = hashlib.sha256()
         for a in (vertices, indices, normals, uvs, tangents):
             if a is None:
@@ -516,13 +565,14 @@ class SceneBuilder:
                 h.update(arr.tobytes())
         key = (h.hexdigest(), int(material), int(medium),
                tuple(np.asarray(emission).tolist())
-               if emission is not None else None)
+               if emission is not None else None, int(em_tex))
         if key in self._model_dedup:
             return self._model_dedup[key]
         self._models.append(dict(vertices=vertices, indices=indices,
                                  normals=normals, uvs=uvs,
                                  tangents=tangents, material=material,
-                                 medium=medium, emission=emission))
+                                 medium=medium, emission=emission,
+                                 em_tex=int(em_tex)))
         self._model_dedup[key] = len(self._models) - 1
         return self._model_dedup[key]
 
@@ -550,8 +600,8 @@ class SceneBuilder:
                                  normals=m["normals"], uvs=m["uvs"],
                                  tangents=m["tangents"],
                                  material=m["material"], medium=m["medium"],
-                                 emission=m["emission"], transform=transform,
-                                 velocity=velocity)
+                                 emission=m["emission"], em_tex=m["em_tex"],
+                                 transform=transform, velocity=velocity)
         if runtime is not True and runtime != "auto":
             raise ValueError(f"runtime must be False, True or 'auto', got "
                              f"{runtime!r}")
@@ -589,16 +639,18 @@ class SceneBuilder:
         # per-instance per-triangle area lights of an emissive model: each
         # names the shared object-space triangle and this instance
         light_first = -1
-        emission = m["emission"]
-        if emission is not None and _lum(emission) > 0:
+        emission, em_tex = m["emission"], m["em_tex"]
+        if (emission is not None and _lum(emission) > 0) or em_tex >= 0:
             light_first = len(self._lights)
-            color = np.asarray(emission, np.float32)
+            color = (np.zeros(3, np.float32) if emission is None
+                     else np.asarray(emission, np.float32))
             for j in range(count):
                 self._lights.append(dict(
                     type=LIGHT_AREA, color=color,
                     vec=np.zeros(3, np.float32),
                     shape=(SHAPE_ITRI, -1),      # finalized in build()
-                    one_sided=False, _inst=(inst_idx, base + j)))
+                    emtex=em_tex, one_sided=False,
+                    _inst=(inst_idx, base + j)))
         vel = np.asarray(velocity, np.float32)
         self._has_motion |= _moves(vel)
         self._inst.append(dict(
@@ -705,16 +757,69 @@ class SceneBuilder:
         return 0.0
 
     def _light_power(self, lt, scene_radius) -> float:
-        """Light power with the reference's power-function defaults."""
+        """Light power with the reference's power-function defaults (an env
+        light's from its table's mean luminance, a textured emitter's from
+        its texture's, both set by build())."""
         kind = lt["type"]
         if kind in (LIGHT_UNIFORM_INF, LIGHT_DISTANT):
             return float(np.sum(lt["color"])) * np.sqrt(scene_radius)
+        if kind == LIGHT_ENV_TEX:
+            return (lt.get("_mean_lum", 1.0) * float(lt["color"][0])
+                    * np.sqrt(scene_radius))
         if kind == LIGHT_POINT:
             return float(np.sum(lt["color"])) * 4.0 * scene_radius
         if kind == LIGHT_AREA:
             area = self._shape_area(*lt["shape"])
-            return (1.0 if lt["one_sided"] else 2.0) * area * _lum(lt["color"])
+            em = (lt.get("_mean_em", 1.0) if lt["emtex"] >= 0
+                  else _lum(lt["color"]))
+            return (1.0 if lt["one_sided"] else 2.0) * area * em
         return 0.0
+
+    def _build_env_tables(self, tex_arrays, nx=1024, ny=512):
+        """Luminance importance tables over the (z, azimuth) grid, one per
+        env light (every env light before the power cull, in order): the
+        light's radiance at each cell centre.  Sets each env light's
+        "_mean_lum" and "_env_slot".  Returns (tables or None, nx, ny)."""
+        from .textures import texture_eval
+        env = [lt for lt in self._lights if lt["type"] == LIGHT_ENV_TEX]
+        if not env:
+            return None, 0, 0
+        us, vs = np.meshgrid((np.arange(nx) + 0.5) / nx,
+                             (np.arange(ny) + 0.5) / ny, indexing="ij")
+        uv = np.stack([us, vs], -1).reshape(-1, 2).astype(np.float32)
+        z = 2.0 * uv[:, 0] - 1.0
+        theta = 2.0 * np.pi * uv[:, 1]
+        r = np.sqrt(np.maximum(0.0, 1.0 - z * z))
+        dirs = np.stack([r * np.cos(theta), r * np.sin(theta), z], -1)
+        tex = {k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in tex_arrays.items()}
+        suv = _table_sphere_uv(torch.from_numpy(dirs.astype(np.float32)))
+        weights, cdfs, totals = [], [], []
+        for slot, light in enumerate(env):
+            ids = torch.full((len(uv),), light["emtex"], dtype=torch.int64)
+            rgb = texture_eval(tex, ids, suv).numpy() * float(
+                light["color"][0])
+            lum = rgb @ np.asarray(_LUM_W, np.float32)
+            light["_mean_lum"] = float(lum.mean())
+            light["_env_slot"] = slot
+            cdf = np.cumsum(lum.astype(np.float64))
+            total = float(cdf[-1]) if cdf[-1] > 0 else 1.0
+            weights.append(lum.astype(np.float32))
+            cdfs.append((cdf / total).astype(np.float32))
+            totals.append(total)
+        return dict(env_weights=np.stack(weights), env_cdf=np.stack(cdfs),
+                    env_total=np.asarray(totals, np.float32)), nx, ny
+
+    def _set_emissive_means(self, tex_arrays):
+        """Mean texel luminance of each textured emitter's image (1.0 for
+        a texture with no texels: solid colours, checkers)."""
+        for lt in self._lights:
+            if lt["type"] == LIGHT_AREA and lt["emtex"] >= 0:
+                info = tex_arrays["tex_info_i"][lt["emtex"]]
+                texels = tex_arrays["tex_texels"][
+                    info[1]:info[1] + info[2] * info[3], :3]
+                lt["_mean_em"] = (float((texels @ np.asarray(_LUM_W)).mean())
+                                  if len(texels) else 1.0)
 
     def build(self, power_cull: float = 0.01, accel: str = "auto",
               device=None):
@@ -730,8 +835,13 @@ class SceneBuilder:
         falls back to "brute"; "brute" forces the scan (and builds no
         alpha micro-masks: it is the unmasked oracle)."""
         dev = resolve_device(device)
+        if accel == "bvh":
+            raise NotImplementedError(
+                "accel='bvh' (the per-ray wide-BVH backend) is not in "
+                "pathtracing_tpu_torch yet; accel='pallas' or 'beam' "
+                "accelerate the same scenes")
         if accel not in ("auto", "pallas", "brute", "beam"):
-            raise NotImplementedError(f"accel={accel!r} is not ported")
+            raise ValueError(f"unknown accel {accel!r}")
         self._maybe_flatten_instances()
         n_inst = len(self._inst)
         n_obj_tri = len(self._obj["v"]) if n_inst else 0
@@ -744,6 +854,9 @@ class SceneBuilder:
         lo, hi = self._scene_bounds()
         center = 0.5 * (lo + hi)
         scene_radius = float(np.linalg.norm(hi - center)) or 1.0
+        tex_arrays = self.textures.pack()
+        env_tables, env_nx, env_ny = self._build_env_tables(tex_arrays)
+        self._set_emissive_means(tex_arrays)
 
         powers = np.asarray([self._light_power(lt, scene_radius)
                              for lt in self._lights], np.float32)
@@ -804,7 +917,8 @@ class SceneBuilder:
         quad_w = qn_raw / qn_len2
 
         inf_idx = np.asarray([i for i, lt in enumerate(lights)
-                              if lt["type"] == LIGHT_UNIFORM_INF], np.int32)
+                              if lt["type"] in (LIGHT_UNIFORM_INF,
+                                                LIGHT_ENV_TEX)], np.int32)
         tri_v = pad(self._tri["v"], (1, 3, 3))
         tri_n = pad(self._tri["n"], (1, 3, 3))
         tri_uv = pad(self._tri["uv"], (1, 3, 2))
@@ -840,6 +954,10 @@ class SceneBuilder:
                             np.int32, -1),
             light_flags=pad([1 if lt["one_sided"] else 0 for lt in lights],
                             (1,), np.int32),
+            light_emtex=pad([lt["emtex"] for lt in lights], (1,), np.int32,
+                            -1),
+            light_env_slot=pad([lt.get("_env_slot", -1) for lt in lights],
+                               (1,), np.int32, -1),
             light_area=pad([self._shape_area(*lt["shape"])
                             if lt["type"] == LIGHT_AREA else 0.0
                             for lt in lights], (1,)),
@@ -853,7 +971,10 @@ class SceneBuilder:
             med_le=pad(self._med["le"], (1, 3)),
             scene_lo=np.asarray(lo, np.float32),
             scene_hi=np.asarray(hi, np.float32),
-            **self.textures.pack(),
+            **(env_tables or dict(env_weights=np.ones((1, 1), np.float32),
+                                  env_cdf=np.ones((1, 1), np.float32),
+                                  env_total=np.ones((1,), np.float32))),
+            **tex_arrays,
         )
         arrays["med_sigma_t"] = arrays["med_sigma_a"] + arrays["med_sigma_s"]
         has_motion = self._has_motion
@@ -953,6 +1074,8 @@ class SceneBuilder:
         meta = SceneMeta(
             n_tri=nt, n_sph=ns, n_quad=nq, n_mat=nm, n_lights=len(lights),
             n_inf=len(inf_idx), n_media=len(self._med["g"]),
+            env_nx=env_nx, env_ny=env_ny,
+            n_env=0 if env_tables is None else len(env_tables["env_total"]),
             scene_medium=self.scene_medium,
             camera_medium=(self.camera or {}).get("medium", -1),
             light_sampler=self.light_sampler,
@@ -965,6 +1088,7 @@ class SceneBuilder:
             has_normal_maps=bool(nm and (mat_tex_np[:, 3] >= 0).any()),
             mat_tex_present=tuple(bool((mat_tex_np[:, s] >= 0).any())
                                   for s in range(5)),
+            has_emissive_tex=any(lt["emtex"] >= 0 for lt in lights),
             analytic_alpha=analytic_alpha, alpha_cull_mask=alpha_cull_mask)
         return scene, self._pack_camera(dev), meta
 

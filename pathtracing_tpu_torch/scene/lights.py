@@ -2,11 +2,12 @@
 pathtracing_tpu/scene/lights.py).
 
 A typed light table with branch-free per-type math selected by masks and
-a CDF-based power (or uniform) light sampler.  Kinds in this package:
-uniform infinite, distant, point, and area lights on triangles, quads,
-spheres and the triangles of run-time instances; moving shapes and point
-lights are sampled at the ray's shutter time.  Texture-backed kinds (env maps, emissive textures) come with
-textures; the builder refuses them.
+a CDF-based power (or uniform) light sampler.  Kinds: uniform infinite,
+environment map (an equirect texture, importance-sampled through its own
+luminance table over the (z, azimuth) grid), distant, point, and area
+lights on triangles, quads, spheres and the triangles of run-time
+instances, with a flat or a textured emission; moving shapes and point
+lights are sampled at the ray's shutter time.
 
 Conventions: delta lights (distant/point) are never MIS-weighted; infinite
 lights sample directions; area lights sample surface points with the
@@ -18,13 +19,14 @@ import math
 
 import torch
 
-from ..core.math import (fcos, fsin, fsqrt, vdot, safe_normalize,
+from ..core.math import (fatan2, fcos, fsin, fsqrt, vdot, safe_normalize,
                          sphere_uv, uv_to_direction,
                          BIG_F32, pack3, scross, ssafe_normalize, sdot,
                          unpack3)
 from .types import (LIGHT_UNIFORM_INF, LIGHT_ENV_TEX, LIGHT_DISTANT,
                     LIGHT_POINT, LIGHT_AREA, SHAPE_TRI, SHAPE_SPH,
                     SHAPE_ITRI)
+from .textures import texture_eval
 
 INV_4PI = 1.0 / (4.0 * math.pi)
 
@@ -147,18 +149,86 @@ def _shape_solid_angle_pdf(area, ref_p, sample_p, sample_n):
     return torch.where(denom > 0, d2 / torch.clamp(denom, min=1e-18), 0.0)
 
 
+# ---------------------------------------------------------------------------
+# Environment importance tables
+# ---------------------------------------------------------------------------
+
+def _env_cell_of(meta, d):
+    """Cell of the (z, azimuth) grid that direction d falls in."""
+    u = torch.clamp((d[..., 2] + 1.0) * 0.5, 0.0, 1.0 - 1e-7)
+    phi = fatan2(d[..., 1], d[..., 0])
+    v = torch.remainder(phi / (2.0 * math.pi), 1.0)
+    ix = torch.clamp((u * meta.env_nx).to(torch.int64), max=meta.env_nx - 1)
+    iy = torch.clamp((v * meta.env_ny).to(torch.int64), max=meta.env_ny - 1)
+    return ix * meta.env_ny + iy
+
+
+def env_pdf(scene, meta, lid, d):
+    """Solid-angle pdf of env light `lid`'s importance sampler at
+    direction d; each env light has its own table (light_env_slot)."""
+    if meta.env_nx == 0:
+        return torch.full(d.shape[:-1], INV_4PI, dtype=torch.float32,
+                          device=d.device)
+    cell = _env_cell_of(meta, d)
+    slot = torch.clamp(
+        scene["light_env_slot"][_clip_rows(lid, scene["light_env_slot"])],
+        0, max(meta.n_env - 1, 0))
+    cell_omega = 4.0 * math.pi / (meta.env_nx * meta.env_ny)
+    return scene["env_weights"][slot, cell] / torch.clamp(
+        scene["env_total"][slot], min=1e-18) / cell_omega
+
+
+def env_sample_dir(scene, meta, lid, u_cell, uv2):
+    """Importance-sample a direction from env light `lid`'s table: one CDF
+    search per env table (meta.n_env is small), each lane taking its
+    light's result, then a uniform point in the chosen cell."""
+    if meta.env_nx == 0:
+        return uv_to_direction(uv2)
+    slot = scene["light_env_slot"][_clip_rows(lid, scene["light_env_slot"])]
+    ncell = meta.env_nx * meta.env_ny
+    u = u_cell.to(torch.float32).contiguous()
+    idx = torch.zeros(u.shape, dtype=torch.int64, device=u.device)
+    for e in range(meta.n_env):
+        idx_e = torch.searchsorted(scene["env_cdf"][e].contiguous(), u,
+                                   right=False)
+        idx = torch.where(slot == e, idx_e, idx)
+    idx = torch.clamp(idx, max=ncell - 1)
+    ix = (idx // meta.env_ny).to(torch.float32)
+    iy = (idx % meta.env_ny).to(torch.float32)
+    cell_uv = torch.stack([(ix + uv2[..., 0]) / meta.env_nx,
+                           (iy + uv2[..., 1]) / meta.env_ny], -1)
+    return uv_to_direction(cell_uv)
+
+
+# ---------------------------------------------------------------------------
+# Per-light radiance, sampling and pdfs
+# ---------------------------------------------------------------------------
+
 def infinite_le(scene, meta, idx, ray_dir):
-    """Radiance of infinite light `idx` toward -ray_dir (a flat color for
-    every infinite kind in this package)."""
-    return scene["light_color"][_clip_rows(idx, scene["light_color"])] \
-        .expand(ray_dir.shape)
+    """Radiance of infinite light `idx` toward -ray_dir: a flat color, or
+    for an env light its texture at sphere_uv(ray_dir) scaled by the
+    light's scale (held in light_color)."""
+    lid = _clip_rows(idx, scene["light_color"])
+    color = scene["light_color"][lid]
+    if not meta.has_emissive_tex:
+        # no textured light in the scene: every infinite light is flat
+        return color.expand(ray_dir.shape)
+    ltype = scene["light_type"][lid]
+    emtex = scene["light_emtex"][lid]
+    tex = texture_eval(scene, torch.clamp(emtex, min=0), sphere_uv(ray_dir))
+    env = color[..., 0:1] * tex
+    return torch.where((ltype == LIGHT_ENV_TEX)[..., None], env, color)
 
 
 def area_light_L(scene, meta, light_id, geom_n, uv, ray_dir):
-    """Emission toward -ray_dir with the one-sided cut on the geometric
-    normal."""
+    """Emission (flat, or the emission texture at uv) toward -ray_dir with
+    the one-sided cut on the geometric normal."""
     lid = _clip_rows(light_id, scene["light_type"])
     em = scene["light_color"][lid]
+    if meta.has_emissive_tex:
+        emtex = scene["light_emtex"][lid]
+        tex = texture_eval(scene, torch.clamp(emtex, min=0), uv)
+        em = torch.where((emtex >= 0)[..., None], tex, em)
     one_sided = (scene["light_flags"][lid] & 1) > 0
     front = vdot(ray_dir, geom_n) <= 0
     vis = (~one_sided) | front
@@ -187,6 +257,10 @@ def light_sample(scene, meta, idx, ref_p, u_cell, uv2, time=None):
 
     sph_dir = uv_to_direction(uv2)
     inf_dir = sph_dir          # uniform infinite: uniform sphere direction
+    if meta.n_env:
+        inf_dir = torch.where((ltype == LIGHT_ENV_TEX)[..., None],
+                              env_sample_dir(scene, meta, lid, u_cell, uv2),
+                              sph_dir)
     # distant: jittered fixed direction
     dist_dir = safe_normalize(lvec + sph_dir * 0.02)
     p_a, n_a, uv_a = _sample_shape(scene, meta, shape[..., 0],
@@ -243,10 +317,19 @@ def light_sample_pdf(scene, meta, idx, sample, ref_p, shadow_dir):
     front = vdot(-shadow_dir, sample["n"]) > 0
     pdf_area = torch.where(one_sided & ~front, 0.0, pdf_area)
     return torch.where(ltype == LIGHT_AREA, pdf_area,
-                       torch.where(ltype == LIGHT_UNIFORM_INF, INV_4PI, 0.0))
+                       _infinite_pdf(scene, meta, lid, ltype, shadow_dir))
+
+
+def _infinite_pdf(scene, meta, lid, ltype, d):
+    """Direction pdf of uniform-infinite and env lights, 0 for others."""
+    pdf = torch.where(ltype == LIGHT_UNIFORM_INF, INV_4PI, 0.0)
+    if meta.n_env:
+        pdf = torch.where(ltype == LIGHT_ENV_TEX,
+                          env_pdf(scene, meta, lid, d), pdf)
+    return pdf
 
 
 def infinite_light_mis_pdf(scene, meta, idx, ray_dir):
     """Solid-angle pdf of an infinite light's direction sampler."""
-    ltype = scene["light_type"][_clip_rows(idx, scene["light_type"])]
-    return torch.where(ltype == LIGHT_UNIFORM_INF, INV_4PI, 0.0)
+    lid = _clip_rows(idx, scene["light_type"])
+    return _infinite_pdf(scene, meta, lid, scene["light_type"][lid], ray_dir)

@@ -17,7 +17,12 @@ every table padded to >= 1 row so gathers stay well-formed:
   tex_texels[NT,4], tex_info_i[K,6] i32, tex_info_f[K,8] (textures.py)
   light_type[L], light_color[L,3], light_vec[L,3], light_shape[L,2],
   light_flags[L], light_area[L], light_power[L], light_cdf[L],
-  light_total_power[1], inf_idx[LI]
+  light_total_power[1], inf_idx[LI] (uniform-infinite and env lights),
+  light_emtex[L] emission / env texture id (-1: flat), light_env_slot[L]
+  the env light's table row (-1: not an env light)
+  env_weights / env_cdf [E, nx*ny], env_total [E]  per-env-light luminance
+        importance tables over the (z, azimuth) grid, cell ix * ny + iy
+        (one padding row when meta.n_env == 0)
   med_sigma_a/s/t [D,3], med_g [D], med_le [D,3]  homogeneous media
         (absorption, scattering, extinction, HG asymmetry, emission);
         prop column 2 of a shape is the medium on the side its normal
@@ -67,9 +72,7 @@ ALPHA_MASK = 2
 @dataclasses.dataclass(frozen=True)
 class SceneMeta:
     """Same fields as the reference package's SceneMeta, so a scene built
-    there carries across (convert.from_numpy_scene).  Fields for features
-    this package does not run yet (environment and emissive textures)
-    must hold their "absent" values here."""
+    there carries across (convert.from_numpy_scene)."""
     n_tri: int = 0
     n_sph: int = 0
     n_quad: int = 0

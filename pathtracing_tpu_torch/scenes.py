@@ -366,4 +366,5 @@ def sanmiguel_analog(resolution=(1920, 1080), n_tris=10_500_000,
 
 
 SCENES = dict(cornell=cornell_box, furnace=furnace, mat_test=mat_test,
-              textured=textured_quad, sanmiguel_analog=sanmiguel_analog)
+              medium=spheres_medium, textured=textured_quad,
+              sanmiguel_analog=sanmiguel_analog)

@@ -463,10 +463,14 @@ def test_torch_unported_features_still_refused(monkeypatch):
     b.add_mesh(v, f, velocity=(0.0, 1.0, 0.0))
     fog = b.add_medium((0.1,) * 3, (0.1,) * 3)
     b.add_sphere([0, 0, 0], 1.0, medium=fog)
-    with pytest.raises(NotImplementedError):
-        b.add_env_light(0)
-    with pytest.raises(NotImplementedError, match="emissive texture"):
-        b.add_quad([0, 0, 0], [1, 0, 0], [0, 1, 0], em_tex=0)
+    # environment-map and emissive-texture lights are ported as well
+    b3 = tbuilder.SceneBuilder()
+    tid = b3.textures.add_image(np.ones((2, 4, 3), np.float32))
+    b3.add_env_light(tid)
+    b3.add_quad([0, 0, 0], [1, 0, 0], [0, 1, 0], em_tex=tid)
+    b3.set_camera([0, 0, -5], [0, 0, 0], 0.8, (4, 4))
+    meta3 = b3.build(device="cpu")[2]
+    assert meta3.n_env == 1 and meta3.has_emissive_tex and meta3.n_lights == 2
     # an emissive model under "auto" stays a run-time instance with its own
     # area lights, and so does an "auto" total above the flatten limit
     lamp = b.add_model(v, f, emission=(5.0, 5.0, 5.0))

@@ -303,10 +303,11 @@ def test_torch_entry_points_need_a_device_choice():
         t_render(scene, cam, meta, TConfig(spp=1, max_depth=1))
 
 
-def test_torch_faithful_scene_refused():
+def test_torch_faithful_scene_and_env_light():
     """The faithful scene builds (its foliage instances are re-emitted as
-    world triangles by default) and a model can be kept as a run-time
-    instance; what stays refused is an environment-map light."""
+    world triangles by default), a model can be kept as a run-time
+    instance, and an environment-map light builds with the JAX builder's
+    light and importance tables, bit for bit."""
     scene, _, meta = tscenes.sanmiguel_analog(resolution=(8, 8), n_tris=100,
                                               foliage=2, device="cpu")
     assert meta.has_alpha and meta.n_inst == 0 and meta.n_tri > 100 + 2 * 96
@@ -317,8 +318,21 @@ def test_torch_faithful_scene_refused():
     b.set_camera([0, 1, -5], [0, 1, 0], 0.8, (4, 4))
     _, _, meta = b.build(device="cpu")
     assert meta.n_inst == 1 and meta.n_obj_tri == 96 and meta.n_tri == 0
-    with pytest.raises(NotImplementedError):
-        b.add_env_light(np.ones((4, 8, 3), np.float32))
+    from pathtracing_tpu.scene.builder import SceneBuilder as JBuilder
+    sky = np.random.default_rng(5).uniform(0.1, 2.0, (4, 8, 3)).astype(
+        np.float32)
+    built = []
+    for B, kw in ((JBuilder, {}), (tscenes.SceneBuilder, dict(device="cpu"))):
+        b = B()
+        b.add_model_instance(b.add_model(mv, mf), runtime=True)
+        b.add_env_light(b.textures.add_image(sky), scale=1.5)
+        b.set_camera([0, 1, -5], [0, 1, 0], 0.8, (4, 4))
+        built.append(b.build(**kw))
+    (js, _, jm), (ts, _, tm) = built
+    assert tm.n_env == jm.n_env == 1 and tm.has_emissive_tex
+    for k in ("env_weights", "env_cdf", "env_total", "light_env_slot",
+              "light_emtex", "light_power", "light_color", "inf_idx"):
+        np.testing.assert_array_equal(ts[k].numpy(), np.asarray(js[k]), k)
 
 
 def test_torch_package_imports_no_jax():
