@@ -23,7 +23,14 @@ device summary only when every phase passed):
         tables with 65,280 bounce-like rays (the render's dispatch width)
         against the plain version culled by child box, after checking
         that every child box holds its triangles; kernel and plain times
-        and the kernel's bound from its counters;
+        and the kernel's bound from its counters (tools/roofline.py);
+     [bvh] then the accel="bvh" backend (accel/build.build_bvh over the
+        same 10.5M triangles, accel/traverse.bvh_intersect, plain
+        PyTorch) closest and any-hit on the same rays against K1: valid
+        equal, t to rtol=1e-5, triangles equal but on shared edges; build
+        seconds, each dispatch's time and loop iterations; then the CLI's
+        --accel bvh on a 4,802-triangle OBJ, card against CPU by the 99%
+        rule, and one 960x540 1-spp depth-8 frame of it;
      d. (after phase 5's scene build) K1 amask 1 and 2 on the faithful
         scene's full alpha tables (240,000 foliage triangles) with 65,280
         rays through the foliage, the same way; the share of lanes mode 1
@@ -58,19 +65,23 @@ device summary only when every phase passed):
      and PT_WINDOW=2) must agree like the other small renders;
   4. the legacy path: sanmiguel_analog(faithful=False) at 1920x1080, path
      tracing, depth 32, 1 spp, regenerate=True, one frame through the
-     public render(); launches > 0, image finite with a positive mean;
+     bench's bench_mesh_forward (render() at sample_offset 1, one timed
+     repetition, no warm frame: every frame below goes the same way,
+     through the bench's bench_frame); launches > 0, image finite with a
+     positive mean;
   5. the faithful path: sanmiguel_analog(faithful=True) (10.5M terrain +
      240,000 alpha foliage triangles flattened to world triangles,
      textures, normal map, glass, metal, lamp meshes) at 1920x1080, depth
-     64, 1 spp, regenerate=True, one frame through render(); K1's launch
+     64, 1 spp, regenerate=True, one frame; K1's launch
      counts over the frame must be > 0 in its four plain modes; with
      --sections, one more frame with a timer around each section of the
      bounce loop; with --profile, one more frame under torch.profiler;
   6. path A: the same scene with its 2,500 shrubs kept as run-time
-     instances (PT_FLATTEN_MAX=0), same settings, one frame: K1 closest
+     instances (PT_FLATTEN_MAX=0), depth 32 (cut from 64 for the
+     script's time), one frame: K1 closest
      and any-hit on the plain opaque tables, K1 instanced amask 1 / 2 on
-     the alpha tables; its rays per sample and image mean are printed
-     beside phase 5's;
+     the alpha tables; its rays per sample and image mean must land
+     within 2% of phase 5's and of path C's (the same depth);
   7. path B: sanmiguel_analog(n_tris=60,000, foliage=600), depth 32,
      one frame: K2 in its four plain modes;
      h. (after phase 5's frame) K1's new modes on the faithful scene's
@@ -84,10 +95,11 @@ device summary only when every phase passed):
         one pass, the new modes' times and bounds, and K1 closest on the
         same bounce rays in the order drawn against the dispatch's key
         order (times, counters, the un-permuted results equal);
-  5b. path C: the faithful frame again under PT_MULTIPASS=16,8,8 and
-     PT_WINDOW=4 (the multipass driver on the mask-free opaque passes, the
-     window walk on the alpha passes); its rays per sample, image mean and
-     iterations are printed beside phase 5's;
+  5b. path C: the faithful frame again, at depth 32 (cut from 64 for
+     the script's time), under PT_MULTIPASS=16,8,8 and PT_WINDOW=4 (the
+     multipass driver on the mask-free opaque passes, the window walk on
+     the alpha passes); its rays per sample and image mean must land
+     within 2% of phase 5's, its iterations are printed beside them;
   5c. [grad] gradients through the renderer: (a) on tests/test_regen_diff.py's
      scene with a textured floor at 96x72, depth 5, the mat_base and texel
      gradients of the regenerating form (trace_regen_diff) and the scan
@@ -95,15 +107,24 @@ device summary only when every phase passed):
      error <= GRAD_REL_TOL, and the card's gradients of another sampler
      seed must read above it (the gate tells a fault); (b) the faithful
      frame (still phase 5's scene) fwd+bwd with respect to mat_base
-     (tools/bench_grad.py): the regenerating form at depths 8 and 64
-     (65,536 lanes) and the scan form at depth 8 with compact_after=3, one
+     (tools/bench_grad.py): the regenerating form at depth 8 (the whole
+     frame) and 64 (its first queue group, for the script's time; 65,536
+     lanes) and the scan form at depth 8 with compact_after=3, one
      timed run each, with samples/s, the fwd+bwd / plain forward ratio,
      peak memory, bytes kept per lane per iteration, the forward / backward
      split, K1 / K2 launches forward and backward (the backward
      must launch none), finite nonzero gradients, and the recording
      forward's radiance bit-equal to trace_regen's (every queue group at
      depth 8, the first at depth 64); with --sections, both regenerating
-     runs once more with a timer around each section of the backward;
+     forms once more over the whole frame with a timer around each section
+     of the backward; the depth-8 runs go through the bench's
+     bench_mesh_fwd_bwd_regen / _frame (one timed run, no warm run);
+  5d. [bench] the bench's rows no frame above runs, on the faithful scene:
+     its rays run (one run, its rays per sample beside the faithful
+     frame's), its bounce-kernel row (K1 per 65,536-ray dispatch, per-ray
+     counters, bound) and its Cornell frame at CORNELL_SPP samples; then
+     these rows with the frames' and [grad]'s as one JSON object under
+     this script's own labels (each row one run, so not the bench's line);
   8. path D: spheres_medium at 1920x1080, integrator="volpath", depth 32,
      1 spp, regenerate=True (its own five analytic prims: no kernel; the
      volpath kernel launches come from phase 3's small renders of a medium
@@ -119,8 +140,8 @@ device summary only when every phase passed):
      cache: the film must be bit-equal, the cache-load seconds printed
      beside the build's; (4) renders the same model lit by a 2048x1024
      HDR sky (io/hdr.write_hdr, add_env_light_from_file: 1024x512 tables)
-     through render() at 1920x1080, depth 32: finite, mean > 0, its
-     seconds and rays per sample; (5) holds the card to the CPU by the
+     through the bench's bench_frame at 1920x1080, depth 32: finite, mean
+     > 0, its seconds and rays per sample; (5) holds the card to the CPU by the
      99% rule on a 4,802-triangle OBJ through the native parser (K2, then
      K1 under PT_TWOLEVEL_MIN=0), a glTF with an emissive-textured quad
      (texture through the builder's pool) and a function light with an
@@ -142,9 +163,9 @@ Every K1 mode is timed at pops 1 ("ms") and at the main path's pops 4
 rounds, each round timing every mode of the phase in turn: "ms" is the
 median, "ms_spread" (max - min) / median.
 Writes chiprun_out/sanmiguel_{legacy,faithful,multipass,tlas,small}.ppm,
-chiprun_out/spheres_medium.ppm, chiprun_out/cli_{legacy,hdr}.ppm and the
-whole output to
-chiprun_out/chip_smoke.log.
+chiprun_out/spheres_medium.ppm, chiprun_out/cli_{legacy,hdr}.ppm,
+chiprun_out/bvh/*.ppm and the whole output to chiprun_out/chip_smoke.log,
+each line there after the seconds since the start.
 
 The script imports nothing of JAX.  Tolerances: a kernel and its plain
 version share the arithmetic (the kernels are built without FMA
@@ -170,20 +191,18 @@ from pathlib import Path
 RES = (1920, 1080)          # both paths: San-Miguel analog at 1080p,
 N_TRIS = 10_500_000         # 10.5M-triangle terrain;
 DEPTH = 32                  # the legacy path's depth,
-DEPTH_FAITHFUL = 64         # the faithful path's, path C's and path A's,
-DEPTH_BD = 32               # paths B and D (cut from 64 so the whole script,
-                            # [cli] included, stays well inside its limit)
+DEPTH_FAITHFUL = 64         # the faithful path's,
+# cut from 64 so the whole script, [bvh] and [bench] included, stays
+# inside its limit on a slow host
+DEPTH_AC = 32               # paths A and C
+DEPTH_BD = 32               # paths B and D
 FOLIAGE = 2500              # shrub instances (96 alpha triangles each)
 N_TRIS_SMALL = 60_000       # path B: the courtyard at the size of one
 FOLIAGE_SMALL = 600         # imported model, on the single-level kernel
-FP32_PEAK = 67e12           # H100 SXM fp32 (non-tensor) FLOP/s
+# (the fp32 peak, the HBM rate and the per-test counts of the traversal
+# bounds are tools/roofline.py's)
 TF32_PEAK = 495e12          # H100 SXM dense TF32 tensor-core FLOP/s
 BF16_PEAK = 989e12          # H100 SXM dense bf16 tensor-core FLOP/s
-HBM_RATE = 3.35e12          # H100 SXM HBM3 bytes/s
-SLAB_FLOPS = 20             # one ray/box slab test
-MT_FLOPS = 45               # one ray/triangle Moller-Trumbore test
-MASK_FLOPS = 20             # one alpha-cell lookup (affine map, bit tests)
-MASK_BYTES = 32             # mask words of one slot
 MXU_POST_FLOPS = 14         # K4: post-processing of one (ray, triangle) pair
 N_SM = 132                  # H100 SXM SMs (K4's one block runs on one)
 MULTIPASS = (16, 8, 8)      # path C's PT_MULTIPASS schedule
@@ -196,6 +215,9 @@ GRAD_PROBE_RES = (96, 72)   # [grad] a: card against CPU gradients
 GRAD_REL_TOL = 1e-4
 GRAD_SCAN_DEPTH = 8         # [grad] b: the scan form's depth and tail
 GRAD_COMPACT = 3            # compaction (bench.py's BENCH_BWD_COMPACT)
+BVH_RES = (960, 540)        # [bvh]: the CLI frame's resolution
+CORNELL_SPP = 4             # [bench]: the Cornell frame's samples (the
+                            # bench's own run takes 32)
 # K1 schedules held against the window=1, pops=1 walk (results must not
 # change) and the visit caps held against the plain capped walk
 SCHEDULES = (dict(window=2, pops=4), dict(window=4, pops=8),
@@ -440,85 +462,24 @@ def _key_order(scene, n, label):
 def _bound_ms(mod, scene, o, d, t_max, amask=0, any_hit=False, **kw):
     """Least time for the work this run's rays need in this mode (an
     any-hit walk ends at its first occluder, so it is counted with
-    any_hit=True, not as a closest walk): the larger of the fp32
-    operations (slab and triangle tests the traversal performs and, in
-    the alpha modes, its mask lookups, from the kernel's counters; the
-    top-level slab tests are the kernel's own count of the coarse unions
-    and entries its front tested) over the fp32 peak, and the bytes over
-    the HBM rate: rays in (28 B, 32 with a time) and results out (8 B, 12
-    on instanced tables) once each, the top-level table (boxes, + child
-    base for the two-level kernel, + source and instance ids and one 48 B
-    inverse transform per visited expanded entry on instanced tables) and
-    its coarse unions, once each the child boxes of the PHYSICAL L1s
-    (instances share them) and the triangle rows of the physical blocks
-    that some ray visited, and the 32 B of mask words of every hit that
-    looked its cell up.  Returns (bound ms, "operations" or "bytes",
-    extra): K2's extra holds the bound of a flat scan of every block per
-    front refill (refills x M slab tests in place of the counted ones)."""
-    import torch
+    any_hit=True, not as a closest walk), by tools/roofline.py's count
+    from the kernel's counters.  Returns (bound ms, "operations" or
+    "bytes", extra): K2's extra holds the bound of a flat scan of every
+    block per front refill (refills x M slab tests in place of the counted
+    ones)."""
+    from pathtracing_tpu_torch.tools.roofline import traversal_bound
     kernel, _ = _fns(mod)
     res = kernel(scene, o, d, t_max, counters=True, amask=amask,
                  any_hit=any_hit, **kw)
-    cnt = res["counters"].to(float).sum(0)
-    n = o.shape[0]
-    inst = "pk_blk_src" in scene
-    extra = {}
-    ray_bytes = n * (28 + 8 + (4 if kw.get("time") is not None else 0)
-                     + (4 if inst else 0))
-    if "pk_l1box" in scene:                     # two-level
-        m1 = scene["pk_l1box"].shape[0]
-        m2 = scene["pk_l2box"].shape[0]
-        g = m2 // scene["pk_l1_base"].shape[0]
-        k2 = scene["pk_tri"].shape[0] // m2
-        # top-level slab tests: the kernel's own count (coarse unions and
-        # L1 entries of its front; the window walk: passes x m1)
-        flops = (float(cnt[4]) * SLAB_FLOPS
-                 + float(cnt[1]) * g * SLAB_FLOPS
-                 + float(cnt[2]) * k2 * MT_FLOPS
-                 + float(cnt[3]) * MASK_FLOPS)
-        top_seen = int(res["l1_touched"].sum())
-        phys_seen = top_seen
-        if inst:     # distinct physical L1s among the visited expanded ones
-            phys_seen = int(torch.unique(
-                scene["pk_blk_src"][res["l1_touched"]]).numel())
-        leaf_seen = int(res["leaf_touched"].sum())
-        nc = -(-m1 // 8)                        # the coarse unions
-        nbytes = (ray_bytes + m1 * (36 + (8 if inst else 0)) + nc * 32
-                  + phys_seen * g * 32 + (top_seen * 48 if inst else 0)
-                  + leaf_seen * k2 * 48 + float(cnt[3]) * MASK_BYTES)
-        what = (f"top refills={cnt[0] / n:.2f} top slab tests="
-                f"{cnt[4] / n:.1f} (flat scan: {cnt[0] / n * m1:.0f}) "
-                f"L1 visits={cnt[1] / n:.2f} "
-                f"leaf blocks={cnt[2] / n:.2f} (tri tests="
-                f"{cnt[2] / n * k2:.0f}) mask lookups={cnt[3] / n:.3f}; L1s "
-                f"visited {top_seen}/{m1} (physical {phys_seen}), child "
-                f"blocks visited {leaf_seen}/{m2}")
-    else:                                       # single-level
-        m = scene["pk_blkbox"].shape[0]
-        mp, k = scene["pk_tri"].shape[:2]
-        nc = scene["pk_cbox"].shape[0]
-        leaf = float(cnt[1]) * k * MT_FLOPS + float(cnt[3]) * MASK_FLOPS
-        flops = float(cnt[4]) * SLAB_FLOPS + leaf
-        seen = int(res["blocks_touched"].sum())
-        nbytes = (ray_bytes + m * (32 + (8 if inst else 0)) + nc * 32
-                  + seen * k * 48
-                  + (seen * 48 if inst else 0)
-                  + float(cnt[3]) * MASK_BYTES)
-        flat = max((float(cnt[0]) * m * SLAB_FLOPS + leaf) / FP32_PEAK,
-                   (nbytes - nc * 32) / HBM_RATE) * 1e3
-        extra["bound_ms_flat_scan"] = flat
-        what = (f"front refills={cnt[0] / n:.2f} top slab tests="
-                f"{cnt[4] / n:.1f} (flat scan: {cnt[0] / n * m:.0f}) blocks "
-                f"visited={cnt[1] / n:.2f} (tri tests={cnt[1] / n * k:.0f}) "
-                f"mask lookups={cnt[3] / n:.3f}; physical blocks visited "
-                f"{seen}/{mp}; flat-scan bound {flat:.4f} ms")
-    ops_ms, bytes_ms = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-    print(f"[bound] amask={amask} any_hit={any_hit} rays={n} per-ray: {what}"
-          f"; flops="
-          f"{flops:.3e} bytes={nbytes:.3e} ops_ms={ops_ms:.4f} bytes_ms="
-          f"{bytes_ms:.4f}", flush=True)
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes"), extra
+    b = traversal_bound(scene, res, o.shape[0],
+                        timed=kw.get("time") is not None)
+    print(f"[bound] amask={amask} any_hit={any_hit} rays={o.shape[0]} "
+          f"per-ray: {b['what']}; flops={b['flops']:.3e} bytes="
+          f"{b['bytes']:.3e} ops_ms={b['ops_ms']:.4f} bytes_ms="
+          f"{b['bytes_ms']:.4f}", flush=True)
+    extra = ({"bound_ms_flat_scan": b["bound_ms_flat_scan"]}
+             if "bound_ms_flat_scan" in b else {})
+    return b["bound_ms"], b["bound_by"], extra
 
 
 def _measure(mod, scene, o, d, t_max, label, modes, prune=True,
@@ -756,41 +717,38 @@ def _occluded_card_vs_cpu(scene, cam, meta, n=8160, label="flattened"):
                            "CPU's")
 
 
-def _frame(render, filmmod, scene, cam, meta, cfg, label, ppm, warm=False):
-    """Render one timed frame through render() (after a warm one if asked)
-    with both kernels' launch counts set to 0 just before it and read just
-    after; print its numbers, check the image, write it.  Returns
+def _frame(filmmod, scene, cam, meta, cfg, label, ppm):
+    """Render one timed frame under cfg with both kernels' launch counts
+    set to 0 just before it and read just after, through the bench's
+    bench_frame (one timed repetition, no warm frame; sample_offset
+    cfg.spp); print its numbers, check the image, write it.  Returns
     (launch counts by kernel and mode, dict(rays_per_sample, mean,
     samples_per_s, seconds))."""
     import torch
+    from pathtracing_tpu_torch import bench
     from pathtracing_tpu_torch.accel import trace1, trace2
-    if warm:
-        t0 = time.perf_counter()
-        render(scene, cam, meta, cfg)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
+    w, h = cam["resolution"]
     stats = {}
     _reset_counts()
     t0 = time.perf_counter()
-    film = render(scene, cam, meta, cfg, stats=stats)
+    _, film = bench.bench_frame(scene, cam, meta, cfg, reps=1, warm=False,
+                                stats=stats)
     torch.cuda.synchronize()
     frame_s = time.perf_counter() - t0
     counts = _launch_counts()
     total = (trace2.tri_intersect2.launches
              + trace1.tri_intersect1.launches)
-    w, h = cam["resolution"]
     img = filmmod.finalize(film)
     mean = float(img.mean())
     finite = bool(torch.isfinite(img).all())
     calls = stats.get("occluded_calls", 0)
     restarts = stats.get("chain_restarts", 0) / calls if calls else 0.0
-    warm_txt = f"{warm_s:.2f}s" if warm else "none"
     if total != sum(counts.values()):
         raise RuntimeError("per-mode launch counts do not add up")
     counts.update(_schedule_counts())
     used = {k: v for k, v in counts.items() if v}
     rps = stats["n_rays"] / (w * h)
-    print(f"[render] {label}: {w}x{h} 1spp regen: warm {warm_txt} timed "
+    print(f"[render] {label}: {w}x{h} 1spp regen: timed "
           f"{frame_s:.2f}s camera_samples/s {w * h / frame_s:.1f} "
           f"rays/sample {rps:.3f} kernel launches {total} by kernel and mode "
           f"{used} occluded calls {calls} chain restarts/call {restarts:.3f} "
@@ -1225,6 +1183,8 @@ def _leaf_phase():
     mode)."""
     import torch
     from pathtracing_tpu_torch.tools import bench_leaf as bl
+    from pathtracing_tpu_torch.tools.roofline import (FP32_PEAK, HBM_RATE,
+                                                      MT_FLOPS)
     k2 = LEAF_K2
     tabs = bl.kernel_tables(bl.make_inputs(k2), "cuda")
     # vpu*: the same float32 operations in the same order (no FMA
@@ -1471,36 +1431,46 @@ def _same_outputs(label, outs, ref_outs):
                            f"trace_regen's")
 
 
-def _grad_frames(scene, cam, meta, frame_s, frame_launches, sections):
+def _grad_frames(scene, cam, meta, sections):
     """[grad] b: fwd+bwd of the faithful frame with respect to mat_base:
-    the regenerating form at depths 8 and DEPTH_FAITHFUL, the scan form at
-    GRAD_SCAN_DEPTH with compact_after=GRAD_COMPACT; one timed run each, no
-    warm run (eager PyTorch compiles nothing, and the kernels are built
-    and warm from the earlier phases), no timer inside a backward pass.
-    The fwd+bwd / forward ratios divide by the plain regenerating forward
-    over the same queue groups at depth 8 (timed here) and by the faithful
-    frame's render at DEPTH_FAITHFUL (frame_s, phase 5; frame_launches its
-    K1 + K2 launches).  The recording forward's radiance is held to
-    trace_regen's: every group at depth 8, the first group at
-    DEPTH_FAITHFUL.  sections: run both regenerating forms once more with
-    a synchronized timer around each section of the backward pass, and
-    print its split into shade replay and autograd.grad."""
+    the regenerating form at depth 8 over the whole frame and at
+    DEPTH_FAITHFUL over its first queue group (the whole frame there
+    takes longer than the script's limit leaves), the scan form at
+    GRAD_SCAN_DEPTH with compact_after=GRAD_COMPACT; one timed run each,
+    no warm run (eager PyTorch compiles nothing, and the kernels are
+    built and warm from the earlier phases), no timer inside a backward
+    pass; the depth-8 runs through the bench's functions.  The fwd+bwd /
+    forward ratios divide by the plain regenerating forward over the same
+    queue groups (timed here).  The recording forward's radiance is held
+    to trace_regen's: every group at depth 8, the first group at
+    DEPTH_FAITHFUL.  sections: run both regenerating forms over the whole
+    frame once more with a synchronized timer around each section of the
+    backward pass, and print its split into shade replay and
+    autograd.grad."""
+    from pathtracing_tpu_torch import bench
     from pathtracing_tpu_torch.tools import bench_grad as bg
     w, h = cam["resolution"]
     plain = bg.regen_forward(scene, cam, meta, 8)
     print(f"[grad] plain regenerating forward d8 (trace_regen over the same "
           f"queue groups): {plain['seconds']:.2f}s, K1/K2 launches by group "
           f"{plain['launches']}", flush=True)
-    runs = [("regen d8", plain["seconds"],
-             lambda: bg.fwd_bwd_regen(scene, cam, meta, 8)),
-            (f"regen d{DEPTH_FAITHFUL}", frame_s,
-             lambda: bg.fwd_bwd_regen(scene, cam, meta, DEPTH_FAITHFUL)),
-            (f"scan d{GRAD_SCAN_DEPTH} compact_after={GRAD_COMPACT}",
-             plain["seconds"],
-             lambda: bg.fwd_bwd_frame(scene, cam, meta, GRAD_SCAN_DEPTH,
-                                      GRAD_COMPACT))]
+    first = bg.regen_forward(scene, cam, meta, DEPTH_FAITHFUL, n_groups=1)
+    print(f"[grad] plain regenerating forward d{DEPTH_FAITHFUL}, the first "
+          f"queue group: {first['seconds']:.2f}s, K1/K2 launches "
+          f"{first['launches']}", flush=True)
+    deep_label = f"regen d{DEPTH_FAITHFUL} (the first queue group)"
+    runs = [("regen d8", plain,
+             lambda: bench.bench_mesh_fwd_bwd_regen(scene, cam, meta, 8,
+                                                    reps=1, warm=False)),
+            (deep_label, first,
+             lambda: bg.fwd_bwd_regen(scene, cam, meta, DEPTH_FAITHFUL,
+                                      n_groups=1)),
+            (f"scan d{GRAD_SCAN_DEPTH} compact_after={GRAD_COMPACT}", plain,
+             lambda: bench.bench_mesh_fwd_bwd_frame(
+                 scene, cam, meta, GRAD_SCAN_DEPTH, GRAD_COMPACT,
+                 warm=False))]
     out = {}
-    for label, fwd_s, fn in runs:
+    for label, fwd, fn in runs:
         _reset_counts()
         r = fn()
         modes = {k: v for k, v in _launch_counts().items() if v}
@@ -1515,7 +1485,7 @@ def _grad_frames(scene, cam, meta, frame_s, frame_launches, sections):
         print(f"[grad] faithful {w}x{h} fwd+bwd {label}: timed "
               f"{r['seconds']:.2f}s, camera samples/s "
               f"{r['samples_per_s']:.1f}, fwd+bwd / plain forward "
-              f"{r['seconds'] / fwd_s:.3f}, "
+              f"{r['seconds'] / fwd['seconds']:.3f}, "
               f"peak memory {(r['peak_bytes'] or 0) / 2**30:.3f} GiB, "
               f"{per or 0:.1f} B per lane per {unit}, K1/K2 launches forward "
               f"{r['launches_fwd']} backward {r['launches_bwd']} (by kernel "
@@ -1533,15 +1503,12 @@ def _grad_frames(scene, cam, meta, frame_s, frame_launches, sections):
         out[label] = r
     _same_outputs("d8, the whole frame", out["regen d8"]["outs"],
                   plain["outs"])
-    deep = out[f"regen d{DEPTH_FAITHFUL}"]
-    first = bg.regen_forward(scene, cam, meta, DEPTH_FAITHFUL, n_groups=1)
-    _same_outputs(f"d{DEPTH_FAITHFUL}, the first group", deep["outs"][:1],
+    deep = out[deep_label]
+    _same_outputs(f"d{DEPTH_FAITHFUL}, the first group", deep["outs"],
                   first["outs"])
-    print(f"[grad] recording forward d{DEPTH_FAITHFUL}: "
-          f"{sum(deep['launches_fwd'].values())} K1/K2 launches, the "
-          f"faithful frame's render {frame_launches}; first group "
-          f"{deep['launches_fwd_by_group'][0]} against trace_regen's "
-          f"{first['launches'][0]}", flush=True)
+    print(f"[grad] recording forward d{DEPTH_FAITHFUL}, the first group: "
+          f"{deep['launches_fwd_by_group'][0]} K1/K2 launches against "
+          f"trace_regen's {first['launches'][0]}", flush=True)
     if not sections:
         return out
     for depth in (8, DEPTH_FAITHFUL):
@@ -1553,6 +1520,174 @@ def _grad_frames(scene, cam, meta, frame_s, frame_launches, sections):
               f"{r['backward_grad_s']:.2f}s), gradients finite "
               f"{r['finite']}", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# [bvh]: the accel="bvh" backend; [bench]: the bench's own rows
+# ---------------------------------------------------------------------------
+
+def _bvh_phase(scene, meta, o, d, k1_ms):
+    """[bvh] the per-ray-stack wide-BVH walk (accel/build.build_bvh,
+    accel/traverse.bvh_intersect; plain PyTorch, no kernel of its own) on
+    the legacy scene's triangles: build seconds, then closest and any-hit
+    on the bounce rays o, d against K1 on the same rays and tables: valid
+    equal, t to rtol=1e-5, and the triangle equal except on lanes where
+    each reports a triangle the other also hits at its t (a shared edge
+    or vertex: K1 ties to the least slot, the walk to the first found);
+    each dispatch's seconds and loop iterations (one host sync each)
+    beside K1's closest time k1_ms."""
+    import torch
+    from pathtracing_tpu_torch.accel import trace2
+    from pathtracing_tpu_torch.accel.build import build_bvh
+    from pathtracing_tpu_torch.accel.traverse import bvh_intersect
+    dev = o.device
+    tri_v = scene["tri_v"][:meta.n_tri]
+    t0 = time.perf_counter()
+    arrays, bm = build_bvh(dict(tri_v=tri_v.cpu().numpy()))
+    bvh = {k: scene[k] for k in ("tri_v", "sph_c", "sph_r", "quad_q",
+                                 "quad_u", "quad_v", "quad_n", "quad_d",
+                                 "quad_w")}
+    bvh.update({k: torch.from_numpy(v).to(dev) for k, v in arrays.items()})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"[bvh] build_bvh over {meta.n_tri:,} triangles (native SAH "
+          f"build, wide collapse, block cut) + upload: {build_s:.2f}s; "
+          f"{bm.n_nodes:,} wide nodes, depth {bm.max_depth}, block_k "
+          f"{bm.block_k}", flush=True)
+    t_max = torch.full((o.shape[0],), 1e30, device=dev)
+    out = dict(build_s=build_s)
+    for any_hit in (False, True):
+        mode = "any-hit" if any_hit else "closest"
+        runs = []
+        for _ in range(2):          # the second call is the timed one
+            st = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = bvh_intersect(bvh, o, d, t_max, any_hit=any_hit,
+                                shapes=(True, False, False), stats=st)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, st["iterations"]))
+        ref = trace2.tri_intersect2(scene, o, d, t_max, any_hit=any_hit)
+        v = ref["valid"]
+        flips = int((got["valid"] != v).sum())
+        msg = (f"[bvh] {mode} on {o.shape[0]} bounce rays: "
+               f"{runs[-1][0] * 1e3:.1f} ms, {runs[-1][1]} iterations "
+               f"(first call {runs[0][0] * 1e3:.1f} ms); K1 closest "
+               f"{k1_ms:.3f} ms; valid lanes {int(v.sum())}, flips {flips}")
+        if flips:
+            raise RuntimeError(msg)
+        if not any_hit:
+            tk, tb = ref["t"][v], got["t"][v]
+            t_err = float(((tb - tk).abs() / tk.abs()).max())
+            other = v & (got["idx"] != ref["tri"])
+            ok = True
+            if other.any():
+                tv = bvh["tri_v"]
+                t_alt = _ray_tri_t(o[other], d[other], tv[got["idx"][other]])
+                t_ref = _ray_tri_t(o[other], d[other], tv[ref["tri"][other]])
+                ok = bool(torch.allclose(t_alt, ref["t"][other], rtol=1e-5)
+                          and torch.allclose(t_ref, got["t"][other],
+                                             rtol=1e-5))
+            msg += (f", max rel t error {t_err:.2e}, other triangle on "
+                    f"{int(other.sum())} lanes (each hit by both walks at "
+                    f"the same t: {ok})")
+            if not (t_err <= 1e-5 and ok):
+                raise RuntimeError(msg)
+        print(msg, flush=True)
+        out[mode] = dict(ms=runs[-1][0] * 1e3, iterations=runs[-1][1])
+    return out
+
+
+def _bvh_cli(render_image):
+    """[bvh] through the CLI: --accel bvh on the 4,802-triangle OBJ of
+    [cli] 5, the card against the CPU by the 99% rule (rtol=1e-4,
+    atol=1e-5), with no traversal-kernel launch; then one 960x540, 1
+    spp, depth-8 frame of it, with its seconds."""
+    import torch
+    from pathtracing_tpu_torch.__main__ import main as cli
+    from pathtracing_tpu_torch.sensor.film import finalize
+    out = Path("chiprun_out") / "bvh"
+    out.mkdir(parents=True, exist_ok=True)
+    obj = out / "grid.obj"
+    _small_grid_obj(obj)
+    base = ["render", "--model", str(obj), "--accel", "bvh", "--env-light",
+            "0.5", "--sun", "2", "--look-from", "2.5,3,-2", "--look-at",
+            "2.5,0,2.5"]
+    small = ["--resolution", "48", "36", "--spp", "4", "--max-depth", "4"]
+    _reset_counts()
+    card = cli(base + small + ["--out", str(out / "grid_card.ppm")])
+    launches = sum(_launch_counts().values())
+    cpu = cli(base + small + ["--device", "cpu", "--out",
+                              str(out / "grid_cpu.ppm")])
+    got = finalize(card["film"]).cpu()
+    want = finalize(cpu["film"])
+    frac = float(torch.isclose(got, want, rtol=1e-4, atol=1e-5).float()
+                 .mean())
+    print(f"[bvh] CLI --accel bvh on the 4,802-tri OBJ 48x36 4 spp d4: "
+          f"accel {card['meta'].accel}, card vs CPU {frac:.3%} of values "
+          f"agree, traversal-kernel launches {launches}", flush=True)
+    if (card["meta"].accel != "bvh" or frac <= 0.99 or launches
+            or not torch.isfinite(got).all()):
+        raise RuntimeError("the CLI's --accel bvh render failed its checks")
+    t0 = time.perf_counter()
+    r = cli(base + ["--resolution", str(BVH_RES[0]), str(BVH_RES[1]),
+                    "--spp", "1", "--max-depth", "8", "--regen", "--out",
+                    str(out / "grid_frame.ppm")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    img = finalize(r["film"])
+    mean = float(img.mean())
+    print(f"[bvh] CLI --accel bvh {BVH_RES[0]}x{BVH_RES[1]} 1 spp d8 "
+          f"--regen: render "
+          f"{r['times']['render_s']:.2f}s (whole run {wall:.2f}s, build "
+          f"{r['times']['build_s']:.2f}s), RenderTimer "
+          f"{json.dumps(r['metrics'])}, image mean {mean:.5f}", flush=True)
+    if not (torch.isfinite(img).all() and mean > 0.0):
+        raise RuntimeError("the --accel bvh frame is not sound")
+    return dict(frame_s=r["times"]["render_s"], card_vs_cpu=frac)
+
+
+def _bench_phase(scene, cam, meta, faithful_rate, legacy_rate, grad, card,
+                 frame_rps):
+    """[bench] the bench's rows that chip_smoke.py's frames do not run: its
+    rays run on the faithful scene (one timed run, no warm run; its rays
+    per sample beside the faithful frame's frame_rps), its bounce-kernel
+    row (K1 closest on the faithful opaque tables at the main path's
+    pops, with the per-ray counters and the bound), its Cornell frame at
+    CORNELL_SPP samples (one timed frame, no warm frame); then these with
+    the frames already run (the faithful and legacy frames, [grad]'s
+    regenerating fwd+bwd) as one JSON object under this script's labels:
+    each row is one run, where the bench takes the least of several
+    after a warm one, so it is not the bench's line."""
+    from pathtracing_tpu_torch import bench
+    rps, rays_rate = bench.bench_mesh_rays(scene, cam, meta, DEPTH_FAITHFUL,
+                                           True, warm=False)
+    print(f"[bench] rays run: {rps:.3f} rays per camera sample against the "
+          f"faithful frame's {frame_rps:.3f} ({rps / frame_rps - 1:+.2%})",
+          flush=True)
+    kstats = bench.bench_bounce_kernel(scene, meta)
+    if not kstats:
+        raise RuntimeError("the faithful scene gave no bounce-kernel row")
+    cornell = bench.bench_cornell(spp=CORNELL_SPP, reps=1, warm=False,
+                                  device="cuda")
+    deep = grad[f"regen d{DEPTH_FAITHFUL} (the first queue group)"]
+    rows = {
+        f"faithful_frame_d{DEPTH_FAITHFUL}_samples_per_s":
+            round(faithful_rate, 1),
+        "rays_run_rays_per_camera_sample": round(rps, 3),
+        "rays_run_rays_per_s": round(rays_rate, 1),
+        "fwd_bwd_regen_d8_frame_samples_per_s":
+            round(grad["regen d8"]["samples_per_s"], 1),
+        f"fwd_bwd_regen_d{DEPTH_FAITHFUL}_first_group_samples_per_s":
+            round(deep["samples_per_s"], 1),
+        **kstats,
+        f"legacy_frame_d{DEPTH}_samples_per_s": round(legacy_rate, 1),
+        f"cornell_512_d8_{CORNELL_SPP}spp_samples_per_s": round(cornell, 1),
+    }
+    print(f"[bench] rows of one run each (not the bench's line) on {card}:",
+          flush=True)
+    print(json.dumps({"chip_smoke_bench_rows": rows}), flush=True)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1830,7 +1965,7 @@ def _shard_check():
         dist.destroy_process_group()
 
 
-def _cli_phase(render, render_image, filmmod):
+def _cli_phase(render_image, filmmod):
     """[cli]: the CLI on the legacy scene's geometry imported from a .glb
     (then again from its scene cache, bit-equal), an HDR-lit frame of the
     same model through the API, the small card-vs-CPU checks and the
@@ -1922,7 +2057,7 @@ def _cli_phase(render, render_image, filmmod):
             raise RuntimeError("the HDR sky's env tables are not 1024x512")
         cfg = RenderConfig(spp=1, max_depth=DEPTH, integrator="path",
                            rays_per_batch=65536, regenerate=True)
-        hdr_counts, hdr_frame = _frame(render, filmmod, scene, cam, meta, cfg,
+        hdr_counts, hdr_frame = _frame(filmmod, scene, cam, meta, cfg,
                                        f"[cli] HDR-lit imported model d{DEPTH}",
                                        "cli_hdr.ppm")
         _need(hdr_counts, ("trace2[closest]", "trace2[any_hit]"),
@@ -1945,13 +2080,20 @@ def _cli_phase(render, render_image, filmmod):
 
 
 class _Tee:
-    """stdout that also lands in a file, so a long output is kept whole."""
+    """stdout that also lands in a file, so a long output is kept whole;
+    the file's lines start with the seconds since the script began (the
+    phases' times)."""
 
-    def __init__(self, stream, path):
-        self.stream, self.file = stream, open(path, "w")
+    def __init__(self, stream, path, t0):
+        self.stream, self.file, self.t0 = stream, open(path, "w"), t0
+        self.line_start = True
 
     def write(self, text):
-        self.file.write(text)
+        for piece in text.splitlines(keepends=True):
+            if self.line_start:
+                self.file.write(f"[{time.perf_counter() - self.t0:7.1f}s] ")
+            self.file.write(piece)
+            self.line_start = piece.endswith("\n")
         self.file.flush()
         return self.stream.write(text)
 
@@ -1980,7 +2122,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     Path("chiprun_out").mkdir(exist_ok=True)
-    sys.stdout = _Tee(sys.stdout, Path("chiprun_out") / "chip_smoke.log")
+    sys.stdout = _Tee(sys.stdout, Path("chiprun_out") / "chip_smoke.log",
+                      t_start)
     import os
     from pathtracing_tpu_torch import RenderConfig, SamplerConfig, render, \
         render_image
@@ -2147,7 +2290,12 @@ def main() -> int:
     r = _measure(trace2, scene, o64, d64, t64, label, ("closest", "any_hit"))
     kern["trace2[closest]"] = r["closest"]
     kern["trace2[any_hit]"] = r["any_hit"]
+
+    # ---- [bvh] the accel="bvh" backend on the same tables and rays, then
+    # through the CLI
+    _bvh_phase(scene, meta, o64, d64, r["closest"]["ms"])
     del o64, d64
+    _bvh_cli(render_image)
 
     # ---- 3. card numerics vs the port's CPU numerics, small scenes
     small = RenderConfig(spp=2, max_depth=4, integrator="path",
@@ -2254,8 +2402,9 @@ def main() -> int:
     # as bench.py renders the legacy cell: default 4x4 stratified sampler
     cfg = RenderConfig(spp=1, max_depth=DEPTH, integrator="path",
                        rays_per_batch=65536, regenerate=True)
-    legacy, _ = _frame(render, filmmod, scene, cam, meta, cfg,
-                       f"legacy path d{DEPTH}", "sanmiguel_legacy.ppm")
+    legacy, legacy_frame = _frame(filmmod, scene, cam, meta, cfg,
+                                  f"legacy path d{DEPTH}",
+                                  "sanmiguel_legacy.ppm")
     _need(legacy, ("trace2[closest]", "trace2[any_hit]"), "the legacy render")
     del scene
 
@@ -2310,7 +2459,7 @@ def main() -> int:
 
     cfg = RenderConfig(spp=1, max_depth=DEPTH_FAITHFUL, integrator="path",
                        rays_per_batch=65536, regenerate=True)
-    faithful, flat = _frame(render, filmmod, scene, cam, meta, cfg,
+    faithful, flat = _frame(filmmod, scene, cam, meta, cfg,
                             f"faithful path d{DEPTH_FAITHFUL} (flattened "
                             f"foliage)", "sanmiguel_faithful.ppm")
     _need(faithful, [f"trace2[{m}]" for m in ("closest", "any_hit", "amask1",
@@ -2341,9 +2490,10 @@ def main() -> int:
     os.environ["PT_WINDOW"] = "4"
     if _multipass_visits() != MULTIPASS:
         raise RuntimeError("PT_MULTIPASS was not read")
+    cfg_ac = dataclasses.replace(cfg, max_depth=DEPTH_AC)
     try:
-        path_c, mpw = _frame(render, filmmod, scene, cam, meta, cfg,
-                             f"path C d{DEPTH_FAITHFUL} (flattened foliage, "
+        path_c, mpw = _frame(filmmod, scene, cam, meta, cfg_ac,
+                             f"path C d{DEPTH_AC} (flattened foliage, "
                              f"PT_MULTIPASS={os.environ['PT_MULTIPASS']} "
                              f"PT_WINDOW=4)", "sanmiguel_multipass.ppm")
     finally:
@@ -2351,6 +2501,9 @@ def main() -> int:
     _need(path_c, ("trace2[capped]", "trace2[frontier]", "trace2[window4]",
                    "trace2[window4_amask1]", "trace2[window4_amask2]",
                    "trace2[amask1]", "trace2[amask2]"), "path C")
+    # (path C at depth 32 against the faithful frame at 64: bounces past
+    # 32 are a small share of its rays; path A is held to path C below,
+    # at the same depth)
     print(f"[path C vs flattened] rays/sample {mpw['rays_per_sample']:.3f} "
           f"vs {flat['rays_per_sample']:.3f}; image mean {mpw['mean']:.5f} "
           f"vs {flat['mean']:.5f}; bounce iterations {mpw['iterations']} vs "
@@ -2365,10 +2518,13 @@ def main() -> int:
     # ---- 5c. [grad] gradients through the renderer: the probe scene on
     # the card against the CPU, then the faithful frame's fwd+bwd
     _grad_parity(dev)
-    _grad_frames(scene, cam, meta, flat["seconds"],
-                 sum(faithful.get(f"{mod.__name__.split('.')[-1]}[{m}]", 0)
-                     for mod in (trace2, trace1) for m in mod.MODES),
-                 args.sections)
+    grad = _grad_frames(scene, cam, meta, args.sections)
+
+    # ---- [bench] the bench's rays run, bounce-kernel row and Cornell
+    # frame, and its JSON line
+    _bench_phase(scene, cam, meta, flat["samples_per_s"],
+                 legacy_frame["samples_per_s"], grad, card,
+                 flat["rays_per_sample"])
     del scene
 
     # ---- 6. path A: the foliage kept as run-time instances
@@ -2392,8 +2548,8 @@ def main() -> int:
     kern["trace2[inst_amask1]"] = r["amask1"]
     kern["trace2[inst_amask2]"] = r["amask2"]
     del alpha
-    path_a, tlas = _frame(render, filmmod, scene, cam, meta, cfg,
-                          f"path A d{DEPTH_FAITHFUL} (run-time-instanced "
+    path_a, tlas = _frame(filmmod, scene, cam, meta, cfg_ac,
+                          f"path A d{DEPTH_AC} (run-time-instanced "
                           f"foliage)", "sanmiguel_tlas.ppm")
     _need(path_a, ("trace2[closest]", "trace2[any_hit]",
                    "trace2[inst_amask1]", "trace2[inst_amask2]"), "path A")
@@ -2406,6 +2562,13 @@ def main() -> int:
     if not (abs(tlas["rays_per_sample"] / flat["rays_per_sample"] - 1) < 0.02
             and abs(tlas["mean"] / flat["mean"] - 1) < 0.02):
         raise RuntimeError("path A does not land beside the flattened frame")
+    # the same frame at the same depth: path A against path C
+    print(f"[path A vs path C] both d{DEPTH_AC}: rays/sample "
+          f"{tlas['rays_per_sample']:.4f} vs {mpw['rays_per_sample']:.4f}; "
+          f"image mean {tlas['mean']:.6f} vs {mpw['mean']:.6f}", flush=True)
+    if not (abs(tlas["rays_per_sample"] / mpw["rays_per_sample"] - 1) < 0.02
+            and abs(tlas["mean"] / mpw["mean"] - 1) < 0.02):
+        raise RuntimeError("path A does not land beside path C")
     del scene, of, df, tf_
 
     # ---- 7. path B: the small courtyard on the single-level kernel
@@ -2432,7 +2595,7 @@ def main() -> int:
     kern["trace1[amask1]"] = r["amask1"]
     kern["trace1[amask2]"] = r["amask2"]
     del alpha, ob, db, of, df
-    path_b, _ = _frame(render, filmmod, scene, cam, meta,
+    path_b, _ = _frame(filmmod, scene, cam, meta,
                        dataclasses.replace(cfg, max_depth=DEPTH_BD),
                        f"path B d{DEPTH_BD} (single-level kernel)",
                        "sanmiguel_small.ppm")
@@ -2445,13 +2608,13 @@ def main() -> int:
     scene, cam, meta = spheres_medium(resolution=RES, device=dev)
     cfg_d = RenderConfig(spp=1, max_depth=DEPTH_BD, integrator="volpath",
                          rays_per_batch=65536, regenerate=True)
-    path_d, _ = _frame(render, filmmod, scene, cam, meta, cfg_d,
+    path_d, _ = _frame(filmmod, scene, cam, meta, cfg_d,
                        f"path D volpath spheres_medium d{DEPTH_BD}",
                        "spheres_medium.ppm")
     del scene
 
     # ---- 8b. [cli]: the command line and what it reaches
-    cli_counts = _cli_phase(render, render_image, filmmod)
+    cli_counts = _cli_phase(render_image, filmmod)
 
     # ---- 9. K4, the leaf micro-benchmark, through its own entry point
     leaf_rows, leaf_counts = _leaf_phase()
@@ -2463,8 +2626,8 @@ def main() -> int:
     # full-width scene of the package reaches, the sum over the five small
     # card renders (48x48, 4 spp, depth 3); launches_from says which
     frames = (("the faithful frame, 1080p depth 64", faithful),
-              ("the path C frame, 1080p depth 64", path_c),
-              ("the path A frame, 1080p depth 64", path_a),
+              (f"the path C frame, 1080p depth {DEPTH_AC}", path_c),
+              (f"the path A frame, 1080p depth {DEPTH_AC}", path_a),
               (f"the path B frame, 1080p depth {DEPTH_BD}", path_b),
               (f"the K4 run at its defaults (K2={LEAF_K2}, n_iter="
                f"{LEAF_ITERS}; warm-up, timed runs and the n_iter=0 "

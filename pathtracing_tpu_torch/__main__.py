@@ -4,10 +4,11 @@
   python -m pathtracing_tpu_torch render --model scene.glb --cache scene.npz \\
       --env-light 0.35 --sun 3 --regen --out img.ppm
   python -m pathtracing_tpu_torch render ... --device cpu
+  python -m pathtracing_tpu_torch bench [--device cpu]
 
 Renders run on the GPU unless --device cpu.  PNG / JPG output and the
-images of glTF / OBJ materials need Pillow; PPM output does not.  The
-`bench` subcommand is not in this package yet.
+images of glTF / OBJ materials need Pillow; PPM output does not.  `bench`
+runs bench.py (its switches are in its docstring).
 """
 from __future__ import annotations
 
@@ -213,9 +214,9 @@ def cmd_render(args):
 
 
 def cmd_bench(args):
-    raise SystemExit("the bench subcommand is not in pathtracing_tpu_torch "
-                     "yet: its script, bench_torch.py, is the next slice of "
-                     "the port (ROADMAP.md)")
+    """The benchmark (bench.py); returns its JSON result."""
+    from . import bench
+    return bench.run(args)
 
 
 def main(argv=None):
@@ -274,8 +275,9 @@ def main(argv=None):
                    help="render N orbit frames + encode video (ffmpeg)")
     r.set_defaults(fn=cmd_render)
 
-    b = sub.add_parser("bench", help="run the benchmark (not in this "
-                                     "package yet)")
+    b = sub.add_parser("bench", help="run the benchmark (bench.py)")
+    from .bench import add_arguments
+    add_arguments(b)
     b.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)

@@ -1,20 +1,50 @@
-"""Host-side SAH build helpers (counterpart of the parts of
-pathtracing_tpu/accel/build.py that the traversal tables need).
+"""Host-side SAH build (counterpart of pathtracing_tpu/accel/build.py).
 
 `_sah_build_binary` is the NumPy binned-SAH builder the C++ builder
 (native/bvh_builder.cpp) mirrors; it is the fallback when no C++
 toolchain is available.  `sah_order` is the SAH leaf order of a set of
 boxes.  `sort_key_coarse` builds coarse unions of consecutive top-level
 blocks; `coarse_tables` adds the traversal kernels' coarse front over
-them.  `build_beam` is build_bvh's block cut for the beam backend
-(accel/beam.py).
+them.  `build_bvh` collapses the binary tree into W-wide nodes for the
+per-ray-stack walk (accel/traverse.py) and adds the beam backend's block
+cut; `build_beam` is that block cut alone (accel/beam.py).
+
+build_bvh's wide-node arrays (N nodes, W children each):
+  bvh_lo    [N, W, 3] f32   child AABB min (empty slot: +inf)
+  bvh_hi    [N, W, 3] f32   child AABB max (empty slot: -inf)
+  bvh_child [N, W]    i32   >= 0: internal node id; < 0: leaf code
+                            leaf code = -(prim_base * LEAF_SHIFT + count) - 1
+  prim_kind [P] i32, prim_idx [P] i32: leaf order -> scene primitive
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
+W = 8            # children per node
 LEAF_MAX = 4     # max primitives per leaf
 LEAF_SHIFT = 8   # leaf encoding bound: SAH leaves hold < LEAF_SHIFT prims
+MAX_STACK = 64   # traversal stack depth bound (checked at build time)
+
+
+@dataclasses.dataclass(frozen=True)
+class BVHMeta:
+    n_nodes: int
+    n_prims: int
+    max_depth: int      # wide-tree depth, for stack sizing
+    block_k: int = 0    # beam-traversal prims per block
+
+
+def _leaf_code(base: int, count: int) -> int:
+    assert 0 < count < LEAF_SHIFT
+    return -(base * LEAF_SHIFT + count) - 1
+
+
+def decode_leaf(code):
+    """Leaf decode of codes (ints, arrays or tensors): (base, count)."""
+    v = -(code + 1)
+    return v // LEAF_SHIFT, v % LEAF_SHIFT
 
 
 def _sah_build_binary(lo, hi, leaf_size=LEAF_MAX):
@@ -109,6 +139,58 @@ def _sah_build_binary(lo, hi, leaf_size=LEAF_MAX):
         stack.append((ri, mid, e))
         stack.append((li, s, mid))
     return nodes, order
+
+
+def _collapse_wide(nodes, order):
+    """Collapse the binary tree into W-wide nodes: each wide node's child
+    list grows by replacing its internal child of largest surface area by
+    that child's two children (the reference's greedy rule), breadth
+    first so parents get the lower indices.  Returns (wide_lo, wide_hi,
+    wide_child, max_depth)."""
+
+    def area(i):
+        d = np.maximum(nodes[i]["hi"] - nodes[i]["lo"], 0.0)
+        return float(d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
+
+    def empty():
+        return (np.full((W, 3), np.inf, np.float32),
+                np.full((W, 3), -np.inf, np.float32), np.zeros(W, np.int64))
+
+    wide = [empty()]
+    wide_index = {0: 0}
+    queue = [0]
+    depth_of = {0: 1}
+    max_depth = 1
+    qi = 0
+    while qi < len(queue):
+        bi = queue[qi]
+        qi += 1
+        children = [bi] if nodes[bi]["left"] < 0 else \
+            [nodes[bi]["left"], nodes[bi]["right"]]
+        while len(children) < W:
+            cand = [(area(c), j) for j, c in enumerate(children)
+                    if nodes[c]["left"] >= 0]
+            if not cand:
+                break
+            _, j = max(cand)
+            c = children.pop(j)
+            children.extend([nodes[c]["left"], nodes[c]["right"]])
+        clo, chi, cidx = empty()
+        for j, c in enumerate(children):
+            clo[j] = nodes[c]["lo"]
+            chi[j] = nodes[c]["hi"]
+            if nodes[c]["left"] < 0:
+                cidx[j] = _leaf_code(nodes[c]["start"], nodes[c]["count"])
+            else:
+                wide_index[c] = len(wide)
+                wide.append(empty())
+                cidx[j] = wide_index[c]
+                queue.append(c)
+                depth_of[c] = depth_of[bi] + 1
+                max_depth = max(max_depth, depth_of[c])
+        wide[wide_index[bi]] = (clo, chi, cidx)
+    wlo, whi, wchild = (np.stack(x) for x in zip(*wide))
+    return wlo, whi, wchild.astype(np.int64), max_depth
 
 
 SORT_COARSE_G = 8
@@ -214,21 +296,13 @@ def _prim_bounds(host_arrays):
             np.concatenate(kinds), np.concatenate(idxs))
 
 
-def build_beam(host_arrays):
-    """The beam backend's tables (the reference's build_bvh without its
-    wide-BVH arrays, which only its per-ray-stack backend reads):
-    host_arrays holds tri_v / sph_c / sph_r / quad_q / quad_u / quad_v at
-    their real lengths (NumPy, None when absent).  Returns (arrays,
-    block_k): accel/beam.py's build_blocks over the SAH order of every
-    primitive, and its beam_tables (quad plane data derived from q, u, v
+def _block_arrays(host_arrays, lo, hi, kinds, idxs, order):
+    """accel/beam.py's block cut over the SAH `order` and its
+    component-first geometry tables (quad plane data derived from q, u, v
     as the reference derives it)."""
     from .beam import build_blocks, beam_tables
 
-    pb = _prim_bounds(host_arrays)
-    if pb is None:
-        raise ValueError("empty scene")
-    lo, hi, kinds, idxs = pb
-    arrays, _ = build_blocks(lo, hi, kinds, idxs, sah_order(lo, hi))
+    arrays, _ = build_blocks(lo, hi, kinds, idxs, order)
     quad = {}
     if host_arrays.get("quad_q") is not None:
         q = np.asarray(host_arrays["quad_q"], np.float32)
@@ -243,4 +317,58 @@ def build_beam(host_arrays):
     arrays.update(beam_tables(tri_v=host_arrays.get("tri_v"),
                               sph_c=host_arrays.get("sph_c"),
                               sph_r=host_arrays.get("sph_r"), **quad))
+    return arrays
+
+
+def build_bvh(host_arrays, backend: str = "auto"):
+    """The scene's wide BVH: host_arrays holds tri_v / sph_c / sph_r /
+    quad_q / quad_u / quad_v at their real lengths (NumPy, None when
+    absent).  Returns (arrays, BVHMeta): the wide-node arrays (module
+    docstring) and the beam backend's block cut over the same SAH order,
+    whose padded prim tables supersede the unpadded ones (the unpadded
+    prefix is unchanged, so the leaf codes stay valid).
+
+    backend: "auto" prefers the threaded C++ builder and falls back to
+    NumPy; "native" or "numpy" force one."""
+    from ..native.loader import native_build_bvh
+
+    if backend not in ("auto", "native", "numpy"):
+        raise ValueError(f"unknown backend {backend!r}")
+    pb = _prim_bounds(host_arrays)
+    if pb is None:
+        raise ValueError("empty scene")
+    lo, hi, kinds, idxs = pb
+    result = None
+    if backend != "numpy":
+        result = native_build_bvh(lo, hi, LEAF_MAX)
+        if result is None and backend == "native":
+            raise RuntimeError("native BVH builder unavailable")
+    if result is not None:
+        wlo, whi, wchild, order, depth = result
+    else:
+        nodes, order = _sah_build_binary(lo, hi, leaf_size=LEAF_MAX)
+        wlo, whi, wchild, depth = _collapse_wide(nodes, order)
+    assert depth * (W - 1) + 1 < MAX_STACK * (W - 1), "stack bound"
+    arrays = dict(bvh_lo=wlo.astype(np.float32),
+                  bvh_hi=whi.astype(np.float32),
+                  bvh_child=wchild.astype(np.int32),
+                  prim_kind=kinds[order].astype(np.int32),
+                  prim_idx=idxs[order].astype(np.int32))
+    arrays.update(_block_arrays(host_arrays, lo, hi, kinds, idxs, order))
+    meta = BVHMeta(n_nodes=len(wlo), n_prims=len(order), max_depth=depth,
+                   block_k=int(arrays["blk_k"][0]))
+    return arrays, meta
+
+
+def build_beam(host_arrays):
+    """The beam backend's tables (build_bvh without its wide-node arrays,
+    which only the per-ray-stack walk reads): host_arrays as build_bvh's.
+    Returns (arrays, block_k): accel/beam.py's build_blocks over the SAH
+    order of every primitive, and its beam_tables."""
+    pb = _prim_bounds(host_arrays)
+    if pb is None:
+        raise ValueError("empty scene")
+    lo, hi, kinds, idxs = pb
+    arrays = _block_arrays(host_arrays, lo, hi, kinds, idxs,
+                           sah_order(lo, hi))
     return arrays, int(arrays["blk_k"][0])

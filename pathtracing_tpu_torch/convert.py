@@ -17,8 +17,9 @@ motion rows included) are rebuilt here from the carried triangles,
 instances, materials and textures with this package's own builder code
 (same SAH builder, same order).  A meta.accel == "beam" scene keeps its
 block cut and its component-first prim tables as they are (plain arrays,
-read by accel/beam.py).  Any other accel becomes the brute scan, which
-returns the same hits.
+read by accel/beam.py), and a meta.accel == "bvh" scene its wide-node
+arrays besides (read by accel/traverse.py).  Any other accel becomes the
+brute scan, which returns the same hits.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ _MEDIA_KEYS = (("med_sigma_a", (1, 3)), ("med_sigma_s", (1, 3)),
                ("med_g", (1,)), ("med_le", (1, 3)))
 _BEAM_KEYS = ("blk_lo", "blk_hi", "blk_base", "blk_k", "prim_kind",
               "prim_idx", "beam_tri", "beam_sph", "beam_quad")
+_BVH_KEYS = ("bvh_lo", "bvh_hi", "bvh_child")
 _CAM_KEYS = ("origin", "u", "v", "w", "half_wh", "defocus_radius",
              "focus_distance", "shutter")
 
@@ -119,8 +121,9 @@ def from_numpy_scene(scene: dict, cam: dict, meta_fields: dict, device=None):
         fields.update(accel="pallas", block_k=block_k, block_g=block_g,
                       alpha_block_k=alpha_block_k,
                       alpha_cull_mask=alpha_cull_mask)
-    elif accel == "beam" and "blk_lo" in scene:
-        arrays.update({k: np.asarray(scene[k]) for k in _BEAM_KEYS})
+    elif accel in ("beam", "bvh") and "blk_lo" in scene:
+        keys = _BEAM_KEYS + (_BVH_KEYS if accel == "bvh" else ())
+        arrays.update({k: np.asarray(scene[k]) for k in keys})
         fields.update(block_k=int(arrays["blk_k"][0]), alpha_block_k=0,
                       alpha_cull_mask=False)
     else:

@@ -15,11 +15,9 @@ into torch tensors on the device, builds the traversal tables for
 triangle scenes (`build_traversal_tables`: single- or two-level, plain or
 instanced, split into an opaque and an alpha set, the latter with
 per-triangle micro-masks, when some but not all triangles have an alpha
-material) or the beam backend's block cut (accel/build.py::build_beam)
+material), the beam backend's block cut (accel/build.py::build_beam) or
+the wide BVH with that block cut (accel/build.py::build_bvh, accel="bvh")
 and returns (scene, cam, SceneMeta).
-
-Not in this package yet, and refused with NotImplementedError:
-accel="bvh" (the reference package's per-ray wide-BVH backend).
 """
 from __future__ import annotations
 
@@ -831,16 +829,12 @@ class SceneBuilder:
         per instance), "pallas" (the traversal tables that
         build_traversal_tables chooses) for triangle or instanced scenes
         above and "beam" (accel/beam.py) for the rest, as the reference
-        package does; "beam" on a moving or instanced scene warns and
-        falls back to "brute"; "brute" forces the scan (and builds no
-        alpha micro-masks: it is the unmasked oracle)."""
+        package does; "bvh" builds the wide BVH (accel/traverse.py);
+        "beam" or "bvh" on a moving or instanced scene warns and falls
+        back to "brute"; "brute" forces the scan (and builds no alpha
+        micro-masks: it is the unmasked oracle)."""
         dev = resolve_device(device)
-        if accel == "bvh":
-            raise NotImplementedError(
-                "accel='bvh' (the per-ray wide-BVH backend) is not in "
-                "pathtracing_tpu_torch yet; accel='pallas' or 'beam' "
-                "accelerate the same scenes")
-        if accel not in ("auto", "pallas", "brute", "beam"):
+        if accel not in ("auto", "pallas", "brute", "beam", "bvh"):
             raise ValueError(f"unknown accel {accel!r}")
         self._maybe_flatten_instances()
         n_inst = len(self._inst)
@@ -1024,26 +1018,30 @@ class SceneBuilder:
         if accel == "auto":
             accel = ("brute" if n_prims < 4096 else
                      "pallas" if nt or n_inst else "beam")
-        if has_motion and accel == "beam":
-            warnings.warn("accel='beam' does not support motion-blurred "
-                          "scenes: falling back to accel='brute' (use "
-                          "pallas for accelerated motion)", stacklevel=2)
+        if has_motion and accel in ("beam", "bvh"):
+            warnings.warn(f"accel={accel!r} does not support motion-"
+                          "blurred scenes: falling back to accel='brute' "
+                          "(use pallas for accelerated motion)", stacklevel=2)
             accel = "brute"
-        if n_inst and accel == "beam":
-            warnings.warn("accel='beam' does not support runtime instances: "
-                          "falling back to accel='brute' (use pallas for "
-                          "accelerated instancing)", stacklevel=2)
+        if n_inst and accel in ("beam", "bvh"):
+            warnings.warn(f"accel={accel!r} does not support runtime "
+                          "instances: falling back to accel='brute' (use "
+                          "pallas for accelerated instancing)", stacklevel=2)
             accel = "brute"
-        if accel == "beam" and n_prims:
-            from ..accel.build import build_beam
-            beam, block_k = build_beam(dict(
-                tri_v=tri_v[:nt] if nt else None,
-                sph_c=arrays["sph_c"][:ns] if ns else None,
-                sph_r=arrays["sph_r"][:ns] if ns else None,
-                quad_q=quad_q[:nq] if nq else None,
-                quad_u=quad_u[:nq] if nq else None,
-                quad_v=quad_v[:nq] if nq else None))
-            arrays.update(beam)
+        if accel in ("beam", "bvh") and n_prims:
+            from ..accel.build import build_beam, build_bvh
+            host = dict(tri_v=tri_v[:nt] if nt else None,
+                        sph_c=arrays["sph_c"][:ns] if ns else None,
+                        sph_r=arrays["sph_r"][:ns] if ns else None,
+                        quad_q=quad_q[:nq] if nq else None,
+                        quad_u=quad_u[:nq] if nq else None,
+                        quad_v=quad_v[:nq] if nq else None)
+            if accel == "bvh":
+                tabs, bvh_meta = build_bvh(host)
+                block_k = bvh_meta.block_k
+            else:
+                tabs, block_k = build_beam(host)
+            arrays.update(tabs)
         elif accel == "pallas" and (nt or n_inst):
             inst = None
             if n_inst:

@@ -1,10 +1,12 @@
 """Ray-scene intersection (counterpart of pathtracing_tpu/scene/intersect.py).
 
-Three backends, chosen by meta.accel:
+Four backends, chosen by meta.accel:
   "brute"  - a chunked scan over every primitive ([N, C] tensor tests),
              the correctness reference;
   "beam"   - the block-beam walk over a flat block cut of the SAH order
              (accel/beam.py; plain PyTorch), every shape kind;
+  "bvh"    - the per-ray-stack walk of the wide BVH (accel/traverse.py;
+             plain PyTorch), every shape kind;
   "pallas" - triangles through the traversal kernels (two-level tables:
              accel/trace2.py, single-level ones: accel/trace1.py; the CUDA
              kernel on the card, its plain version on the CPU), analytic
@@ -501,12 +503,21 @@ def _beam(scene, meta, origin, direction, t_max, any_hit=False):
                                   meta.n_quad > 0))
 
 
+def _bvh(scene, meta, origin, direction, t_max, any_hit=False):
+    from ..accel.traverse import bvh_intersect
+    return bvh_intersect(scene, origin, direction, t_max, any_hit=any_hit,
+                         shapes=(meta.n_tri > 0, meta.n_sph > 0,
+                                 meta.n_quad > 0))
+
+
 def _intersect(scene, meta, origin, direction, t_max, time=None):
     if meta.accel == "pallas":
         return _pallas_dispatch(scene, meta, origin, direction, t_max,
                                 time=time)
     if meta.accel == "beam":      # static scenes only (the builder's rule)
         return _beam(scene, meta, origin, direction, t_max)
+    if meta.accel == "bvh":       # the same
+        return _bvh(scene, meta, origin, direction, t_max)
     motion = meta.has_motion and time is not None
     n = origin.shape[0]
     dev = origin.device
@@ -876,6 +887,9 @@ def _occluded(scene, meta, origin, direction, t_max, rand_key=None,
         if meta.accel == "beam":
             return _beam(scene, meta, origin, direction, t_max - SHADOW_EPS,
                          any_hit=True)["valid"]
+        if meta.accel == "bvh":
+            return _bvh(scene, meta, origin, direction, t_max - SHADOW_EPS,
+                        any_hit=True)["valid"]
         return _intersect(scene, meta, origin, direction,
                           t_max - SHADOW_EPS, time)["valid"]
 

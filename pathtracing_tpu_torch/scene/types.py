@@ -43,7 +43,9 @@ every table padded to >= 1 row so gathers stay well-formed:
         the opaque ones and pka_* the alpha ones, with pka_mask the
         per-slot micro-mask words (alphamask.py)
   blk_*, prim_kind / prim_idx, beam_*  the beam backend's block cut and
-        prim tables (accel/beam.py; meta.accel == "beam")
+        prim tables (accel/beam.py; meta.accel == "beam" or "bvh")
+  bvh_lo / bvh_hi / bvh_child  the wide BVH's nodes (accel/traverse.py;
+        meta.accel == "bvh")
 A hit on a run-time instance has kind SHAPE_ITRI and idx = instance *
 meta.n_obj_tri + object triangle.
 """
@@ -87,7 +89,7 @@ class SceneMeta:
     camera_medium: int = -1
     has_alpha: bool = False
     light_sampler: str = "power"  # "power" | "uniform"
-    accel: str = "brute"          # "pallas" (kernels) | "beam" | "brute"
+    accel: str = "brute"      # "pallas" (kernels) | "beam" | "bvh" | "brute"
     block_k: int = 0              # triangles per (child) block of pk_*
     #                               (beam: prims per block)
     block_g: int = 16             # G: child blocks per L1 superblock

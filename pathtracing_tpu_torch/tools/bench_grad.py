@@ -154,9 +154,10 @@ def regen_forward(scene, cam, meta, depth, n_groups=None):
     return dict(seconds=_now(dev) - t0, outs=outs, launches=launches)
 
 
-def fwd_bwd_regen(scene, cam, meta, depth, sections=False):
-    """trace_regen_diff over every queue group of the frame, LANES lanes,
-    gradients summed.  bytes_per_lane_iter is what the recording keeps per
+def fwd_bwd_regen(scene, cam, meta, depth, sections=False, n_groups=None):
+    """trace_regen_diff over the frame's queue groups (the first n_groups
+    of them), LANES lanes, gradients summed; the rates count the samples
+    of the groups run.  bytes_per_lane_iter is what the recording keeps per
     lane per iteration (its residuals, measured from their tensors); outs
     holds each group's radiance, launches_fwd_by_group each group's
     forward K1 + K2 launches.  sections=True splits the backward passes
@@ -165,9 +166,10 @@ def fwd_bwd_regen(scene, cam, meta, depth, sections=False):
     each mark."""
     cfg = RenderConfig(spp=1, max_depth=depth, integrator="path",
                        rays_per_batch=LANES)
-    w, h = cam["resolution"]
     dev = scene["mat_base"].device
     groups, waves = regen_groups(cam)
+    groups = groups[:n_groups]
+    n_samples = sum(p1 - p0 for p0, p1 in groups) * waves
 
     def run():
         grad = torch.zeros_like(scene["mat_base"])
@@ -197,7 +199,7 @@ def fwd_bwd_regen(scene, cam, meta, depth, sections=False):
         return grad, fwd, bwd, stats, outs, by_group
 
     (grad, fwd, bwd, st, outs, by_group), seconds, peak = _timed(run, dev)
-    return dict(samples_per_s=w * h * waves / seconds, seconds=seconds,
+    return dict(samples_per_s=n_samples / seconds, seconds=seconds,
                 peak_bytes=peak, fwd_s=st["fwd_s"],
                 bwd_s=st["bwd_s"],
                 backward_replay_s=st.get("backward_replay_s"),
@@ -207,5 +209,5 @@ def fwd_bwd_regen(scene, cam, meta, depth, sections=False):
                 launches_fwd_by_group=by_group,
                 finite=bool(torch.isfinite(grad).all()), grad=grad,
                 outs=outs, iterations=st["iterations"],
-                rays_per_sample=st["n_rays"] / (w * h * waves),
+                rays_per_sample=st["n_rays"] / n_samples,
                 groups=len(groups))

@@ -179,18 +179,19 @@ def _fallback_scene(B, case):
 
 @pytest.mark.parametrize("case", ["motion", "instance"])
 def test_torch_beam_fallbacks_warn_like_jax(case):
-    """accel="beam" on a moving or a run-time-instanced scene warns and
-    builds the brute scan, as the JAX builder does; accel="bvh" stays
-    refused."""
-    with pytest.warns(UserWarning, match="falling back to accel='brute'"):
-        _, _, jm = _fallback_scene(JBuilder, case).build(accel="beam")
-    b = _fallback_scene(TBuilder, case)
-    with pytest.warns(UserWarning, match="falling back to accel='brute'"):
-        ts, _, tm = b.build(accel="beam", device="cpu")
-    assert jm.accel == tm.accel == "brute" and "blk_lo" not in ts
-    assert (tm.has_motion, tm.n_inst) == (jm.has_motion, jm.n_inst)
-    with pytest.raises(NotImplementedError):
-        b.build(accel="bvh", device="cpu")
+    """accel="beam" and accel="bvh" on a moving or a run-time-instanced
+    scene warn and build the brute scan, as the JAX builder does."""
+    for accel in ("beam", "bvh"):
+        with pytest.warns(UserWarning, match=f"accel='{accel}' does not "
+                          "support .*falling back to accel='brute'"):
+            _, _, jm = _fallback_scene(JBuilder, case).build(accel=accel)
+        b = _fallback_scene(TBuilder, case)
+        with pytest.warns(UserWarning, match=f"accel='{accel}' does not "
+                          "support .*falling back to accel='brute'"):
+            ts, _, tm = b.build(accel=accel, device="cpu")
+        assert jm.accel == tm.accel == "brute"
+        assert "blk_lo" not in ts and "bvh_lo" not in ts
+        assert (tm.has_motion, tm.n_inst) == (jm.has_motion, jm.n_inst)
 
 
 def _cornell(B, **build_kw):

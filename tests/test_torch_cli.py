@@ -123,12 +123,27 @@ def test_torch_scenes_cover_the_jax_scenes():
             (jm.n_tri, jm.n_sph, jm.n_quad, jm.n_lights, jm.n_media), name
 
 
-def test_torch_cli_refusals(tmp_path):
-    """bench is not in the port yet: it exits non-zero naming its script;
-    --accel bvh is refused by the builder."""
-    with pytest.raises(SystemExit, match="bench_torch.py"):
-        main(["bench"])
+def test_torch_cli_refusals(tmp_path, monkeypatch, capsys):
+    """What the port refused until it had them: `bench` runs the bench
+    (pathtracing_tpu_torch/bench.py, here at a tiny BENCH_FAST size) and
+    prints its JSON line; --accel bvh renders through the wide-BVH walk,
+    the image equal to the brute scan's."""
+    for k, v in dict(BENCH_FAST="1", N_TRIS="1500", BENCH_FOLIAGE="4",
+                     BENCH_DEPTH="2", BENCH_REPS="1").items():
+        monkeypatch.setenv(k, v)
+    out = main(["bench", "--device", "cpu", "--res", "16", "8",
+                "--cornell-res", "8", "--cornell-spp", "1"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(last) == out and out["value"] > 0
     obj = _grid_obj(tmp_path / "g.obj", side=4)
-    with pytest.raises(NotImplementedError, match="bvh"):
-        main(["render", "--device", "cpu", "--model", str(obj), "--accel",
-              "bvh", "--out", str(tmp_path / "x.ppm")])
+    films = {}
+    for accel in ("bvh", "brute"):
+        r = main(["render", "--device", "cpu", "--model", str(obj),
+                  "--accel", accel, "--out", str(tmp_path / f"{accel}.ppm")]
+                 + _MODEL_ARGS)
+        assert r["meta"].accel == accel
+        assert (tmp_path / f"{accel}.ppm").exists()
+        films[accel] = r["film"]["rgb"]
+    assert float(films["bvh"].mean()) > 0
+    torch.testing.assert_close(films["bvh"], films["brute"], rtol=1e-4,
+                               atol=1e-5)
