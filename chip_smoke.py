@@ -149,6 +149,23 @@ device summary only when every phase passed):
      uninterrupted run and prints --adaptive's mean spp; (6) holds
      render_sharded on a one-rank nccl group to render() (rtol=2e-4,
      atol=2e-5).  The .glb, the cache and the sky are deleted after;
+  8c. [oracle] tests/independent_oracle.py (a NumPy tracer that shares no
+     code with the port) held to the port at the JAX oracle test's full
+     settings (tests/test_torch_independent_oracle.py's FULL: 32x32,
+     depth 4, 512 spp, sampler seeds 17 / 11, oracle generators 303 /
+     101, oracle spp 512 / 768), for `path` and `simple`: the oracle runs
+     once per integrator in a spawned worker on the host's CPU while the
+     card renders (a) the test's scene (analytic prims: brute, no
+     kernel), (b) its floor as a 16x16-cell mesh of 512 triangles over
+     the same quad with accel="pallas" (K2; launches > 0), (c) (b) built
+     under PT_TWOLEVEL_MIN=0 (K1; launches > 0), each drained by the
+     regenerating tracer with 65,536 lanes in flight (render() would give
+     this frame 1,024); each holds the whole-image mean within 2% and
+     every 4x4 block brighter than 0.05 within 12% of the oracle's;
+  8d. [example] the API walkthrough: tools/example_1.main at 320x240, 16
+     spp, volpath depth 8 (its seven analytic prims: no kernel): seconds,
+     samples/s, mean (finite, > 0); then its build_scene at 48x36, 4 spp
+     under its own config card against CPU by the 99% rule;
   9. K4 (csrc/leaf.cu, tools/bench_leaf.py): every mode against its plain
      version at n_iter=16 (the scalar modes at every lane count), then the
      JAX tool's defaults (K2=256, n_iter=2000) in ROUNDS interleaved rounds
@@ -164,6 +181,7 @@ rounds, each round timing every mode of the phase in turn: "ms" is the
 median, "ms_spread" (max - min) / median.
 Writes chiprun_out/sanmiguel_{legacy,faithful,multipass,tlas,small}.ppm,
 chiprun_out/spheres_medium.ppm, chiprun_out/cli_{legacy,hdr}.ppm,
+chiprun_out/example_1.ppm,
 chiprun_out/bvh/*.ppm and the whole output to chiprun_out/chip_smoke.log,
 each line there after the seconds since the start.
 
@@ -224,6 +242,10 @@ SCHEDULES = (dict(window=2, pops=4), dict(window=4, pops=8),
              dict(pair=True), dict(pops=1), dict(pops=4))
 CAPS = (1, 2, 16)
 ROUNDS = 7                  # interleaved timing rounds of a phase's rows
+ORACLE_FLOOR_CELLS = 16     # [oracle] (b), (c): the floor as 16x16 cells
+ORACLE_LANES = 1 << 16      # [oracle]: lanes in flight, the main path's
+EXAMPLE_RES = (320, 240)    # [example]: the walkthrough's card frame
+EXAMPLE_SPP = 16
 
 
 def _sync_time(fn, reps=20):
@@ -2079,6 +2101,153 @@ def _cli_phase(render_image, filmmod):
     return counts
 
 
+def _oracle_module():
+    """tests/test_torch_independent_oracle.py: the JAX oracle test's scene,
+    settings and rules on the port (it imports torch, numpy and
+    tests/independent_oracle.py, nothing of JAX)."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import test_torch_independent_oracle
+    return test_torch_independent_oracle
+
+
+def _oracle_job(integrator):
+    """(the oracle's image at the full settings, its seconds): run in a
+    worker process on the host's CPU while the card renders."""
+    t0 = time.perf_counter()
+    img = _oracle_module().oracle_image(integrator)
+    return img, time.perf_counter() - t0
+
+
+def _oracle_render(scene, cam, meta, cfg):
+    """The film's weighted mean per pixel ([H, W, 3] float64 numpy) of all
+    cfg.spp samples of every pixel drained by the regenerating tracer with
+    ORACLE_LANES lanes in flight.  render() would give a 32x32 frame 1,024
+    lanes (512 plain waves, or a 1,152-iteration drain: 67-113 s a render
+    on an H100, launch-bound); the samples and their streams are the
+    same."""
+    import torch
+    from pathtracing_tpu_torch.integrators.render import render_tile_regen
+    from pathtracing_tpu_torch.sensor import film as filmmod
+    w, h = cam["resolution"]
+    pix = torch.arange(w * h, device=scene["mat_base"].device)
+    film = render_tile_regen(scene, cam, meta, cfg,
+                             filmmod.new_film((w, h), device=pix.device), pix,
+                             cfg.spp, 0, rows=h, row0=0, lanes=ORACLE_LANES)
+    img = filmmod.finalize(film)
+    return img.cpu().double().numpy().reshape(h, w, 3)
+
+
+def _oracle_phase():
+    """[oracle]: tests/independent_oracle.py held to the port on the card at
+    the JAX oracle test's full settings, for `path` and `simple`; the
+    oracle runs once per integrator in a worker process while the card
+    renders three variants of the scene: (a) as it is (brute, no kernel),
+    (b) its floor as a 16x16-cell mesh (512 triangles, accel="pallas":
+    K2), (c) (b) under PT_TWOLEVEL_MIN=0 (K1), each drained by the
+    regenerating tracer (_oracle_render).  Each must hold the mean within
+    2% and every 4x4 block within 12%."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+    import numpy as np
+    orc = _oracle_module()
+    t_phase = time.perf_counter()
+
+    def scene_of(variant):
+        if variant == "c":
+            os.environ["PT_TWOLEVEL_MIN"] = "0"
+        try:
+            if variant == "a":
+                return orc.build_scene("cuda")
+            return orc.build_scene("cuda", floor_cells=ORACLE_FLOOR_CELLS,
+                                   accel="pallas")
+        finally:
+            os.environ.pop("PT_TWOLEVEL_MIN", None)
+
+    kernel = dict(a=None, b="trace1", c="trace2")
+    renders = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = {i: pool.submit(_oracle_job, i) for i in orc.FULL}
+        for variant in "abc":
+            scene, cam, meta = scene_of(variant)
+            levels = ("two-level" if "pk_l1_base" in scene else
+                      "single-level" if "pk_tri" in scene else "none")
+            for integrator, s in orc.FULL.items():
+                cfg = orc.port_config(integrator, s["spp"], s["grid"],
+                                      s["seed"])
+                _reset_counts()
+                t0 = time.perf_counter()
+                img = _oracle_render(scene, cam, meta, cfg)
+                seconds = time.perf_counter() - t0
+                counts = {k: v for k, v in _launch_counts().items() if v}
+                k = kernel[variant]
+                if k is None and counts:
+                    raise RuntimeError(f"[oracle] (a) launched {counts}")
+                if k is not None:       # `simple` traces no shadow rays
+                    _need(counts, [f"{k}[closest]"] + (
+                        [f"{k}[any_hit]"] if integrator == "path" else []),
+                        f"[oracle] ({variant}) {integrator}")
+                renders[variant, integrator] = (img, seconds, counts,
+                                                meta.accel, meta.n_tri,
+                                                levels)
+            del scene
+        oracles = {i: job.result() for i, job in jobs.items()}
+    for (variant, integrator), (img, seconds, counts, accel, n_tri,
+                                levels) in renders.items():
+        oracle, oracle_s = oracles[integrator]
+        rel, worst = orc.errors(img, oracle)
+        s = orc.FULL[integrator]
+        print(f"[oracle] ({variant}) {integrator}: {n_tri} triangles, accel="
+              f"{accel} ({levels} tables), {orc.RES[0]}x{orc.RES[1]} x "
+              f"{s['spp']} spp depth {orc.MAX_DEPTH} seed {s['seed']} "
+              f"(regenerating, {ORACLE_LANES} lanes) in {seconds:.2f}s "
+              f"({orc.RES[0] * orc.RES[1] * s['spp'] / seconds:.1f} "
+              f"samples/s); mean {img.mean():.6f} vs the oracle's "
+              f"{oracle.mean():.6f} ({s['oracle_spp']} spp, generator "
+              f"{s['oracle_seed']}, {oracle_s:.2f}s on the host's CPU): off "
+              f"by {rel:.3%} (gate {orc.MEAN_TOL:.0%}), worst 4x4 block off "
+              f"by {worst:.3%} (gate {orc.BLOCK_TOL:.0%}); launches "
+              f"{counts}", flush=True)
+        if not (np.isfinite(img).all() and rel < orc.MEAN_TOL
+                and worst < orc.BLOCK_TOL):
+            raise RuntimeError(f"[oracle] ({variant}) {integrator} disagrees "
+                               f"with the independent oracle")
+    print(f"[oracle] phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def _example_phase(render_image):
+    """[example]: the API walkthrough (tools/example_1.py) through its main
+    on the card at EXAMPLE_RES x EXAMPLE_SPP, then its scene card against
+    CPU by the 99% rule at 48x36, 4 spp, under its own config."""
+    import torch
+    from pathtracing_tpu_torch.sensor import film as filmmod
+    from pathtracing_tpu_torch.tools import example_1
+    t_phase = time.perf_counter()
+    _reset_counts()
+    r = example_1.main(["--res", *map(str, EXAMPLE_RES), "--spp",
+                        str(EXAMPLE_SPP), "--out",
+                        "chiprun_out/example_1.ppm"])
+    img = filmmod.finalize(r["film"])
+    mean, finite = float(img.mean()), bool(torch.isfinite(img).all())
+    launches = sum(_launch_counts().values())
+    print(f"[example] tools/example_1.main at {EXAMPLE_RES[0]}x"
+          f"{EXAMPLE_RES[1]} x {EXAMPLE_SPP} spp, volpath depth 8: "
+          f"{r['seconds']:.2f}s, {r['samples_per_s']:.1f} samples/s, image "
+          f"mean {mean:.6f} finite {finite}, kernel launches {launches} "
+          f"(seven analytic prims: the brute scan)", flush=True)
+    if not (finite and mean > 0.0):
+        raise RuntimeError(f"[example] bad image: mean={mean} "
+                           f"finite={finite}")
+    _card_vs_cpu(render_image, *example_1.build_scene((48, 36), "cpu"),
+                 example_1.render_config(spp=4, depth=8),
+                 "[example] example_1.build_scene 48x36 4 spp volpath d8")
+    print(f"[example] phase {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
 class _Tee:
     """stdout that also lands in a file, so a long output is kept whole;
     the file's lines start with the seconds since the script began (the
@@ -2615,6 +2784,11 @@ def main() -> int:
 
     # ---- 8b. [cli]: the command line and what it reaches
     cli_counts = _cli_phase(render_image, filmmod)
+
+    # ---- 8c. [oracle]: the independent NumPy oracle held to the port,
+    # brute, through K2 and through K1; 8d. [example]: the walkthrough
+    _oracle_phase()
+    _example_phase(render_image)
 
     # ---- 9. K4, the leaf micro-benchmark, through its own entry point
     leaf_rows, leaf_counts = _leaf_phase()
