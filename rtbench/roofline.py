@@ -1,0 +1,231 @@
+"""K1's share of its roofline on the window's own rays.
+
+`K1Probe.install()` wraps accel/trace2.py's `tri_intersect2` (looked up by
+the dispatch at each call) and keeps the rays of the first ITERS
+closest-hit dispatches on the opaque two-level tables (amask 0, not
+any-hit): real primary and bounce rays, in the order the dispatch sends
+them.  After the window, `measure()` replays each through the same entry
+(CUDA events: a warm launch, then REPS launches) and counts, by a frozen
+copy of the plain two-level walk (accel/trace2.py::_plain_slots at the
+time the benchmark was defined), the work a front-to-back walk with
+perfect pruning needs on those rays and tables:
+
+  operations  20 per slab test: every coarse union of 8 L1 boxes (the
+              tables' top-level front, pk_cbox / pk_cmem), the member L1
+              boxes of each union the ray enters before its nearest hit,
+              and the G child boxes of each L1 it enters before that hit;
+              45 per Moller-Trumbore test: the K triangles of each child
+              block it enters before that hit;
+  bytes       each ray in (28 B) and each result out (13 B) once, the
+              union table once (a 32-B box and a 32-B member row each),
+              the L1 rows of every union some ray opens once (36 B), the
+              child boxes of every L1 some ray opens once (32 B), the
+              triangle rows of every child block some ray opens once
+              (48 B).
+
+The bound is the larger of operations / 67 TFLOP/s and bytes / 3.35 TB/s
+(the H100 SXM's fp32 and HBM peaks, at its 700 W limit); the share is the
+bound over the measured time.  The count never reads the kernel's
+counters, so it is the same whatever K1 does to find the hits.
+"""
+from __future__ import annotations
+
+import torch
+
+FP32_PEAK = 67e12
+HBM_RATE = 3.35e12
+SLAB_FLOPS = 20
+MT_FLOPS = 45
+RAY_IN, RAY_OUT = 28, 13
+UNION_ROW, L1_ROW, BOX_ROW, TRI_ROW = 64, 36, 32, 48
+EPS = 1e-5
+BIG = 3.0e38
+ITERS = 8
+REPS = 10
+
+
+def _padded(box):
+    lo, hi = box[:, 0:3], box[:, 4:7]
+    pad = 1e-4 * (hi - lo + torch.maximum(lo.abs(), hi.abs()))
+    return lo - pad, hi + pad
+
+
+def _entry(lo, hi, o, d, t_max):
+    """Slab entry distance of boxes lo / hi for rays o / d below t_max
+    (broadcast; BIG where the ray does not enter)."""
+    tiny = torch.where(d < 0, -1e-32, 1e-32)
+    inv = 1.0 / torch.where(d.abs() < 1e-32, tiny, d)
+    a = (lo - o) * inv
+    b = (hi - o) * inv
+    tn = torch.minimum(a, b).amax(-1).clamp(min=0.0)
+    tf = torch.minimum(torch.maximum(a, b).amin(-1), t_max)
+    return torch.where(tn <= tf, tn, BIG)
+
+
+def _nearest(o, d, tri, t_max):
+    """Nearest hit t of rays [P,3] on table rows [P,K,12] (v0, e1, e2)."""
+    v0, e1, e2 = tri[..., 0:3], tri[..., 3:6], tri[..., 6:9]
+    dd = d[:, None].expand_as(e2)
+    h = torch.cross(dd, e2, dim=-1)
+    det = (e1 * h).sum(-1)
+    small = det.abs() < 1e-9
+    inv = 1.0 / torch.where(small, 1.0, det)
+    s = o[:, None] - v0
+    u = (s * h).sum(-1) * inv
+    q = torch.cross(s, e1, dim=-1)
+    v = (dd * q).sum(-1) * inv
+    t = (e2 * q).sum(-1) * inv
+    ok = ~small & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) \
+        & (t >= EPS) & (t < t_max[:, None])
+    return torch.where(ok, t, BIG).amin(-1)
+
+
+def k1_work(tables, o, d, t_max, budget=1 << 24):
+    """(flops, bytes) a pruned front-to-back two-level walk needs for the
+    rays on the tables (pk_cbox, pk_cmem, pk_l1box, pk_l1_base, pk_l2box,
+    pk_tri)."""
+    w = walk(tables, o, d, t_max, budget)
+    return w["flops"], w["bytes"]
+
+
+def walk(tables, o, d, t_max, budget=1 << 24):
+    """The frozen plain walk: dict(flops, bytes, best), best the nearest
+    hit t of each live ray (t_max > 0)."""
+    live = t_max > 0
+    o, d, t_max = o[live], d[live], t_max[live]
+    n = o.shape[0]
+    ulo, uhi = _padded(tables["pk_cbox"])
+    mem = tables["pk_cmem"].long()
+    l1lo, l1hi = _padded(tables["pk_l1box"])
+    l2lo, l2hi = _padded(tables["pk_l2box"])
+    base = tables["pk_l1_base"].long()
+    nc, m2 = ulo.shape[0], l2lo.shape[0]
+    g = m2 // base.shape[0]
+    tri = tables["pk_tri"].view(m2, -1, 12)
+    k2 = tri.shape[1]
+    cg = torch.arange(g, device=o.device)
+    # (ray, union) pairs entered; (ray, L1) pairs entered, with the pair
+    # of their union; (ray, child) pairs entered, with the pair of their L1
+    u_r, u_c, u_t, l1_r, l1_i, l1_e, l1_t, ch_r, ch_i, ch_c, ch_t = (
+        [] for _ in range(11))
+    n_u = n_l1 = 0
+    chunk = max(1, budget // nc)
+    for r0 in range(0, n, chunk):
+        ob, db, tm = o[r0:r0 + chunk], d[r0:r0 + chunk], t_max[r0:r0 + chunk]
+        e0 = _entry(ulo[None], uhi[None], ob[:, None], db[:, None],
+                    tm[:, None])
+        r, c = torch.nonzero(e0 < BIG, as_tuple=True)
+        u_r.append(r + r0)
+        u_c.append(c)
+        u_t.append(e0[r, c])
+        members = mem[c]
+        e1 = _entry(l1lo[members.clamp(min=0)], l1hi[members.clamp(min=0)],
+                    ob[r][:, None], db[r][:, None], tm[r][:, None])
+        e1 = torch.where(members >= 0, e1, BIG)
+        p, j = torch.nonzero(e1 < BIG, as_tuple=True)
+        rr, e = r[p], members[p, j]
+        l1_r.append(rr + r0)
+        l1_i.append(p + n_u)            # the (ray, union) pair it came from
+        l1_e.append(e)
+        l1_t.append(e1[p, j])
+        ch = base[e][:, None] + cg[None]
+        e2 = _entry(l2lo[ch], l2hi[ch], ob[rr][:, None], db[rr][:, None],
+                    tm[rr][:, None])
+        q, k = torch.nonzero(e2 < BIG, as_tuple=True)
+        ch_r.append(rr[q] + r0)
+        ch_i.append(q + n_l1)           # the (ray, L1) pair it came from
+        ch_c.append(ch[q, k])
+        ch_t.append(e2[q, k])
+        n_u += r.numel()
+        n_l1 += p.numel()
+    u_r, u_c, u_t, l1_r, l1_i, l1_e, l1_t, ch_r, ch_i, ch_c, ch_t = (
+        torch.cat(x) for x in (u_r, u_c, u_t, l1_r, l1_i, l1_e, l1_t, ch_r,
+                               ch_i, ch_c, ch_t))
+    best = torch.full((n,), BIG, device=o.device)
+    step = max(1, budget // (16 * k2))
+    for p0 in range(0, ch_r.shape[0], step):
+        r, c = ch_r[p0:p0 + step], ch_c[p0:p0 + step]
+        best.scatter_reduce_(0, r, _nearest(o[r], d[r], tri[c], t_max[r]),
+                             reduce="amin")
+    # a front-to-back walk opens a union entered before the nearest hit
+    # (its member L1 boxes are tested), an L1 of an opened union entered
+    # before it (its G child boxes are tested) and a child block of an
+    # opened L1 entered before it (its K triangles are tested)
+    u_open = u_t <= best[u_r]
+    l1_open = (l1_t <= best[l1_r]) & u_open[l1_i]
+    leaf = (ch_t <= best[ch_r]) & l1_open[ch_i]
+    members_tested = int((mem[u_c[u_open]] >= 0).sum())
+    flops = ((n * nc + members_tested + int(l1_open.sum()) * g) * SLAB_FLOPS
+             + int(leaf.sum()) * k2 * MT_FLOPS)
+    l1_rows = int((mem[torch.unique(u_c[u_open])] >= 0).sum())
+    nbytes = (n * (RAY_IN + RAY_OUT) + nc * UNION_ROW + l1_rows * L1_ROW
+              + torch.unique(l1_e[l1_open]).numel() * g * BOX_ROW
+              + torch.unique(ch_c[leaf]).numel() * k2 * TRI_ROW)
+    return dict(flops=float(flops), bytes=float(nbytes), best=best)
+
+
+def bound_s(flops, nbytes):
+    return max(flops / FP32_PEAK, nbytes / HBM_RATE)
+
+
+class K1Probe:
+    def __init__(self, opaque_tri: torch.Tensor, iters: int = ITERS):
+        self.key = opaque_tri.data_ptr()
+        self.iters = iters
+        self.calls = []
+        self.armed = False
+        self._saved = None
+
+    def install(self):
+        from pathtracing_tpu_torch.accel import trace2
+        orig = trace2.tri_intersect2
+        probe = self
+
+        def tri_intersect2(scene, origin, direction, t_max, any_hit=False,
+                           amask=0, **kw):
+            if probe.armed and not any_hit and not amask \
+                    and len(probe.calls) < probe.iters \
+                    and scene["pk_tri"].data_ptr() == probe.key:
+                probe.calls.append((scene, origin, direction, t_max, kw))
+            return orig(scene, origin, direction, t_max, any_hit=any_hit,
+                        amask=amask, **kw)
+        # the entry keeps its launch count on itself, found by its module
+        # name: the stand-in carries it while it is installed
+        tri_intersect2.__dict__.update(orig.__dict__)
+        self._saved = (trace2, orig)
+        trace2.tri_intersect2 = tri_intersect2
+        return self
+
+    def remove(self):
+        if self._saved is not None:
+            mod, orig = self._saved
+            orig.__dict__.update(mod.tri_intersect2.__dict__)
+            mod.tri_intersect2 = orig
+            self._saved = None
+
+    def measure(self):
+        """{share (%), bound_ms, time_ms, flops, bytes, dispatches} over
+        the kept dispatches, or None when none was kept."""
+        if not self.calls:
+            return None
+        from pathtracing_tpu_torch.accel.trace2 import tri_intersect2
+        total_t = total_b = flops = nbytes = 0.0
+        calls, self.calls = self.calls, []
+        for scene, o, d, tm, kw in calls:
+            tri_intersect2(scene, o, d, tm, **kw)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(REPS):
+                tri_intersect2(scene, o, d, tm, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            total_t += start.elapsed_time(end) / 1e3 / REPS
+            f, b = k1_work(scene, o, d, tm)
+            flops += f
+            nbytes += b
+            total_b += bound_s(f, b)
+        return dict(share=100.0 * total_b / total_t, bound_ms=1e3 * total_b,
+                    time_ms=1e3 * total_t, flops=flops, bytes=nbytes,
+                    dispatches=len(calls))
