@@ -74,8 +74,10 @@ device summary only when every phase passed):
      textures, normal map, glass, metal, lamp meshes) at 1920x1080, depth
      64, 1 spp, regenerate=True, one frame; K1's launch
      counts over the frame must be > 0 in its four plain modes; with
-     --sections, one more frame with a timer around each section of the
-     bounce loop; with --profile, one more frame under torch.profiler;
+     --sections or --profile, one work item of the frame (every 32nd
+     row) under trace_to (the profiler and the program's spans):
+     --sections prints each span's self time, --profile the device's busy
+     share and top kernels;
   6. path A: the same scene with its 2,500 shrubs kept as run-time
      instances (PT_FLATTEN_MAX=0), depth 32 (cut from 64 for the
      script's time), one frame: K1 closest
@@ -116,8 +118,8 @@ device summary only when every phase passed):
      must launch none), finite nonzero gradients, and the recording
      forward's radiance bit-equal to trace_regen's (every queue group at
      depth 8, the first at depth 64); with --sections, both regenerating
-     forms once more over the whole frame with a timer around each section
-     of the backward; the depth-8 runs go through the bench's
+     forms once more over the whole frame with the backward's spans
+     recorded (grad.replay, grad.autograd: host time); the depth-8 runs go through the bench's
      bench_mesh_fwd_bwd_regen / _frame (one timed run, no warm run);
   5d. [bench] the bench's rows no frame above runs, on the faithful scene:
      its rays run (one run, its rays per sample beside the faithful
@@ -774,9 +776,8 @@ def _frame(filmmod, scene, cam, meta, cfg, label, ppm):
           f"{frame_s:.2f}s camera_samples/s {w * h / frame_s:.1f} "
           f"rays/sample {rps:.3f} kernel launches {total} by kernel and mode "
           f"{used} occluded calls {calls} chain restarts/call {restarts:.3f} "
-          f"bounce iterations {stats['iterations']}, lane bounces at depth "
-          f">= 20: {stats['deep_bounces']}, of them with a closest hit nearer "
-          f"than 1e-4 (re-hits): {stats['deep_rehits']}; "
+          f"bounce iterations {stats['iterations']}, host syncs "
+          f"{stats['host_syncs']}; "
           f"image mean {mean:.5f} finite {finite}", flush=True)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
@@ -883,114 +884,77 @@ def _pyramid_scene(kind, device="cpu"):
         builder_mod.TWOLEVEL_MIN = saved
 
 
-def _sections_frame(render, scene, cam, meta, cfg):
-    """One more frame with a host timer and a device synchronize around
-    the sections of a bounce iteration: where the frame's time goes, by
-    module function.  Nested sections (marked ">") are part of the section
-    above them.  The synchronizes cost a little and stop the host from
-    running ahead of the device, so the frame is slower than the timed
-    one; the shares are what this is for."""
+# the traced work item of --sections / --profile: every TRACE_ROW_STEP-th
+# row of the frame, one sample each, drained by cfg.rays_per_batch lanes
+TRACE_ROW_STEP = 32
+
+
+def _trace_item(scene, cam, meta, cfg, sections, prof):
+    """One work item of the frame (every TRACE_ROW_STEP-th row; a frame's
+    trace would hold millions of launches) under utils/profile.py::trace_to
+    (torch.profiler with host and device activity; the program's spans
+    record with it), its Chrome trace written to _local/trace_faithful/.
+    sections: print each span's self time (its duration less its
+    children's), calls and share of the item's wall, the item's host syncs
+    and its drain-tail statistics; prof: the device's busy share and the
+    device kernels that take most."""
     import torch
-    from pathtracing_tpu_torch.accel import trace2 as T
-    from pathtracing_tpu_torch.integrators import path as P
-    from pathtracing_tpu_torch.scene import intersect as I
-    acc = {}
-
-    def timed(name, fn):
-        def wrap(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            key = name(*a, **k) if callable(name) else name
-            cell = acc.setdefault(key, [0.0, 0])
-            cell[0] += time.perf_counter() - t0
-            cell[1] += 1
-            return out
-        return wrap
-
-    def kernel_name(scene, o, d, t_max, any_hit, counters, amask, time=None,
-                    **kw):
-        return "  > K1 kernel " + T.mode_name(any_hit, amask,
-                                               "pk_blk_src" in scene,
-                                               time is not None)
-
-    def dispatch_name(*a, any_hit=False, tri_tables="all", **k):
-        return (f"  > _pallas_dispatch tri_tables={tri_tables} "
-                f"any_hit={any_hit}")
-
-    patches = [
-        (P, "_intersect", "closest pass: _intersect (sort key, K1 closest "
-         "+ amask1, analytic prims)"),
-        (P, "make_interaction", "make_interaction (tangents, normal map)"),
-        (P, "resolve_material", "resolve_material (base texture)"),
-        (P, "bsdf_sample", "bsdf_sample"),
-        (P, "bsdf_eval_pdf", "bsdf_eval_pdf (NEE + MIS)"),
-        (P, "_occluded", "shadow predicate: _occluded (key, K1 any-hit, "
-         "alpha restart chain)"),
-        (I, "_pallas_dispatch", dispatch_name),
-        (I, "_first_block_key", "  > _first_block_key (dispatch sort key)"),
-        (I, "_chain_interaction", "  > _chain_interaction (restart chain)"),
-        (I, "texture_alpha", "  > texture_alpha (restart chain's exact "
-         "test)"),
-        (I, "texture_eval", "  > texture_eval in make_interaction (normal "
-         "map)"),
-        (P, "texture_eval", "  > texture_eval in resolve_material"),
-        (P, "texture_alpha", "  > texture_alpha in the bounce (see-through "
-         "test)"),
-        (T, "_launch_kernel", kernel_name),
-    ]
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
-    try:
-        for mod, attr, name in patches:
-            setattr(mod, attr, timed(name, getattr(mod, attr)))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        render(scene, cam, meta, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
-    print(f"[sections] instrumented frame {wall:.2f}s", flush=True)
-    top = sum(v[0] for k, v in acc.items() if not k.startswith("  >"))
-    # the bounce loop's sections first, then the nested ones
-    for key, (sec, calls) in sorted(acc.items(),
-                                    key=lambda kv: kv[0].startswith("  >")):
-        print(f"[sections] {sec:8.2f}s {100.0 * sec / wall:5.1f}% "
-              f"{calls:6d} calls  {key}", flush=True)
-    print(f"[sections] {wall - top:8.2f}s {100.0 * (wall - top) / wall:5.1f}%"
-          f"               the rest of the bounce loop (lights, RNG, "
-          f"throughput, regeneration, film)", flush=True)
-
-
-def _profile_frame(render, scene, cam, meta, cfg):
-    """One more frame under torch.profiler: wall time, summed device
-    kernel time (busy share) and the device kernels that take most."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from pathtracing_tpu_torch.integrators.render import render_tile_regen
+    from pathtracing_tpu_torch.sensor import film as filmmod
+    from pathtracing_tpu_torch.utils import profile
+    w, h = cam["resolution"]
+    dev = scene["mat_base"].device
+    rows = torch.arange(0, h, TRACE_ROW_STEP, device=dev)
+    pix = (rows[:, None] * w + torch.arange(w, device=dev)).reshape(-1)
+    stats = {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    mark = profile.span_mark()
+    t_all = time.perf_counter()
+    with profile.trace_to(Path("_local") / "trace_faithful") as p:
         t0 = time.perf_counter()
-        render(scene, cam, meta, cfg)
+        render_tile_regen(scene, cam, meta, cfg,
+                          filmmod.new_film((w, h), device=dev), pix, 1, 0,
+                          lanes=cfg.rays_per_batch, stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time for e in events)
-    n_kernels = len(events)
-    print(f"[profile] frame wall {wall:.2f}s (profiled), device kernels "
-          f"{n_kernels}, device busy {busy_us / 1e6:.2f}s "
-          f"({100.0 * busy_us / 1e6 / wall:.1f}% of wall)", flush=True)
-    by_name = {}
-    for e in events:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.device_time, c + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    for name, (t, c) in top:
-        print(f"[profile]   {t / 1e3:9.1f} ms  {c:7d} launches  {name[:90]}",
+    recs = profile.spans(mark)
+    print(f"[trace] item of {len(rows)} rows x {w} px traced in "
+          f"{wall:.2f}s; profiler, trace and its {len(recs)} spans "
+          f"({profile.dropped()} dropped) {time.perf_counter() - t_all:.1f}s "
+          f"in all", flush=True)
+    if sections:
+        calls = {}
+        for r in recs:
+            calls[r[0]] = calls.get(r[0], 0) + 1
+        own = profile.self_seconds(recs)
+        print(f"[sections] host syncs {stats['host_syncs']}, bounce "
+              f"iterations {stats['iterations']}, lane bounces at depth >= "
+              f"20: {stats['deep_bounces']}, of them with a closest hit "
+              f"nearer than 1e-4 (re-hits): {stats['deep_rehits']}",
               flush=True)
+        for name, sec in sorted(own.items(), key=lambda kv: -kv[1]):
+            print(f"[sections] {sec:8.3f}s {100.0 * sec / wall:5.1f}% "
+                  f"{calls[name]:7d} calls  {name} (self)", flush=True)
+        print(f"[sections] {wall - sum(own.values()):8.3f}s outside every "
+              f"span", flush=True)
+    if prof:
+        cuda = torch.autograd.DeviceType.CUDA
+        by_name, busy_us, n = {}, 0.0, 0
+        for e in p.profiler.kineto_results.events():
+            if e.device_type() != cuda:
+                continue
+            d = e.duration_ns() / 1e3
+            t, c = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (t + d, c + 1)
+            busy_us += d
+            n += 1
+        print(f"[profile] item wall {wall:.2f}s (profiled), device ops {n}, "
+              f"device busy {busy_us / 1e6:.2f}s "
+              f"({100.0 * busy_us / 1e6 / wall:.1f}% of wall)", flush=True)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        for name, (t, c) in top:
+            print(f"[profile]   {t / 1e3:9.1f} ms  {c:7d} ops  "
+                  f"{name[:90]}", flush=True)
 
 
 def _diff_counts(got, ref, closest, amask=0, frontier=False):
@@ -1466,9 +1430,9 @@ def _grad_frames(scene, cam, meta, sections):
     queue groups (timed here).  The recording forward's radiance is held
     to trace_regen's: every group at depth 8, the first group at
     DEPTH_FAITHFUL.  sections: run both regenerating forms over the whole
-    frame once more with a synchronized timer around each section of the
-    backward pass, and print its split into shade replay and
-    autograd.grad."""
+    frame once more with the program's spans recording, and print the
+    backward pass's split into shade replay and autograd.grad (the host
+    time of the grad.replay and grad.autograd spans)."""
     from pathtracing_tpu_torch import bench
     from pathtracing_tpu_torch.tools import bench_grad as bg
     w, h = cam["resolution"]
@@ -1535,12 +1499,13 @@ def _grad_frames(scene, cam, meta, sections):
         return out
     for depth in (8, DEPTH_FAITHFUL):
         r = bg.fwd_bwd_regen(scene, cam, meta, depth, sections=True)
-        print(f"[sections] fwd+bwd regen d{depth} with a synchronized timer "
-              f"per backward section: {r['seconds']:.2f}s (forward "
-              f"{r['fwd_s']:.2f}s, backward {r['bwd_s']:.2f}s: shade replay "
+        print(f"[sections] fwd+bwd regen d{depth}, the backward's spans "
+              f"recorded: {r['seconds']:.2f}s (forward {r['fwd_s']:.2f}s, "
+              f"backward {r['bwd_s']:.2f}s: shade replay "
               f"{r['backward_replay_s']:.2f}s, autograd.grad "
-              f"{r['backward_grad_s']:.2f}s), gradients finite "
-              f"{r['finite']}", flush=True)
+              f"{r['backward_grad_s']:.2f}s, host time of the grad.replay "
+              f"and grad.autograd spans), gradients finite {r['finite']}",
+              flush=True)
     return out
 
 
@@ -2276,15 +2241,16 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one more frame with torch.profiler "
-                    "(device busy share, top device kernels); its event "
-                    "processing takes minutes, so it is not on by default")
+                    help="also trace one work item of the faithful frame "
+                    "with torch.profiler and print the device busy share "
+                    "and top device kernels")
     ap.add_argument("--sections", action="store_true",
-                    help="also render one more faithful frame with a timer "
-                    "and a device synchronize around each section of the "
-                    "bounce loop, and print each section's share; and run "
-                    "the [grad] phase's regenerating fwd+bwd once more with "
-                    "a timer around each section of the backward pass")
+                    help="also trace one work item of the faithful frame and "
+                    "print each program span's self time and share of the "
+                    "item; and "
+                    "run the [grad] phase's regenerating fwd+bwd once more "
+                    "with the backward pass's replay and autograd spans "
+                    "recorded")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2298,13 +2264,13 @@ def main() -> int:
         render_image
     from pathtracing_tpu_torch.accel import cubuild, trace1, trace2
     from pathtracing_tpu_torch.native.loader import native_available
-    from pathtracing_tpu_torch.scene import builder
     from pathtracing_tpu_torch.scene.intersect import _subset_scene
     from pathtracing_tpu_torch.scene.intersect import _multipass_visits
     from pathtracing_tpu_torch.scenes import (cornell_box, sanmiguel_analog,
                                               spheres_medium, textured_quad)
     from pathtracing_tpu_torch.tools import bench_leaf
     from pathtracing_tpu_torch.sensor import film as filmmod
+    from pathtracing_tpu_torch.utils import profile
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2334,7 +2300,8 @@ def main() -> int:
     trace1.build_kernel()
     bench_leaf.build_kernel()
     print(f"[build] trace2.cu + trace1.cu + leaf.cu built+loaded in "
-          f"{time.perf_counter() - t0:.2f}s ({cubuild.BUILD_SECONDS})",
+          f"{time.perf_counter() - t0:.2f}s ("
+          f"{ {k: v for k, v in profile.counters().items() if k.startswith('kernels.')} })",
           flush=True)
     for stem in ("trace2", "trace1", "leaf"):
         for name, line in cubuild.kernel_resources(stem):
@@ -2585,7 +2552,7 @@ def main() -> int:
                                             device=dev)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        bs = builder.BUILD_SECONDS
+        bs = profile.counters()
         n_alpha = int((scene["pka_slot2tri"] >= 0).sum())
         lvl = {p: ("two-level" if p + "l1_base" in scene else "single-level")
                + (" instanced" if p + "blk_src" in scene else "")
@@ -2598,9 +2565,11 @@ def main() -> int:
               f", alpha tables {lvl['pka_']} K={meta.alpha_block_k} "
               f"top-level boxes={scene['pka_blk_lo'].shape[0]} data slots="
               f"{n_alpha:,} G={meta.block_g}, alpha_cull_mask="
-              f"{meta.alpha_cull_mask}; build {build_s:.1f}s (mask build "
-              f"{bs['masks']:.2f}s, tables {bs['tables']:.1f}s, scene arrays "
-              f"+ upload {build_s - bs['masks'] - bs['tables']:.1f}s)",
+              f"{meta.alpha_cull_mask}; build {build_s:.1f}s (tables "
+              f"{bs['build.tables_s']:.1f}s of which mask build "
+              f"{bs['build.masks_s']:.2f}s, upload "
+              f"{bs['build.upload_s']:.1f}s, the rest "
+              f"{build_s - bs['build.tables_s'] - bs['build.upload_s']:.1f}s)",
               flush=True)
         if not meta.alpha_cull_mask:
             raise RuntimeError(f"{label} has no masked alpha tables")
@@ -2634,10 +2603,8 @@ def main() -> int:
     _need(faithful, [f"trace2[{m}]" for m in ("closest", "any_hit", "amask1",
                                               "amask2")],
           "the faithful render")
-    if args.sections:
-        _sections_frame(render, scene, cam, meta, cfg)
-    if args.profile:
-        _profile_frame(render, scene, cam, meta, cfg)
+    if args.sections or args.profile:
+        _trace_item(scene, cam, meta, cfg, args.sections, args.profile)
 
     # ---- 2h. K1's new modes on the 10.5M-triangle faithful tables
     ob, db = _bounce_rays(scene, nr)

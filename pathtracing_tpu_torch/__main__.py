@@ -31,6 +31,7 @@ def _build_scene(args, times):
     from .io import load_gltf, load_obj, load_scene, save_scene
     from .io.cache import StaleCacheError
     from .scene.builder import SceneBuilder
+    from .utils.profile import counters
 
     if args.cache and Path(args.cache).exists() and not args.rebuild:
         _log(f"[scene] loading cache {args.cache}")
@@ -79,6 +80,10 @@ def _build_scene(args, times):
         out = builtin.SCENES[args.scene](resolution=tuple(args.resolution),
                                          device=args.device)
         times["build_s"] = time.perf_counter() - t0
+    # the build's stages: build_tables_s (masks included), build_masks_s,
+    # build_upload_s
+    times.update({k.replace(".", "_"): v for k, v in counters().items()
+                  if k.startswith("build.")})
 
     if args.cache:
         t0 = time.perf_counter()
@@ -146,7 +151,18 @@ def _turntable(args, scene, cam, meta, cfg):
 def cmd_render(args):
     """Render as the flags say and write the image.  Returns dict(film,
     meta, times: the seconds of each stage, metrics: RenderTimer's,
-    adaptive: render_adaptive's statistics or None)."""
+    adaptive: render_adaptive's statistics or None).  With --profile DIR
+    the scene build and the render run under utils/profile.py::trace_to:
+    DIR/trace.json, a Chrome trace of torch.profiler's events and the
+    program's spans (the build's build.* spans among them)."""
+    if not args.profile:
+        return _render_cmd(args)
+    from .utils.profile import trace_to
+    with trace_to(args.profile):
+        return _render_cmd(args)
+
+
+def _render_cmd(args):
     from .core.rng import SamplerConfig
     from .integrators.path import RenderConfig
     from .integrators.render import render
@@ -262,6 +278,11 @@ def main(argv=None):
                    help="adaptive sampling rel-variance target (ref: 1.5)")
     r.add_argument("--checkpoint", default=None)
     r.add_argument("--checkpoint-every", type=int, default=16)
+    r.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the scene build and the render with "
+                        "torch.profiler and the program's spans into "
+                        "DIR/trace.json (Chrome trace: chrome://tracing, "
+                        "Perfetto)")
     # model-import camera and lights
     r.add_argument("--scale", type=float, default=1.0)
     r.add_argument("--look-from", default="0,1,-4")

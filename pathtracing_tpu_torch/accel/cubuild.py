@@ -37,6 +37,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..utils.profile import set_count
+
 _CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,7 +48,6 @@ _locks: dict = {}
 _libs: dict = {}
 _guard = threading.Lock()
 BUILD_LOG: dict = {}    # stem -> nvcc's output of its build (registers, spills)
-BUILD_SECONDS: dict = {}
 
 
 def source(stem: str) -> Path:
@@ -94,8 +95,9 @@ def key(stem: str, defines=None) -> str:
 def load(stem: str, defines=None):
     """The ctypes library of csrc/<stem>.cu, compiled if not built yet;
     `defines` ({name: value}, passed as -D flags) make another build of
-    the same source, named key(stem, defines) in BUILD_LOG and
-    BUILD_SECONDS (the A/B tools build their variants so)."""
+    the same source, named key(stem, defines) in BUILD_LOG and in the host
+    counter "kernels.<name>_s" of its build and load seconds
+    (utils/profile.py; the A/B tools build their variants so)."""
     name = key(stem, defines)
     with _guard:
         lock = _locks.setdefault(name, threading.Lock())
@@ -119,7 +121,7 @@ def load(stem: str, defines=None):
                                    ":\n" + BUILD_LOG[name])
             tmp.replace(so)
         _libs[name] = ctypes.CDLL(str(so))
-        BUILD_SECONDS[name] = time.perf_counter() - t0
+        set_count(f"kernels.{name}_s", time.perf_counter() - t0)
         return _libs[name]
 
 

@@ -44,6 +44,7 @@ from .trace2 import (PlainBest, _MODE_BITS, _check_mode, _enters,
                      pack_tri_rows, sah_order, shutter_bounds,
                      staged_bytes, _check_mask_words)
 from ..core.math import BIG_F32
+from ..utils import profile
 
 _CSRC = cubuild.source("trace1")
 
@@ -236,6 +237,7 @@ def _plain_slots(scene, origin, direction, t_max, prune=True, amask=0,
     for r0 in range(0, n, rchunk):
         o_c, d_c = origin[r0:r0 + rchunk], direction[r0:r0 + rchunk]
         if prune:
+            profile.count("host_syncs")
             ray, e = torch.nonzero(_enters(
                 lo[None], hi[None], o_c[:, None], d_c[:, None],
                 t_max[r0:r0 + rchunk, None])).unbind(1)
@@ -273,7 +275,7 @@ def build_kernel() -> float:
     if _lib is not None:
         return 0.0
     _lib = bind(cubuild.load("trace1"))
-    return cubuild.BUILD_SECONDS["trace1"]
+    return profile.counters()["kernels.trace1_s"]
 
 
 def bind(lib):
@@ -415,8 +417,9 @@ def tri_intersect1(scene, origin, direction, t_max, any_hit: bool = False,
     origin, direction, t_max, time = _ray_args(origin, direction, t_max, time)
     cnt = None
     if origin.is_cuda:
-        t, key, cnt = _launch_kernel(scene, origin, direction, t_max,
-                                     any_hit, counters, amask, time)
+        with profile.span("k2.launch"):
+            t, key, cnt = _launch_kernel(scene, origin, direction, t_max,
+                                         any_hit, counters, amask, time)
     else:
         if counters:
             raise ValueError("counters come from the CUDA kernel only")

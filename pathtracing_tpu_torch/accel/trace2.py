@@ -72,6 +72,7 @@ import torch
 from ..core.math import BIG_F32, SHADOW_EPS
 from . import cubuild
 from .build import COARSE_G, coarse_tables, sah_order
+from ..utils import profile
 
 G_DEFAULT = 16      # child blocks per L1 superblock
 TILE = 128          # dispatch pads ray batches to a multiple of this
@@ -506,6 +507,7 @@ def _entered_children(scene, o, d, t_max):
     """(ray, child) pairs whose padded child box the ray enters below
     t_max."""
     lo, hi = _padded(scene["pk_l2box"])
+    profile.count("host_syncs")
     return torch.nonzero(_enters(lo[None], hi[None], o[:, None], d[:, None],
                                  t_max[:, None])).unbind(1)
 
@@ -666,6 +668,7 @@ class _PairFolder:
                 ol, dl = self.o[r], self.d[r]
             child = self.l1_base[self.src[ee]][:, None] + self.cg[None]
             if self.prune:
+                profile.count("host_syncs")
                 pi, ci = torch.nonzero(_enters(
                     self.l2lo[child], self.l2hi[child], ol[:, None],
                     dl[:, None], self.t_max[r][:, None])).unbind(1)
@@ -698,6 +701,7 @@ def _plain_slots_general(scene, origin, direction, t_max, prune, amask,
     for r0 in range(0, n, rchunk):
         o_c, d_c = origin[r0:r0 + rchunk], direction[r0:r0 + rchunk]
         if prune:
+            profile.count("host_syncs")
             ray, e = torch.nonzero(_enters(
                 l1lo[None], l1hi[None], o_c[:, None], d_c[:, None],
                 t_max[r0:r0 + rchunk, None])).unbind(1)
@@ -771,6 +775,7 @@ def _plain_capped(scene, origin, direction, t_max, max_visits, amask, time,
     for j in range(v):
         bound = _cull_bound(best, t_max)
         live = live & (oe[:, j] < BIG_F32) & (oe[:, j] <= bound * WIDEN)
+        profile.count("host_syncs")
         ray = torch.nonzero(live).flatten()
         if ray.numel() == 0:
             break
@@ -797,7 +802,7 @@ def build_kernel() -> float:
     if _lib is not None:
         return 0.0
     _lib = bind(cubuild.load("trace2"))
-    return cubuild.BUILD_SECONDS["trace2"]
+    return profile.counters()["kernels.trace2_s"]
 
 
 def bind(lib):
@@ -1044,10 +1049,11 @@ def tri_intersect2(scene, origin, direction, t_max, any_hit: bool = False,
                              recull_every)
     origin, direction, t_max, time = _ray_args(origin, direction, t_max, time)
     if origin.is_cuda:
-        t, slot, extra = _launch_kernel(
-            scene, origin, direction, t_max, any_hit, counters, amask, time,
-            max_visits=max_visits, frontier=frontier, window=window,
-            pair=pair, pops=pops)
+        with profile.span("k1.launch"):
+            t, slot, extra = _launch_kernel(
+                scene, origin, direction, t_max, any_hit, counters, amask,
+                time, max_visits=max_visits, frontier=frontier,
+                window=window, pair=pair, pops=pops)
     else:
         if counters:
             raise ValueError("counters come from the CUDA kernel only")
@@ -1180,6 +1186,7 @@ def child_boxes_hold_triangles(scene, tri_v) -> bool:
     hi = box[:, None, None, 4:7]
     inside = ((v >= lo) & (v <= hi)).flatten(2).all(-1)
     empty = (s2t < 0).all(1)
+    profile.count("host_syncs", 3)
     far = box[empty][:, [0, 1, 2, 4, 5, 6]] == 3e37
     return bool((inside | (s2t < 0)).all()) and bool(far.all())
 

@@ -13,13 +13,18 @@ import dataclasses
 
 import torch
 
+from ..utils.profile import count
+
 _M32 = 0xFFFFFFFF
 
 
 def _u32(x, like=None):
-    """Coerce a Python int or an integer tensor to an int64 'uint32'."""
+    """Coerce a Python int or an integer tensor to an int64 'uint32'.  An
+    int goes to like's device: a copy the host waits for (a host sync)."""
     if isinstance(x, int):
         dev = like.device if like is not None else None
+        if dev is not None:
+            count("host_syncs")
         return torch.tensor(x & _M32, dtype=torch.int64, device=dev)
     return x.to(torch.int64) & _M32
 

@@ -34,6 +34,7 @@ from ..scene.intersect import _intersect, make_interaction, _occluded
 from ..scene import lights as L
 from ..scene.textures import texture_alpha, texture_eval
 from ..scene.types import ALPHA_BLEND, ALPHA_MASK
+from ..utils.profile import count, host_any, is_recording, span
 
 # per-bounce random dimension layout (camera uses dims 0..4)
 _DIM_BASE = 5
@@ -134,7 +135,7 @@ def transmittance(scene, meta, origin, direction, dist, medium, active,
     """March shadow rays through material-less medium boundaries,
     accumulating the transmittance of each medium segment.  A surface with
     a material blocks the ray.  Returns (Tr [N,3], blocked [N]).  One host
-    sync per march (the .item() below); finished lanes march zero-length
+    sync per march (host_any below); finished lanes march zero-length
     segments (t_max = 0: no kernel work)."""
     n = origin.shape[0]
     dev = origin.device
@@ -149,7 +150,7 @@ def transmittance(scene, meta, origin, direction, dist, medium, active,
     blocked = torch.zeros((n,), dtype=torch.bool, device=dev)
     live = active
     i = 0
-    while i < _MAX_MARCHES and bool(live.any().item()):
+    while i < _MAX_MARCHES and host_any(live):
         h = _intersect(scene, meta, o, direction,
                        torch.where(live, rem, 0.0), time)
         it = make_interaction(scene, meta, o, direction, h, time=time,
@@ -309,7 +310,8 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
             # dead lanes get t_max = 0: they miss and cost the kernel nothing
             hit = _intersect(scene, meta, o, d,
                              torch.where(alive, BIG_F32, 0.0), time)
-        it = make_interaction(scene, meta, o, d, hit, time=time)
+        with span("shading.interaction"):
+            it = make_interaction(scene, meta, o, d, hit, time=time)
         missed = alive & ~hit["valid"]
 
         # ---- escaped rays: infinite lights (MIS against BSDF sampling)
@@ -355,7 +357,8 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
                                    s.seed)
         alpha_salt = rngmod.hash_u32(sample_idx, b, s.seed)
 
-        mat = resolve_material(scene, meta, it)
+        with span("shading.material"):
+            mat = resolve_material(scene, meta, it)
         if volumetric:
             mi = torch.clamp(state["medium"], 0, scene["med_g"].shape[0] - 1)
             g_lanes = scene["med_g"][mi]
@@ -390,11 +393,11 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
             uv_phase = sample_2d(s, px, py, sample_idx, dim(b, _D_PHASE))
             scat_p = fma(t_scat[:, None], d, o)
             it_med = dict(it, p=scat_p, p_raw=scat_p)
-            nee_med = sample_ld(scene, meta, cfg, d, it_med, mat, u_select,
-                                uv_light, u_cell, alpha_salt, med_scatter,
-                                occ_stats, time,
-                                is_medium_vertex=torch.ones_like(med_scatter),
-                                **vol)
+            with span("shading.lights"):
+                nee_med = sample_ld(
+                    scene, meta, cfg, d, it_med, mat, u_select, uv_light,
+                    u_cell, alpha_salt, med_scatter, occ_stats, time,
+                    is_medium_vertex=torch.ones_like(med_scatter), **vol)
             radiance = radiance + torch.where(med_scatter[:, None],
                                               tput * nee_med, 0.0)
             n_rays = n_rays + med_scatter.sum()
@@ -428,8 +431,9 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
             see_through = can_scatter & ~solid
             boundary = boundary | see_through
             can_scatter = can_scatter & solid
-        wi, f, pdf, flags, bvalid, new_origin = bsdf_sample(
-            mat, d, it, u_scatter, uv_scatter, present=present)
+        with span("shading.bsdf"):
+            wi, f, pdf, flags, bvalid, new_origin = bsdf_sample(
+                mat, d, it, u_scatter, uv_scatter, present=present)
         absorbed = can_scatter & ~bvalid
         scattered = can_scatter & bvalid
         new_spec = (flags & FLAG_SPECULAR) > 0
@@ -440,16 +444,19 @@ def _make_bounce(scene, meta, cfg, px, py, time, sample_idx, n,
             nee_active = scattered & ~new_spec
             vkw = dict(is_medium_vertex=torch.zeros_like(nee_active),
                        **vol) if volumetric else {}
-            nee = sample_ld(scene, meta, cfg, d, it, mat, u_select, uv_light,
-                            u_cell, alpha_salt, nee_active, occ_stats, time,
-                            occ=None if replay is None else replay["occ"],
-                            want_occ=record, **vkw)
+            with span("shading.lights"):
+                nee = sample_ld(scene, meta, cfg, d, it, mat, u_select,
+                                uv_light, u_cell, alpha_salt, nee_active,
+                                occ_stats, time,
+                                occ=None if replay is None else replay["occ"],
+                                want_occ=record, **vkw)
             if record:
                 nee, occ_rec = nee
             radiance = radiance + torch.where(nee_active[:, None],
                                               tput * nee, 0.0)
             n_rays = n_rays + nee_active.sum()
-            _, pdf_mis = bsdf_eval_pdf(mat, d, it, wi, present=present)
+            with span("shading.bsdf"):
+                _, pdf_mis = bsdf_eval_pdf(mat, d, it, wi, present=present)
             new_prev_pdf = torch.where(scattered & ~new_spec, pdf_mis,
                                        state["prev_pdf"])
         else:
@@ -581,11 +588,10 @@ def _trace(scene, meta, cfg, origin, direction, time, px, py, sample_idx,
 
     def run(state, step, b0, b1):
         """Bounces b0 .. b1-1: all of them in the scan form, until every
-        lane is dead in the forward form (one host sync per bounce, the
-        .item() below).  Returns (state, the next bounce index)."""
+        lane is dead in the forward form (one host sync per bounce,
+        host_any below).  Returns (state, the next bounce index)."""
         b = b0
-        while b < b1 and (cfg.differentiable
-                          or bool(state["alive"].any().item())):
+        while b < b1 and (cfg.differentiable or host_any(state["alive"])):
             state = step(state, b)
             b += 1
         return state, b
@@ -602,6 +608,7 @@ def _trace(scene, meta, cfg, origin, direction, time, px, py, sample_idx,
         # linear: gradients route back exactly)
         cap = max(1024, -(-(n // 4) // 1024) * 1024)
         live = state["alive"]
+        count("host_syncs")
         if int(live.sum().item()) <= cap:
             take = torch.argsort((~live).to(torch.int8), stable=True)[:cap]
             sub = {k: _gather(v, take) for k, v in state.items()}
@@ -670,70 +677,82 @@ def _trace_regen(scene, cam, meta, cfg, pixel_idx, waves, sample_offset,
     qi = torch.arange(k, dtype=torch.int64, device=dev)
     px, py, sidx, o0, d0, tme = fresh(qi)
     st = _fresh_state(o0, d0, k, meta.camera_medium)
+    count("host_syncs")     # a copy to the device the host waits for
     head = torch.tensor(k, dtype=torch.int64, device=dev)
     b = torch.zeros((k,), dtype=torch.int64, device=dev)
     out = torch.zeros((q_total, 3), dtype=torch.float32, device=dev)
     occ_stats = {} if with_stats else None
     iterations = 0
-    deep = torch.zeros((2,), dtype=torch.int64, device=dev)
+    # the drain tail's statistics cost launches: taken only while spans
+    # record
+    deep = (torch.zeros((2,), dtype=torch.int64, device=dev)
+            if with_stats and is_recording() else None)
 
-    # data-dependent loop: one host sync per iteration (the .item() below)
-    while bool(st["alive"].any().item()):
-        bounce = _make_bounce(scene, meta, cfg, px, py,
-                              tme if motion else None, sidx, k, occ_stats,
-                              record=records is not None)
-        prev_alive = st["alive"]
-        if records is None:
-            st = bounce(st, b)
-        else:
-            rec = _record(st, qi, b, head)
-            st, aux = bounce(st, b)
-            rec.update(_record_aux(aux), rad_ok=torch.isfinite(st["radiance"]))
-            records.append(rec)
-        if with_stats:
+    # data-dependent loop: one host sync per iteration (host_any, the last
+    # thing in the iteration's span)
+    more = host_any(st["alive"])
+    while more:
+        with span("wavefront.iteration"):
+            bounce = _make_bounce(scene, meta, cfg, px, py,
+                                  tme if motion else None, sidx, k, occ_stats,
+                                  record=records is not None)
+            prev_alive = st["alive"]
+            if records is None:
+                st = bounce(st, b)
+            else:
+                rec = _record(st, qi, b, head)
+                st, aux = bounce(st, b)
+                rec.update(_record_aux(aux),
+                           rad_ok=torch.isfinite(st["radiance"]))
+                records.append(rec)
             iterations += 1
-            is_deep = prev_alive & (b >= _DEEP_BOUNCE)
-            deep += torch.stack([is_deep.sum(), (
-                is_deep & (st["t_hit"] < _REHIT_T)).sum()])
-        b = b + 1
-        alive = st["alive"] & (b < cfg.max_depth)
-        # flush every sample once, the iteration its path ends
-        finished = prev_alive & ~alive
-        rad = torch.where(torch.isfinite(st["radiance"]), st["radiance"], 0.0)
-        # qi < q_total always; clamped so a CUDA scatter can never fault
-        out.index_add_(0, torch.clamp(qi, 0, q_total - 1),
-                       torch.where(finished[:, None], rad, 0.0))
+            if deep is not None:
+                is_deep = prev_alive & (b >= _DEEP_BOUNCE)
+                deep += torch.stack([is_deep.sum(), (
+                    is_deep & (st["t_hit"] < _REHIT_T)).sum()])
+            b = b + 1
+            alive = st["alive"] & (b < cfg.max_depth)
+            # flush every sample once, the iteration its path ends
+            finished = prev_alive & ~alive
+            rad = torch.where(torch.isfinite(st["radiance"]),
+                              st["radiance"], 0.0)
+            # qi < q_total always; clamped so a CUDA scatter can never fault
+            out.index_add_(0, torch.clamp(qi, 0, q_total - 1),
+                           torch.where(finished[:, None], rad, 0.0))
 
-        # refill finished lanes from the queue head, in lane order
-        ranks = torch.cumsum(finished.to(torch.int64), 0) - 1
-        cand = head + ranks
-        take = finished & (cand < q_total)
-        qi = torch.where(take, cand, qi)
-        head = torch.clamp(head + finished.sum(), max=q_total)
-        pxn, pyn, sidxn, on, dn, tmen = fresh(qi)
-        tk = take[:, None]
-        st = dict(
-            o=torch.where(tk, on, st["o"]),
-            d=torch.where(tk, dn, st["d"]),
-            tput=torch.where(tk, 1.0, st["tput"]),
-            radiance=torch.where(tk, 0.0, st["radiance"]),
-            prev_pdf=torch.where(take, 1.0, st["prev_pdf"]),
-            spec=torch.where(take, True, st["spec"]),
-            alive=alive | take,
-            medium=torch.where(take, meta.camera_medium, st["medium"]),
-            rr_depth=torch.where(take, 0, st["rr_depth"]),
-            n_rays=st["n_rays"])
-        b = torch.where(take, 0, b)
-        px = torch.where(take, pxn, px)
-        py = torch.where(take, pyn, py)
-        sidx = torch.where(take, sidxn, sidx)
-        tme = torch.where(take, tmen, tme)
+            # refill finished lanes from the queue head, in lane order
+            ranks = torch.cumsum(finished.to(torch.int64), 0) - 1
+            cand = head + ranks
+            take = finished & (cand < q_total)
+            qi = torch.where(take, cand, qi)
+            head = torch.clamp(head + finished.sum(), max=q_total)
+            pxn, pyn, sidxn, on, dn, tmen = fresh(qi)
+            tk = take[:, None]
+            st = dict(
+                o=torch.where(tk, on, st["o"]),
+                d=torch.where(tk, dn, st["d"]),
+                tput=torch.where(tk, 1.0, st["tput"]),
+                radiance=torch.where(tk, 0.0, st["radiance"]),
+                prev_pdf=torch.where(take, 1.0, st["prev_pdf"]),
+                spec=torch.where(take, True, st["spec"]),
+                alive=alive | take,
+                medium=torch.where(take, meta.camera_medium, st["medium"]),
+                rr_depth=torch.where(take, 0, st["rr_depth"]),
+                n_rays=st["n_rays"])
+            b = torch.where(take, 0, b)
+            px = torch.where(take, pxn, px)
+            py = torch.where(take, pyn, py)
+            sidx = torch.where(take, sidxn, sidx)
+            tme = torch.where(take, tmen, tme)
+            more = host_any(st["alive"])
     if with_stats:
-        return out, dict(n_rays=st["n_rays"],
-                         occluded_calls=occ_stats.get("calls", 0),
-                         chain_restarts=occ_stats.get("restarts", 0),
-                         iterations=iterations, deep_bounces=deep[0],
-                         deep_rehits=deep[1])
+        stats = dict(n_rays=st["n_rays"],
+                     occluded_calls=occ_stats.get("calls", 0),
+                     chain_restarts=occ_stats.get("restarts", 0),
+                     iterations=iterations)
+        if deep is not None:
+            stats.update(deep_bounces=deep[0], deep_rehits=deep[1])
+        return out, stats
     return out
 
 

@@ -33,11 +33,10 @@ form (path.trace with differentiable=True), as in the reference package.
 """
 from __future__ import annotations
 
-import time
-
 import torch
 
 from ..core.device import resolve_device, to_device
+from ..utils import profile
 from .path import (RenderConfig, _make_bounce, _queue_entries, _trace_regen,
                    _fresh_state)
 
@@ -90,32 +89,6 @@ def _replay(scene, cam, meta, cfg, pixel_idx, sample_offset, q_total, rec,
             torch.where(tk, 0.0, st["radiance"]), flush)
 
 
-class _SectionClock:
-    """Seconds of the backward pass's two sections per iteration (the shade
-    replay, the torch.autograd.grad call), added into stats when stats asks
-    for them with "sections": True; the device is synchronized at each
-    mark, so only a measuring run should ask."""
-
-    def __init__(self, stats, device):
-        self.on = stats is not None and bool(stats.get("sections"))
-        self.stats, self.device = stats, device
-
-    def _now(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def start(self):
-        if self.on:
-            self.t = self._now()
-
-    def lap(self, key):
-        if self.on:
-            t = self._now()
-            self.stats[key] = self.stats.get(key, 0.0) + t - self.t
-            self.t = t
-
-
 class _RegenDiff(torch.autograd.Function):
     """Inputs: the run's settings (a dict) and the floating-point parameter
     arrays named in settings["names"]; output: the queue's radiance."""
@@ -124,6 +97,7 @@ class _RegenDiff(torch.autograd.Function):
     def forward(ctx, run, *params):
         scene = dict(run["rest"], **dict(zip(run["names"], params)))
         records = []
+        syncs = profile.counters().get("host_syncs", 0)
         out, stats = _trace_regen(scene, run["cam"], run["meta"], run["cfg"],
                                   run["pixel_idx"], run["waves"],
                                   run["sample_offset"], run["lanes"],
@@ -131,11 +105,14 @@ class _RegenDiff(torch.autograd.Function):
         if run["stats"] is not None:
             nbytes = sum(v.numel() * v.element_size()
                          for rec in records for v in rec.values())
+            profile.count("host_syncs")
             run["stats"].update(iterations=stats["iterations"],
                                 n_rays=int(stats["n_rays"]),
                                 residual_bytes=nbytes,
                                 lanes=records[0]["qi"].shape[0]
-                                if records else 0)
+                                if records else 0,
+                                host_syncs=profile.counters()["host_syncs"]
+                                - syncs)
         ctx.run, ctx.records = run, records
         ctx.save_for_backward(*params)
         return out
@@ -143,52 +120,52 @@ class _RegenDiff(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_out):
-        run, records = ctx.run, ctx.records
-        params = ctx.saved_tensors
-        need = ctx.needs_input_grad[1:]
-        grads = [torch.zeros_like(p) if nd else None
-                 for p, nd in zip(params, need)]
-        q_total = run["pixel_idx"].shape[0] * run["waves"]
-        ct_tput = ct_pp = ct_rad = None
-        clock = _SectionClock(run["stats"], run["pixel_idx"].device)
-        for rec in reversed(records):
-            k = rec["qi"].shape[0]
-            if ct_tput is None:
-                ct_tput = rec["tput"].new_zeros((k, 3))
-                ct_pp = rec["tput"].new_zeros((k,))
-                ct_rad = rec["tput"].new_zeros((k, 3))
-            ct_flush = g_out[torch.clamp(rec["qi"].to(torch.int64), 0,
-                                         q_total - 1)]
-            clock.start()
-            with torch.enable_grad():
-                leaves = [p.detach().requires_grad_(nd)
-                          for p, nd in zip(params, need)]
-                scene = dict(run["rest"], **dict(zip(run["names"], leaves)))
-                tput = rec["tput"].detach().requires_grad_()
-                prev_pdf = rec["prev_pdf"].detach().requires_grad_()
-                radiance = torch.zeros_like(tput).requires_grad_()
-                outs = _replay(scene, run["cam"], run["meta"], run["cfg"],
-                               run["pixel_idx"], run["sample_offset"],
-                               q_total, rec, tput, prev_pdf, radiance)
-            clock.lap("backward_replay_s")
-            pairs = [(o, g) for o, g in zip(outs, (ct_tput, ct_pp, ct_rad,
-                                                   ct_flush))
-                     if o.requires_grad]
-            wrt = [p for p, nd in zip(leaves, need) if nd]
-            gs = torch.autograd.grad([o for o, _ in pairs], wrt + [
-                tput, prev_pdf, radiance], [g for _, g in pairs],
-                allow_unused=True)
-            clock.lap("backward_grad_s")
-            it = iter(gs[:len(wrt)])
-            for j, nd in enumerate(need):
-                if nd:
-                    g = next(it)
-                    if g is not None:
-                        grads[j] += g
-            ct_tput, ct_pp, ct_rad = (
-                torch.zeros_like(x) if g is None else g
-                for g, x in zip(gs[len(wrt):], (tput, prev_pdf, radiance)))
-        return (None, *grads)
+        # autograd may run this on its device thread: the spans carry it
+        with profile.span("grad.backward"):
+            run, records = ctx.run, ctx.records
+            params = ctx.saved_tensors
+            need = ctx.needs_input_grad[1:]
+            grads = [torch.zeros_like(p) if nd else None
+                     for p, nd in zip(params, need)]
+            q_total = run["pixel_idx"].shape[0] * run["waves"]
+            ct_tput = ct_pp = ct_rad = None
+            for rec in reversed(records):
+                k = rec["qi"].shape[0]
+                if ct_tput is None:
+                    ct_tput = rec["tput"].new_zeros((k, 3))
+                    ct_pp = rec["tput"].new_zeros((k,))
+                    ct_rad = rec["tput"].new_zeros((k, 3))
+                ct_flush = g_out[torch.clamp(rec["qi"].to(torch.int64), 0,
+                                             q_total - 1)]
+                with profile.span("grad.replay"), torch.enable_grad():
+                    leaves = [p.detach().requires_grad_(nd)
+                              for p, nd in zip(params, need)]
+                    scene = dict(run["rest"],
+                                 **dict(zip(run["names"], leaves)))
+                    tput = rec["tput"].detach().requires_grad_()
+                    prev_pdf = rec["prev_pdf"].detach().requires_grad_()
+                    radiance = torch.zeros_like(tput).requires_grad_()
+                    outs = _replay(scene, run["cam"], run["meta"], run["cfg"],
+                                   run["pixel_idx"], run["sample_offset"],
+                                   q_total, rec, tput, prev_pdf, radiance)
+                pairs = [(o, g) for o, g in zip(outs, (ct_tput, ct_pp, ct_rad,
+                                                       ct_flush))
+                         if o.requires_grad]
+                wrt = [p for p, nd in zip(leaves, need) if nd]
+                with profile.span("grad.autograd"):
+                    gs = torch.autograd.grad([o for o, _ in pairs], wrt + [
+                        tput, prev_pdf, radiance], [g for _, g in pairs],
+                        allow_unused=True)
+                it = iter(gs[:len(wrt)])
+                for j, nd in enumerate(need):
+                    if nd:
+                        g = next(it)
+                        if g is not None:
+                            grads[j] += g
+                ct_tput, ct_pp, ct_rad = (
+                    torch.zeros_like(x) if g is None else g
+                    for g, x in zip(gs[len(wrt):], (tput, prev_pdf, radiance)))
+            return (None, *grads)
 
 
 def _trace_regen_diff(scene, cam, meta, cfg: RenderConfig, pixel_idx,
@@ -213,10 +190,12 @@ def trace_regen_diff(scene, cam, meta, cfg: RenderConfig, pixel_idx,
     gradients to the material, texture, light and medium arrays of `scene`
     (any of them that requires grad) through the recording forward and the
     replaying backward of the module docstring.  `stats`, a dict, receives
-    the recording's "iterations", "n_rays", "lanes" and "residual_bytes"
-    (what the backward pass keeps); with stats["sections"] = True the
-    backward pass also adds its "backward_replay_s" and "backward_grad_s"
-    (synchronized timers).  Runs on the GPU unless device="cpu"."""
+    the recording's "iterations", "n_rays", "lanes", "residual_bytes"
+    (what the backward pass keeps) and "host_syncs" (its waits for the
+    device).  The backward pass runs in the span "grad.backward",
+    each iteration's shade replay in "grad.replay" and its
+    torch.autograd.grad in "grad.autograd" (utils/profile.py).  Runs on
+    the GPU unless device="cpu"."""
     dev = resolve_device(device)
     return _trace_regen_diff(to_device(scene, dev), to_device(cam, dev), meta,
                              cfg, pixel_idx.to(dev), waves, sample_offset,

@@ -15,6 +15,7 @@ import torch
 from ..core.device import resolve_device, to_device
 from ..sensor.camera import camera_lanes, film_position
 from ..sensor import film as filmmod
+from ..utils import profile
 from .path import RenderConfig, _trace, _trace_regen
 from .regen_diff import _trace_regen_diff
 
@@ -63,28 +64,47 @@ def render_tile_regen(scene, cam, meta, cfg: RenderConfig, film, pixel_idx,
     materials), "chain_restarts" (alpha restart-chain iterations),
     "iterations" (bounce iterations of the drain), "deep_bounces" (lane
     bounces at depth 20 or more: the drain's tail) and "deep_rehits" (those
-    whose closest hit lies nearer than 1e-4); with cfg.differentiable,
-    "n_rays", "iterations" and "residual_bytes" (trace_regen_diff)."""
+    whose closest hit lies nearer than 1e-4: both only while spans record,
+    utils/profile.py) and "host_syncs" (the item's waits for the device:
+    blocking reads of device values and copies of host data to the
+    device, utils/profile.py::count); with cfg.differentiable, "n_rays",
+    "iterations", "residual_bytes" (trace_regen_diff) and "host_syncs".
+    The item runs in the span "wavefront.item", its splat in
+    "film.splat"."""
     w, h = cam["resolution"]
     px = pixel_idx % w
     py = pixel_idx // w
-    if cfg.differentiable:
-        st = {}
-        out = _trace_regen_diff(scene, cam, meta, cfg, pixel_idx, waves,
-                                sample_offset, lanes=lanes, stats=st)
-        st.pop("lanes", None)
-    else:
-        out, st = _trace_regen(scene, cam, meta, cfg, pixel_idx, waves,
-                               sample_offset, lanes=lanes, with_stats=True)
-    if stats is not None:
-        for key, val in st.items():
-            stats[key] = stats.get(key, 0) + int(val)
-    k = pixel_idx.shape[0]
-    for s_w in range(waves):
-        sidx = torch.full_like(pixel_idx, int(sample_offset) + s_w)
-        p = film_position(cfg.sampler, px, py, sidx)
-        film = _splat(film, cfg, cam, pixel_idx, p,
-                      out[s_w * k:(s_w + 1) * k], rows, row0)
+    with profile.span("wavefront.item", new_item=True):
+        syncs = profile.counters().get("host_syncs", 0)
+        if cfg.differentiable:
+            st = {}
+            out = _trace_regen_diff(scene, cam, meta, cfg, pixel_idx, waves,
+                                    sample_offset, lanes=lanes, stats=st)
+            st.pop("lanes", None)
+            st.pop("host_syncs", None)
+        else:
+            out, st = _trace_regen(scene, cam, meta, cfg, pixel_idx, waves,
+                                   sample_offset, lanes=lanes,
+                                   with_stats=True)
+        if stats is not None:
+            # the device-side counts in one read
+            dev = [k for k, v in st.items() if isinstance(v, torch.Tensor)]
+            if dev:
+                profile.count("host_syncs")
+                st.update(zip(dev, torch.stack([st[k].reshape(())
+                                                for k in dev]).tolist()))
+            for key, val in st.items():
+                stats[key] = stats.get(key, 0) + int(val)
+        k = pixel_idx.shape[0]
+        with profile.span("film.splat"):
+            for s_w in range(waves):
+                sidx = torch.full_like(pixel_idx, int(sample_offset) + s_w)
+                p = film_position(cfg.sampler, px, py, sidx)
+                film = _splat(film, cfg, cam, pixel_idx, p,
+                              out[s_w * k:(s_w + 1) * k], rows, row0)
+        if stats is not None:
+            stats["host_syncs"] = stats.get("host_syncs", 0) \
+                + profile.counters().get("host_syncs", 0) - syncs
     return film
 
 

@@ -34,11 +34,10 @@ from ..core.bsdf import (MAT_DIFFUSE, MAT_DIELECTRIC, MAT_THIN_DIELECTRIC,
                          MAT_CONDUCTOR)
 from .alphamask import build_tri_alpha_masks
 from .textures import TexturePool
+from ..utils.profile import count, set_count, span, spanned
 from .types import (SceneMeta, LIGHT_UNIFORM_INF, LIGHT_ENV_TEX, LIGHT_DISTANT,
                     LIGHT_POINT, LIGHT_AREA, SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD,
                     SHAPE_ITRI, ALPHA_OPAQUE)
-
-BUILD_SECONDS = dict(masks=0.0, tables=0.0)   # of the last table build
 
 FLATTEN_MAX = 4_000_000   # runtime="auto" instances above this many
                           # expanded triangles stay run-time instances; the
@@ -141,6 +140,7 @@ def alpha_material_mask(mats, mat_modes):
     return out
 
 
+@spanned("build.tables")
 def build_traversal_tables(tri_v, tri_uv, tri_mat, pool, mat_alpha_mode,
                            mat_alpha_cutoff, mat_tex, block_g, tri_vel=None,
                            shutter=(0.0, 0.0), inst=None, two_level=None):
@@ -170,7 +170,7 @@ def build_traversal_tables(tri_v, tri_uv, tri_mat, pool, mat_alpha_mode,
     from ..accel.trace2 import build_tri_blocks2, build_tri_blocks2_inst
 
     t0 = time.perf_counter()
-    BUILD_SECONDS.update(masks=0.0, tables=0.0)
+    set_count("build.masks_s", 0.0)
     motion = tri_vel is not None
     nt = len(tri_v)
     tri_uv = np.asarray(tri_uv, np.float32).reshape(-1, 3, 2)
@@ -183,12 +183,13 @@ def build_traversal_tables(tri_v, tri_uv, tri_mat, pool, mat_alpha_mode,
         if motion or not is_alpha.any() or not alpha_masks_on():
             return None
         t1 = time.perf_counter()
-        ids = np.nonzero(is_alpha)[0]
-        words = np.zeros((len(is_alpha), 7), np.int32)
-        words[ids] = build_tri_alpha_masks(uv[ids], mat[ids], pool,
-                                           mat_alpha_mode, mat_alpha_cutoff,
-                                           mat_tex)
-        BUILD_SECONDS["masks"] += time.perf_counter() - t1
+        with span("build.masks"):
+            ids = np.nonzero(is_alpha)[0]
+            words = np.zeros((len(is_alpha), 7), np.int32)
+            words[ids] = build_tri_alpha_masks(uv[ids], mat[ids], pool,
+                                               mat_alpha_mode,
+                                               mat_alpha_cutoff, mat_tex)
+        count("build.masks_s", time.perf_counter() - t1)
         return words
 
     def world_tables(ids, mask_words=None, two_level=None):
@@ -214,8 +215,7 @@ def build_traversal_tables(tri_v, tri_uv, tri_mat, pool, mat_alpha_mode,
     def finish(arrays, block_k, pka=None, alpha_block_k=0, masked=False):
         if pka is not None:
             arrays.update({"pka_" + k[3:]: v for k, v in pka.items()})
-        BUILD_SECONDS["tables"] = (time.perf_counter() - t0
-                                   - BUILD_SECONDS["masks"])
+        set_count("build.tables_s", time.perf_counter() - t0)
         return arrays, block_k, alpha_block_k, masked
 
     all_ids = np.arange(nt)
@@ -834,6 +834,9 @@ class SceneBuilder:
         back to "brute"; "brute" forces the scan (and builds no alpha
         micro-masks: it is the unmasked oracle)."""
         dev = resolve_device(device)
+        # the stage seconds of this build (a stage it skips reads 0)
+        for stage in ("tables", "masks"):
+            set_count(f"build.{stage}_s", 0.0)
         if accel not in ("auto", "pallas", "brute", "beam", "bvh"):
             raise ValueError(f"unknown accel {accel!r}")
         self._maybe_flatten_instances()
@@ -1067,8 +1070,13 @@ class SceneBuilder:
             has_tangents = has_tangents or bool(
                 (np.asarray(self._obj["prop"])[:, 3] > 0).any())
 
-        scene = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                 for k, v in arrays.items()}
+        t0 = time.perf_counter()
+        with span("build.upload"):
+            scene = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                     for k, v in arrays.items()}
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        set_count("build.upload_s", time.perf_counter() - t0)
         meta = SceneMeta(
             n_tri=nt, n_sph=ns, n_quad=nq, n_mat=nm, n_lights=len(lights),
             n_inf=len(inf_idx), n_media=len(self._med["g"]),

@@ -36,6 +36,7 @@ from ..core.math import (fma, fsqrt, SHADOW_EPS, BIG_F32, vdot, vdot_k,
                          pack3, sdot, scross, sdot_f, scross_f, sbary_mix,
                          ssafe_normalize, sonb_from_normal)
 from ..core.rng import hash_u32, uniform_from_u32
+from ..utils.profile import count, host_any, span, spanned
 from .textures import texture_alpha, texture_eval
 from .types import (SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD, SHAPE_ITRI,
                     ALPHA_BLEND, ALPHA_MASK)
@@ -248,6 +249,7 @@ def _hier_top2(scene, bl, bh, origin, inv):
     return torch.minimum(e1, ce1), bi, e2, b2f
 
 
+@spanned("intersect.sort_key")
 def _first_block_key(scene, origin, direction):
     """Dispatch sort key: the ids of the first two L1 blocks each ray
     enters (blocks are SAH-ordered, so rays that share them share a
@@ -374,6 +376,7 @@ def _multipass2(sub, o, d, tm, any_hit, time, visits):
     return res
 
 
+@spanned("intersect.dispatch")
 def _pallas_dispatch(scene, meta, origin, direction, t_max,
                      any_hit: bool = False, tri_tables: str = "all",
                      analytic: bool = True, sort_key=None,
@@ -572,6 +575,7 @@ def _intersect(scene, meta, origin, direction, t_max, time=None):
             ii = torch.full((n,), i, dtype=torch.int64, device=dev)
             o_l, d_l = instance_rays(inv, ii, origin, direction, velo,
                                      time if motion else None)
+            count("host_syncs", 2)
             base = int(scene["inst_base"][i])
             end = min(base + int(scene["inst_count"][i]), meta.n_obj_tri)
             for c0 in range(base, end, chunk):
@@ -631,6 +635,7 @@ def _tri_barycentrics(origin, direction, tv):
 def _ref_tangent(ns):
     """normalize(cross(up, ns)), up = (0,1,0) when |ns.x| > 0.9999."""
     big_x = torch.abs(ns[..., 0:1]) > 0.9999
+    count("host_syncs", 2)      # two copies to the device the host waits for
     up = torch.where(big_x, ns.new_tensor([0.0, 1.0, 0.0]),
                      ns.new_tensor([1.0, 0.0, 0.0]))
     return safe_normalize(torch.cross(up.expand_as(ns), ns, dim=-1))
@@ -809,6 +814,7 @@ def make_interaction(scene, meta, origin, direction, hit, time=None,
                                    + n_local[:, 1:2] * bitan
                                    + n_local[:, 2:3] * ns)
         ns = torch.where(has_norm[:, None], ns_mapped, ns)
+    count("host_syncs", 2)      # two copies to the device the host waits for
     up = p_raw.new_tensor([0.0, 0.0, 1.0]).expand_as(p_raw)
     right = p_raw.new_tensor([1.0, 0.0, 0.0]).expand_as(p_raw)
     # miss lanes: with t = BIG_F32 the hit point overflows; sanitize them
@@ -856,6 +862,7 @@ def _chain_interaction(scene, meta, origin, direction, hit):
                    tuv[:, 1], tuv[:, 2])
     ngx, ngy, ngz = ssafe_normalize(*scross(e1x, e1y, e1z, e2x, e2y, e2z))
     okn = ok[:, None]
+    count("host_syncs")         # a copy to the device the host waits for
     return dict(
         valid=ok, t=t,
         p_raw=torch.where(okn, p_raw, 0.0),
@@ -872,6 +879,7 @@ def _chain_interaction(scene, meta, origin, direction, hit):
 MAX_RESTARTS = 64    # safety net against degenerate geometry, not a budget
 
 
+@spanned("intersect.shadow")
 def _occluded(scene, meta, origin, direction, t_max, rand_key=None,
               stats: dict | None = None, compact: bool = True, time=None):
     """The shadow predicate on device tensors (see `occluded`).  `stats`,
@@ -987,25 +995,31 @@ def _occluded(scene, meta, origin, direction, t_max, rand_key=None,
     live = ~occ0
     occ = occ0.clone()
     it_ = 0
-    # data-dependent loop: one host sync per restart (the .item() below)
-    while it_ < MAX_RESTARTS and bool(live.any().item()):
-        o, t_rem, newly, live = body(o, d, t_rem, live, lane, key, rkey, it_,
-                                     tme)
-        # lane < n always; clamped so a CUDA scatter can never fault
-        occ[torch.clamp(lane, 0, n - 1)] |= newly
-        it_ += 1
-        if compact and lane.shape[0] > 1024:
-            # tail compaction: most lanes resolve in the first full-width
-            # iteration; the few survivors are gathered (with their
-            # original lane index) so later restarts stop paying
-            # full-width interaction and texture costs
-            take = torch.nonzero(live)[:, 0]
-            if take.shape[0] < lane.shape[0]:
-                o, d, t_rem, lane = o[take], d[take], t_rem[take], lane[take]
-                key = key[take] if key is not None else None
-                rkey = rkey[take] if per_lane_key else rkey
-                tme = tme[take] if tme is not None else None
-                live = live[take]
+    # data-dependent loop: one host sync per restart (host_any, the last
+    # thing in the restart's span) and one per compaction (the nonzero)
+    more = it_ < MAX_RESTARTS and host_any(live)
+    while more:
+        with span("intersect.shadow_restart"):
+            o, t_rem, newly, live = body(o, d, t_rem, live, lane, key, rkey,
+                                         it_, tme)
+            # lane < n always; clamped so a CUDA scatter can never fault
+            occ[torch.clamp(lane, 0, n - 1)] |= newly
+            it_ += 1
+            if compact and lane.shape[0] > 1024:
+                # tail compaction: most lanes resolve in the first
+                # full-width iteration; the few survivors are gathered
+                # (with their original lane index) so later restarts stop
+                # paying full-width interaction and texture costs
+                count("host_syncs")
+                take = torch.nonzero(live)[:, 0]
+                if take.shape[0] < lane.shape[0]:
+                    o, d, t_rem = o[take], d[take], t_rem[take]
+                    lane = lane[take]
+                    key = key[take] if key is not None else None
+                    rkey = rkey[take] if per_lane_key else rkey
+                    tme = tme[take] if tme is not None else None
+                    live = live[take]
+            more = it_ < MAX_RESTARTS and host_any(live)
     if stats is not None:
         stats["calls"] = stats.get("calls", 0) + 1
         stats["restarts"] = stats.get("restarts", 0) + it_

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.math import fma
+from ..utils.profile import count
 
 KIND_IMAGE = 0
 KIND_CHECKER = 1
@@ -144,6 +145,7 @@ def _bilinear(tex, offset, width, height, uv):
     """Bilinear fetch at u*W-0.5.  Returns RGBA."""
     # u*W - 0.5 rounded once, as the reference's compiled code fuses it: at
     # u*W in the thousands a second rounding moves the weights by 1e-4
+    count("host_syncs")         # a copy to the device the host waits for
     half = uv.new_tensor(-0.5)
     x = fma(uv[..., 0], width.to(torch.float32), half)
     y = fma(uv[..., 1], height.to(torch.float32), half)

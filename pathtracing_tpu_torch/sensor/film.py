@@ -13,6 +13,7 @@ from ..core.device import resolve_device
 from ..core.filters import FilterConfig, filter_weight, filter_integral
 from ..core.tonemap import TONE_MAPPERS
 from ..core.math import linear_to_srgb
+from ..utils.profile import count
 
 
 def new_film(resolution, device=None):
@@ -40,6 +41,7 @@ def splat(film, cfg: FilterConfig, resolution, p, color):
     idxs, vals = [], []
     for dy in range(-ry, ry + 1):
         for dx in range(-rx, rx + 1):
+            count("host_syncs")     # a copy to the device the host waits for
             offset = torch.tensor([dx, dy], dtype=torch.float32,
                                   device=p.device)
             fw = filter_weight(cfg, offset + 0.5 - frac) * inv_integral
@@ -73,6 +75,7 @@ def splat_rows(film, cfg: FilterConfig, resolution, row0: int, rows: int, p,
                       device=p.device)
     for dy in range(-ry, ry + 1):
         for dx in range(-rx, rx + 1):
+            count("host_syncs")     # a copy to the device the host waits for
             offset = torch.tensor([dx, dy], dtype=torch.float32,
                                   device=p.device)
             fw = filter_weight(cfg, offset + 0.5 - frac) * inv_integral

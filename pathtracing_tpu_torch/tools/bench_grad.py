@@ -21,6 +21,7 @@ phase runs them on the faithful frame.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -30,6 +31,7 @@ from ..integrators.path import RenderConfig, _trace_regen
 from ..integrators.regen_diff import _trace_regen_diff
 from ..integrators.render import regen_schedule, render_tile
 from ..sensor import film as filmmod
+from ..utils import profile
 
 LANES = 1 << 16
 
@@ -160,10 +162,11 @@ def fwd_bwd_regen(scene, cam, meta, depth, sections=False, n_groups=None):
     of the groups run.  bytes_per_lane_iter is what the recording keeps per
     lane per iteration (its residuals, measured from their tensors); outs
     holds each group's radiance, launches_fwd_by_group each group's
-    forward K1 + K2 launches.  sections=True splits the backward passes
-    into the shade replays and the torch.autograd.grad calls
-    (backward_replay_s, backward_grad_s of bwd_s), with a device sync at
-    each mark."""
+    forward K1 + K2 launches.  sections=True records the program's spans
+    (utils/profile.py) and splits the backward passes into the shade
+    replays and the torch.autograd.grad calls (backward_replay_s,
+    backward_grad_s of bwd_s: the host time of the grad.replay and
+    grad.autograd spans; no span syncs the device)."""
     cfg = RenderConfig(spp=1, max_depth=depth, integrator="path",
                        rays_per_batch=LANES)
     dev = scene["mat_base"].device
@@ -177,7 +180,7 @@ def fwd_bwd_regen(scene, cam, meta, depth, sections=False, n_groups=None):
         for p0, p1 in groups:
             leaf = scene["mat_base"].detach().requires_grad_()
             pix = torch.arange(p0, p1, device=dev)
-            st = dict(sections=sections)
+            st = {}
             a0, t0 = _launches(), _now(dev)
             out = _trace_regen_diff(dict(scene, mat_base=leaf), cam, meta,
                                     cfg, pix, waves, 0, lanes=LANES, stats=st)
@@ -192,13 +195,19 @@ def fwd_bwd_regen(scene, cam, meta, depth, sections=False, n_groups=None):
                              lane_iterations=st["iterations"] * st["lanes"],
                              n_rays=st["n_rays"], fwd_s=t1 - t0,
                              bwd_s=_now(dev) - t1))
-            _add(stats, {k: st[k] for k in ("backward_replay_s",
-                                            "backward_grad_s") if k in st})
             outs.append(out.detach())
             grad += leaf.grad
         return grad, fwd, bwd, stats, outs, by_group
 
-    (grad, fwd, bwd, st, outs, by_group), seconds, peak = _timed(run, dev)
+    mark = profile.span_mark()
+    with profile.recording() if sections else contextlib.nullcontext():
+        (grad, fwd, bwd, st, outs, by_group), seconds, peak = _timed(run,
+                                                                     dev)
+    if sections:
+        for name, key in (("grad.replay", "backward_replay_s"),
+                          ("grad.autograd", "backward_grad_s")):
+            st[key] = sum((r[5] - r[4]) / 1e9 for r in profile.spans(mark)
+                          if r[0] == name)
     return dict(samples_per_s=n_samples / seconds, seconds=seconds,
                 peak_bytes=peak, fwd_s=st["fwd_s"],
                 bwd_s=st["bwd_s"],

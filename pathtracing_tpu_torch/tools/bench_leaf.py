@@ -32,6 +32,7 @@ import torch
 
 from ..accel import cubuild
 from ..core.math import BIG_F32
+from ..utils import profile
 
 MODES = ("vpu", "mxu_hi", "mxu_3x", "mxu_1x", "vpu_rec", "vpu_cond",
          "vpu_dma", "vpu_while")
@@ -270,7 +271,7 @@ def build_kernel() -> float:
     if _lib is not None:
         return 0.0
     _lib = bind(cubuild.load("leaf"))
-    return cubuild.BUILD_SECONDS["leaf"]
+    return profile.counters()["kernels.leaf_s"]
 
 
 def build_defines(lanes=None, wgs=None, n=None) -> dict:

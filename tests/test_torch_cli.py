@@ -2,8 +2,8 @@
 on the CPU: a model import reaches the traversal tables and prints
 RenderTimer's JSON line (the counterpart of tests/test_tooling.py:100-145),
 the scene cache's second run renders the same film, --checkpoint,
---adaptive and the built-in scenes (every one of the JAX package's
-SCENES, `--scene medium --integrator volpath` included)."""
+--adaptive, --profile and the built-in scenes (every one of the JAX
+package's SCENES, `--scene medium --integrator volpath` included)."""
 import json
 import math
 import os
@@ -59,6 +59,24 @@ def test_torch_cli_model_import_reaches_the_kernel_tables(tmp_path):
     m = json.loads(line[line.index("{"):])
     assert m["samples_per_s"] > 0 and m["camera_samples"] == 256
     assert m["n_devices"] == 1
+
+
+def test_torch_cli_profile_traces_the_build_and_the_render(tmp_path):
+    """render --profile DIR traces the scene build as well as the render:
+    its Chrome trace holds the build's spans and the drain's."""
+    obj = _grid_obj(tmp_path / "grid.obj")
+    prof = tmp_path / "prof"
+    r = main(["render", "--device", "cpu", "--model", str(obj), *_MODEL_ARGS,
+              "--regen", "--profile", str(prof), "--out",
+              str(tmp_path / "img.ppm")])
+    assert r["metrics"]["samples_per_s"] > 0
+    trace = json.loads((prof / "trace.json").read_text())
+    ours = [e for e in trace["traceEvents"] if e.get("cat") == "program"]
+    names = {e["name"] for e in ours}
+    assert {"build.tables", "build.upload", "wavefront.item",
+            "wavefront.iteration", "film.splat"} <= names
+    first = {n: min(e["ts"] for e in ours if e["name"] == n) for n in names}
+    assert first["build.upload"] < first["wavefront.item"]
 
 
 def test_torch_cli_cache_second_run_bit_equal(tmp_path):

@@ -267,29 +267,39 @@ def test_torch_goldens(name):
 
 def test_torch_render_stats_count_the_drain_tail(monkeypatch):
     """render(stats=) with regenerate: "iterations" counts the drain's
-    bounce iterations, "deep_bounces" the lane bounces at or past
-    path._DEEP_BOUNCE and "deep_rehits" those whose closest hit lies nearer
-    than path._REHIT_T; the image does not depend on them."""
+    bounce iterations and, while spans record (utils/profile.py),
+    "deep_bounces" the lane bounces at or past path._DEEP_BOUNCE and
+    "deep_rehits" those whose closest hit lies nearer than path._REHIT_T;
+    the image does not depend on them."""
     from pathtracing_tpu_torch.integrators import path as tpath
     from pathtracing_tpu_torch.integrators.render import render
+    from pathtracing_tpu_torch.utils.profile import recording
     scene, cam, meta = tscenes.cornell_box(resolution=(12, 12), device="cpu")
     cfg = TConfig(spp=2, max_depth=6, integrator="path", regenerate=True,
                   sampler=TSampler(x_samples=2, y_samples=1, seed=5))
+    st0 = {}
+    film0 = render(scene, cam, meta, cfg, device="cpu", stats=st0)
+    assert "deep_bounces" not in st0 and "deep_rehits" not in st0
     st = {}
-    film = render(scene, cam, meta, cfg, device="cpu", stats=st)
-    assert st["iterations"] >= 6 and st["n_rays"] > 288
+    with recording():
+        film = render(scene, cam, meta, cfg, device="cpu", stats=st)
+    assert st["iterations"] == st0["iterations"] >= 6
+    assert st["n_rays"] == st0["n_rays"] > 288
     assert st["deep_bounces"] == 0 and st["deep_rehits"] == 0   # depth 6 < 20
     monkeypatch.setattr(tpath, "_DEEP_BOUNCE", 1)
     st1 = {}
-    film1 = render(scene, cam, meta, cfg, device="cpu", stats=st1)
+    with recording():
+        film1 = render(scene, cam, meta, cfg, device="cpu", stats=st1)
     assert st1["iterations"] == st["iterations"]
     assert 0 < st1["deep_bounces"] < st["n_rays"]
     assert st1["deep_rehits"] == 0              # no hit nearer than 1e-4
     monkeypatch.setattr(tpath, "_REHIT_T", 1e30)    # every hit counts
     st2 = {}
-    render(scene, cam, meta, cfg, device="cpu", stats=st2)
+    with recording():
+        render(scene, cam, meta, cfg, device="cpu", stats=st2)
     assert 0 < st2["deep_rehits"] <= st2["deep_bounces"] == st1["deep_bounces"]
     assert torch.equal(film["rgb"], film1["rgb"])
+    assert torch.equal(film["rgb"], film0["rgb"])
 
 
 def test_torch_entry_points_need_a_device_choice():

@@ -118,9 +118,11 @@ def test_torch_adaptive_traces_active_pixels_only():
 
 def test_torch_render_timer_and_trace(tmp_path):
     """RenderTimer prints one JSON line with the JAX package's keys;
-    trace_to writes a Chrome trace of the block."""
+    trace_to writes a Chrome trace of the block with the program's spans
+    in it, on the trace's time base: the item's span over the operations
+    its thread ran."""
     scene, cam, meta = tscenes.furnace(resolution=(8, 8), device="cpu")
-    cfg = TConfig(spp=2, max_depth=2)
+    cfg = TConfig(spp=2, max_depth=2, regenerate=True)
     out = io.StringIO()
     with trace_to(tmp_path / "prof"):
         with RenderTimer(64, 2, 2, stream=out) as t:
@@ -133,3 +135,15 @@ def test_torch_render_timer_and_trace(tmp_path):
     assert m["n_devices"] == 1
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
+    ours = [e for e in trace["traceEvents"] if e.get("cat") == "program"]
+    names = {e["name"] for e in ours}
+    assert {"wavefront.item", "wavefront.iteration", "film.splat",
+            "shading.interaction", "shading.material", "shading.bsdf",
+            "shading.lights", "intersect.shadow"} <= names
+    item = next(e for e in ours if e["name"] == "wavefront.item")
+    ops = [e for e in trace["traceEvents"]
+           if e.get("cat") == "cpu_op" and e.get("tid") == item["tid"]
+           and str(e.get("name", "")).startswith("aten::")]
+    inside = [e for e in ops if item["ts"] <= e["ts"]
+              and e["ts"] + e.get("dur", 0) <= item["ts"] + item["dur"]]
+    assert len(inside) > len(ops) // 2 > 0
