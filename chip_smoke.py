@@ -5,12 +5,21 @@
 
 Phases (any failure exits non-zero; the last stdout line is the JSON
 device summary only when every phase passed):
-  1. build the three CUDA sources (csrc/trace2.cu, the two-level traversal
-     K1, csrc/trace1.cu, the single-level traversal K2, and csrc/leaf.cu,
-     the leaf micro-benchmark K4), one nvcc each, started together; print
+  1. build the four CUDA sources (csrc/trace2.cu, the two-level traversal
+     K1, csrc/trace1.cu, the single-level traversal K2, csrc/leaf.cu,
+     the leaf micro-benchmark K4, and csrc/sampler.cu, the sampler), one
+     nvcc each, started together; print
      each instance's registers, stack frame and spills, and K1's (group
      and window kernels) and K2's blocks per SM
      (cudaOccupancyMaxActiveBlocksPerMultiprocessor) unstaged;
+  1b. [sampler] csrc/sampler.cu (core/rng.py's hash_u32, hash_float,
+     sample_1d and sample_2d as one launch each) against the plain
+     versions at 65,280 lanes, bit for bit (chip_smoke._sampler_phase),
+     and its time per sample_2d against its bytes bound; after phase 5's
+     frame, one work item of the faithful frame (every 8th row) through
+     the kernel and through the plain sampler: flushed radiance
+     bit-identical, the item's launches and host syncs printed
+     (_sampler_item);
   2. hold every kernel mode against its plain PyTorch version on the card,
      no flip allowed:
      a. K1 and K2 closest hit and any-hit on a 200K-triangle soup (K2: cut
@@ -199,6 +208,7 @@ checked to be hit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -580,13 +590,22 @@ def _measure(mod, scene, o, d, t_max, label, modes, prune=True,
 
 def _launch_counts():
     """{"trace2[mode]" / "trace1[mode]": launches} of both traversal
-    kernels, by mode (the modes partition the launches)."""
+    kernels, by mode (the modes partition the launches), and {"sampler":
+    launches} of the sampler kernel (core/rng.py's profile counter
+    "rng.launches", all four of its functions)."""
     from pathtracing_tpu_torch.accel import trace1, trace2
+    from pathtracing_tpu_torch.utils import profile
     out = {f"trace2[{k}]": v
            for k, v in trace2.tri_intersect2.launches_by_mode.items()}
     out.update({f"trace1[{k}]": v
                 for k, v in trace1.tri_intersect1.launches_by_mode.items()})
+    out["sampler"] = profile.counters().get("rng.launches", 0)
     return out
+
+
+def _traversal(counts):
+    """The traversal kernels' entries of a _launch_counts() dict."""
+    return {k: v for k, v in counts.items() if k != "sampler"}
 
 
 def _schedule_counts():
@@ -604,10 +623,12 @@ def _schedule_counts():
 
 def _reset_counts():
     from pathtracing_tpu_torch.accel import trace1, trace2
+    from pathtracing_tpu_torch.core import rng
     from pathtracing_tpu_torch.tools import bench_leaf
     trace1.reset_launches()
     trace2.reset_launches()
     bench_leaf.reset_launches()
+    rng.reset_launches()
 
 
 def _card_vs_cpu(render_image, scene, cam, meta, cfg, label, min_frac=0.99,
@@ -742,7 +763,7 @@ def _occluded_card_vs_cpu(scene, cam, meta, n=8160, label="flattened"):
 
 
 def _frame(filmmod, scene, cam, meta, cfg, label, ppm):
-    """Render one timed frame under cfg with both kernels' launch counts
+    """Render one timed frame under cfg with the kernels' launch counts
     set to 0 just before it and read just after, through the bench's
     bench_frame (one timed repetition, no warm frame; sample_offset
     cfg.spp); print its numbers, check the image, write it.  Returns
@@ -767,7 +788,7 @@ def _frame(filmmod, scene, cam, meta, cfg, label, ppm):
     finite = bool(torch.isfinite(img).all())
     calls = stats.get("occluded_calls", 0)
     restarts = stats.get("chain_restarts", 0) / calls if calls else 0.0
-    if total != sum(counts.values()):
+    if total != sum(_traversal(counts).values()):
         raise RuntimeError("per-mode launch counts do not add up")
     counts.update(_schedule_counts())
     used = {k: v for k, v in counts.items() if v}
@@ -955,6 +976,226 @@ def _trace_item(scene, cam, meta, cfg, sections, prof):
         for name, (t, c) in top:
             print(f"[profile]   {t / 1e3:9.1f} ms  {c:7d} ops  "
                   f"{name[:90]}", flush=True)
+
+
+SAMPLER_LANES = 65_280      # [sampler]: the main path's lanes
+SAMPLER_ROW_STEP = 8        # [sampler] item: every 8th row (rtbench's)
+
+
+def _sampler_phase(dev):
+    """[sampler] csrc/sampler.cu against core/rng.py's plain functions on
+    the card at SAMPLER_LANES lanes: sample_1d / sample_2d (stratified 4x4,
+    8x8, 3x3, uniform; dims as ints and per lane) and hash_u32 /
+    hash_float (six keys), bit for bit against the plain functions run on
+    the CPU, and against the plain functions on the card where the strata
+    count is a power of two (elsewhere the card's plain version multiplies
+    by the reciprocal of a scalar divisor: its mismatches are printed).
+    Each public call must be one launch, run under
+    torch.cuda.set_sync_debug_mode("error") (a synchronising call that
+    PyTorch makes raises), and, all run again under torch.profiler, make
+    no CUDA call that waits for the device or copies memory (whichever
+    library makes it, as far as the profiler sees the sampler library's
+    CUDA calls: printed).  Then sample_2d's time against its bytes bound
+    and the plain version's time (ROUNDS interleaved rounds).  Returns the
+    sampler's row of the summary's kernel table."""
+    import torch
+    import torch.profiler
+    from pathtracing_tpu_torch.core import rng
+    from pathtracing_tpu_torch.tools.roofline import HBM_RATE
+    from pathtracing_tpu_torch.utils import profile
+    n = SAMPLER_LANES
+    g = torch.Generator().manual_seed(41)
+    px, py, dim, big = (torch.randint(0, hi, (n,), generator=g).to(dev)
+                        for hi in (1920, 1080, 1 << 12, 1 << 40))
+    seed = (1 << 31) + 977
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    calls = []      # every checked call, for the profiled rerun
+
+    def once(fn, *a):
+        launches = profile.counters().get("rng.launches", 0)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if profile.counters().get("rng.launches", 0) != launches + 1:
+            raise RuntimeError(f"[sampler] {fn.__name__}: not one launch")
+        calls.append((fn, a))
+        return out
+
+    checked = 0
+    for kind, xs, ys in (("stratified", 4, 4), ("stratified", 8, 8),
+                         ("stratified", 3, 3), ("uniform", 4, 4)):
+        cfg = rng.SamplerConfig(kind=kind, x_samples=xs, y_samples=ys,
+                                seed=seed)
+        sidx = big % (xs * ys)
+        for op in ("sample_1d", "sample_2d"):
+            for d in (1037, dim):
+                keys = (px, py, sidx, d)
+                got = once(getattr(rng, op), cfg, *keys)
+                plain = getattr(rng, op + "_plain")
+                ref = plain(cfg, *(k.cpu() if isinstance(k, torch.Tensor)
+                                   else k for k in keys))
+                if not torch.equal(bits(got.cpu()), bits(ref)):
+                    raise RuntimeError(f"[sampler] {op} {kind} {xs}x{ys}: "
+                                       f"the kernel differs from the plain "
+                                       f"version on the CPU")
+                on_card = plain(cfg, *keys)
+                diff = int((bits(got) != bits(on_card)).sum())
+                if diff and (xs * ys) & (xs * ys - 1) == 0:
+                    raise RuntimeError(f"[sampler] {op} {kind} {xs}x{ys}: "
+                                       f"the kernel differs from the plain "
+                                       f"version on the card")
+                if diff:
+                    print(f"[sampler] {op} {kind} {xs}x{ys}: the card's "
+                          f"plain version differs from the CPU's in {diff} "
+                          f"values (division by a scalar as a product by "
+                          f"its reciprocal); the kernel equals the CPU's",
+                          flush=True)
+                checked += 1
+    keys = (px, seed, torch.tensor(7, device=dev), big, -5, dim)
+    for op in ("hash_u32", "hash_float"):
+        got = once(getattr(rng, op), *keys)
+        plain = getattr(rng, op + "_plain")
+        if not (torch.equal(got, plain(*keys)) and torch.equal(
+                got.cpu(), plain(*(k.cpu() if isinstance(k, torch.Tensor)
+                                   else k for k in keys)))):
+            raise RuntimeError(f"[sampler] {op}: the kernel differs from "
+                               f"the plain version")
+        checked += 1
+    # the same calls under the profiler: the CUDA API calls made inside
+    # their range (runtime "cuda*" and lower-level "cu*" calls), any copy
+    # or fill on the device (the profile holds nothing else)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("sampler.calls"):
+            for fn, a in calls:
+                fn(*a)
+        torch.cuda.synchronize()
+    evs = list(prof.profiler.kineto_results.events())
+    rec = next(e for e in evs if e.name() == "sampler.calls"
+               and e.device_type() == torch.autograd.DeviceType.CPU)
+    api = [e.name() for e in evs if e.name().startswith("cu")
+           and rec.start_ns() <= e.start_ns() <= rec.end_ns()]
+    waits = [x for x in api if "ynchronize" in x] + [
+        e.name() for e in evs if "Memcpy" in e.name() or "Memset" in e.name()]
+    seen = sum("LaunchKernel" in x for x in api)
+    kernels = sum("sampler_kernel" in e.name() for e in evs)
+    print(f"[sampler] {len(calls)} calls under the profiler: {kernels} "
+          f"sampler kernels ran; CUDA calls made in the calls' range "
+          f"{ {x: api.count(x) for x in sorted(set(api))} } (the sampler "
+          f"library's launches {'seen' if seen >= len(calls) else 'NOT seen'}"
+          f" by the profiler: {seen} launch calls)", flush=True)
+    if kernels != len(calls) or waits:
+        raise RuntimeError(f"[sampler] the calls ran {kernels} kernels of "
+                           f"{len(calls)}, or made a synchronising or "
+                           f"copying CUDA call: {waits}")
+    cfg = rng.SamplerConfig(x_samples=4, y_samples=4, seed=seed)
+    sidx = big % 16
+    # back to back, a call's host time exceeds the kernel's: the events
+    # time the issue rate; the kernel's own time is the profiler's
+    t = _time_rounds({
+        "kernel": lambda: rng.sample_2d(cfg, px, py, sidx, dim),
+        "plain": lambda: rng.sample_2d_plain(cfg, px, py, sidx, dim)})
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            rng.sample_2d(cfg, px, py, sidx, dim)
+        torch.cuda.synchronize()
+    dev_us = sorted(e.duration_ns() / 1e3
+                    for e in prof.profiler.kineto_results.events()
+                    if "sampler_kernel" in e.name())
+    if len(dev_us) != 200:
+        raise RuntimeError(f"[sampler] the profiler saw {len(dev_us)} of 200 "
+                           f"kernel launches")
+    ms = dev_us[len(dev_us) // 2] / 1e3
+    # bytes that must move: four int64 keys in, a float32 pair out
+    bound_ms = n * (4 * 8 + 2 * 4) / HBM_RATE * 1e3
+    row = dict(timed=f"sample_2d, stratified 4x4, {n} lanes", lanes=n,
+               ms=ms, ms_p10_p90=(dev_us[20] / 1e3, dev_us[180] / 1e3),
+               issue_ms=t["kernel"][0], issue_ms_spread=t["kernel"][1],
+               plain_ms=t["plain"][0], plain_ms_spread=t["plain"][1],
+               bound_ms=bound_ms, bound_by="bytes",
+               roofline_share=bound_ms / ms, library_ms=None,
+               library="none: no single PyTorch call hashes a stream (the "
+               "plain version is one eager op per step)")
+    print(f"[sampler] {checked} calls equal the plain versions bit for bit, "
+          f"each one launch and no synchronising call; sample_2d 4x4 x {n} "
+          f"lanes: "
+          f"kernel {ms * 1e3:.2f} us on the device (median of 200; 10-90%: "
+          f"{dev_us[20]:.2f}-{dev_us[180]:.2f} us), one call every "
+          f"{row['issue_ms'] * 1e3:.1f} us back to back (spread "
+          f"{row['issue_ms_spread']:.1%}), plain {row['plain_ms']:.3f} ms, "
+          f"bytes bound {bound_ms * 1e3:.3f} us "
+          f"({row['roofline_share']:.1%})", flush=True)
+    return row
+
+
+def _sampler_item(scene, cam, meta, cfg):
+    """[sampler] one work item of the frame (every SAMPLER_ROW_STEP-th row,
+    SAMPLER_LANES lanes: rtbench's item) drained by the regenerating
+    tracer twice: through the sampler kernel, then with the plain sampler
+    put in the callers' place.  The flushed radiance must be bit-identical;
+    prints the item's kernel launches, host syncs and seconds of both."""
+    import torch
+    from unittest import mock
+    from pathtracing_tpu_torch.core import rng
+    from pathtracing_tpu_torch.integrators import path
+    from pathtracing_tpu_torch.scene import intersect
+    from pathtracing_tpu_torch.sensor import camera
+    from pathtracing_tpu_torch.utils import profile
+    w, h = cam["resolution"]
+    dev = scene["mat_base"].device
+    rows = torch.arange(0, h, SAMPLER_ROW_STEP, device=dev)
+    pix = (rows[:, None] * w + torch.arange(w, device=dev)).reshape(-1)
+    plain = {(path, "sample_1d"): rng.sample_1d_plain,
+             (path, "sample_2d"): rng.sample_2d_plain,
+             (camera, "sample_1d"): rng.sample_1d_plain,
+             (camera, "sample_2d"): rng.sample_2d_plain,
+             (rng, "hash_u32"): rng.hash_u32_plain,
+             (rng, "hash_float"): rng.hash_float_plain,
+             (intersect, "hash_u32"): rng.hash_u32_plain}
+    res = {}
+    for side in ("kernel", "plain"):
+        with contextlib.ExitStack() as stack:
+            if side == "plain":
+                for (mod, name), fn in plain.items():
+                    stack.enter_context(mock.patch.object(mod, name, fn))
+            torch.cuda.synchronize()
+            c0 = profile.counters()
+            t0 = time.perf_counter()
+            out, st = path._trace_regen(scene, cam, meta, cfg, pix, 1, 0,
+                                        lanes=SAMPLER_LANES, with_stats=True)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            c1 = profile.counters()
+        res[side] = (out,
+                     c1.get("rng.launches", 0) - c0.get("rng.launches", 0),
+                     c1.get("host_syncs", 0) - c0.get("host_syncs", 0), sec,
+                     int(st["iterations"]))
+        print(f"[sampler] item ({len(rows)} rows x {w} px, "
+              f"{SAMPLER_LANES} lanes) through the {side} sampler: "
+              f"{res[side][3]:.2f}s, {res[side][4]} iterations, "
+              f"{res[side][1]} kernel launches, {res[side][2]} host syncs",
+              flush=True)
+    (ko, kl, _, _, ki), (po, pl, _, _, pi) = res["kernel"], res["plain"]
+    diff = float((ko - po).abs().max())
+    if not torch.equal(ko.view(torch.int32), po.view(torch.int32)) \
+            or ki != pi:
+        raise RuntimeError(f"[sampler] the item's flushed radiance differs "
+                           f"between the kernel and the plain sampler (max "
+                           f"abs difference {diff})")
+    if kl <= 0 or pl != 0:
+        raise RuntimeError("[sampler] the kernel item launched no kernel, "
+                           "or the plain item launched one")
+    print(f"[sampler] the item's flushed radiance is bit-identical (max abs "
+          f"difference {diff}); {kl} launches, {kl / ki:.1f} per iteration",
+          flush=True)
 
 
 def _diff_counts(got, ref, closest, amask=0, frontier=False):
@@ -1603,7 +1844,7 @@ def _bvh_cli(render_image):
     small = ["--resolution", "48", "36", "--spp", "4", "--max-depth", "4"]
     _reset_counts()
     card = cli(base + small + ["--out", str(out / "grid_card.ppm")])
-    launches = sum(_launch_counts().values())
+    launches = sum(_traversal(_launch_counts()).values())
     cpu = cli(base + small + ["--device", "cpu", "--out",
                               str(out / "grid_cpu.ppm")])
     got = finalize(card["film"]).cpu()
@@ -2149,7 +2390,7 @@ def _oracle_phase():
                 seconds = time.perf_counter() - t0
                 counts = {k: v for k, v in _launch_counts().items() if v}
                 k = kernel[variant]
-                if k is None and counts:
+                if k is None and _traversal(counts):
                     raise RuntimeError(f"[oracle] (a) launched {counts}")
                 if k is not None:       # `simple` traces no shadow rays
                     _need(counts, [f"{k}[closest]"] + (
@@ -2197,12 +2438,14 @@ def _example_phase(render_image):
                         "chiprun_out/example_1.ppm"])
     img = filmmod.finalize(r["film"])
     mean, finite = float(img.mean()), bool(torch.isfinite(img).all())
-    launches = sum(_launch_counts().values())
+    counts = _launch_counts()
+    launches = sum(_traversal(counts).values())
     print(f"[example] tools/example_1.main at {EXAMPLE_RES[0]}x"
           f"{EXAMPLE_RES[1]} x {EXAMPLE_SPP} spp, volpath depth 8: "
           f"{r['seconds']:.2f}s, {r['samples_per_s']:.1f} samples/s, image "
-          f"mean {mean:.6f} finite {finite}, kernel launches {launches} "
-          f"(seven analytic prims: the brute scan)", flush=True)
+          f"mean {mean:.6f} finite {finite}, traversal-kernel launches "
+          f"{launches} (seven analytic prims: the brute scan), sampler "
+          f"launches {counts['sampler']}", flush=True)
     if not (finite and mean > 0.0):
         raise RuntimeError(f"[example] bad image: mean={mean} "
                            f"finite={finite}")
@@ -2263,6 +2506,7 @@ def main() -> int:
     from pathtracing_tpu_torch import RenderConfig, SamplerConfig, render, \
         render_image
     from pathtracing_tpu_torch.accel import cubuild, trace1, trace2
+    from pathtracing_tpu_torch.core import rng
     from pathtracing_tpu_torch.native.loader import native_available
     from pathtracing_tpu_torch.scene.intersect import _subset_scene
     from pathtracing_tpu_torch.scene.intersect import _multipass_visits
@@ -2293,17 +2537,19 @@ def main() -> int:
     # ---- 1. build (one nvcc per source, started together; K4 also in
     # the scalar modes' other lane counts, for its lanes A/B)
     t0 = time.perf_counter()
-    cubuild.build_all(("trace2", "trace1", "leaf") + tuple(
+    cubuild.build_all(("trace2", "trace1", "leaf", "sampler") + tuple(
         ("leaf", bench_leaf.build_defines(lanes=w)) for w in bench_leaf.LANES
         if w != bench_leaf.DEFAULT_LANES))
     trace2.build_kernel()
     trace1.build_kernel()
     bench_leaf.build_kernel()
-    print(f"[build] trace2.cu + trace1.cu + leaf.cu built+loaded in "
+    rng.build_kernel()
+    print(f"[build] trace2.cu + trace1.cu + leaf.cu + sampler.cu built+loaded "
+          f"in "
           f"{time.perf_counter() - t0:.2f}s ("
           f"{ {k: v for k, v in profile.counters().items() if k.startswith('kernels.')} })",
           flush=True)
-    for stem in ("trace2", "trace1", "leaf"):
+    for stem in ("trace2", "trace1", "leaf", "sampler"):
         for name, line in cubuild.kernel_resources(stem):
             print(f"[build] {stem} {name}: {line}", flush=True)
     for mode in trace2.MODES:
@@ -2317,7 +2563,10 @@ def main() -> int:
               f"{trace1.occupancy(mode)} blocks of 128 per SM unstaged (each "
               f"[kernel] row gives it with its tables staged)", flush=True)
 
-    kern = {}       # "trace2[mode]" / "trace1[mode]" -> measured numbers
+    kern = {}       # "trace2[mode]" / "trace1[mode]" / "sampler" -> numbers
+
+    # ---- 1b. [sampler] the sampler kernel against its plain version
+    kern["sampler"] = _sampler_phase(dev)
 
     # ---- 2a. random soup, closest + any-hit, K1 and K2 (cut to its size)
     rng = np.random.default_rng(13)
@@ -2603,6 +2852,7 @@ def main() -> int:
     _need(faithful, [f"trace2[{m}]" for m in ("closest", "any_hit", "amask1",
                                               "amask2")],
           "the faithful render")
+    _sampler_item(scene, cam, meta, cfg)
     if args.sections or args.profile:
         _trace_item(scene, cam, meta, cfg, args.sections, args.profile)
 
@@ -2778,7 +3028,8 @@ def main() -> int:
         "scene reaches this mode"
     replaces = {"trace2": "pathtracing_tpu/accel/pallas_trace2.py:438",
                 "trace1": "pathtracing_tpu/accel/pallas_trace.py:289",
-                "leaf": "tools/bench_mxu_leaf.py:63"}
+                "leaf": "tools/bench_mxu_leaf.py:63",
+                "sampler": "pathtracing_tpu/core/rng.py:44"}
     # rows of a schedule no entry point runs on those tables
     no_entry = {"trace2[pair]": (
         "none: no entry point passes pair=True (the reference package's "

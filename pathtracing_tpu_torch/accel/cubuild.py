@@ -18,8 +18,8 @@ rays (one loop iteration per CUDA thread).  A source that launches
 through group_walk.cuh's `launch_groups` (trace2.cu) gets that header's
 host branch instead: each ray's W lanes run as W std::threads meeting at
 a C++20 std::barrier in every group primitive.  A source whose device
-code is guarded by `#ifdef __CUDACC__` (leaf.cu) provides its own host
-entry in the `#else` branch.
+code is guarded by `#ifdef __CUDACC__` (leaf.cu, sampler.cu) provides its
+own host entry in the `#else` branch.
 
 `host_library`'s `defines` ({name: value}) are passed as -D flags, e.g.
 TRACE2_LANES (lanes per ray of trace2.cu's group walk); each set of
@@ -125,7 +125,7 @@ def load(stem: str, defines=None):
         return _libs[name]
 
 
-def build_all(builds=("trace2", "trace1", "leaf")) -> float:
+def build_all(builds=("trace2", "trace1", "leaf", "sampler")) -> float:
     """Build (if needed) and load every source, one nvcc each, all started
     together.  A build is a stem or a (stem, defines) pair.  Returns the
     seconds spent."""

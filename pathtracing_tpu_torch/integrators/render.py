@@ -65,17 +65,21 @@ def render_tile_regen(scene, cam, meta, cfg: RenderConfig, film, pixel_idx,
     "iterations" (bounce iterations of the drain), "deep_bounces" (lane
     bounces at depth 20 or more: the drain's tail) and "deep_rehits" (those
     whose closest hit lies nearer than 1e-4: both only while spans record,
-    utils/profile.py) and "host_syncs" (the item's waits for the device:
+    utils/profile.py), "host_syncs" (the item's waits for the device:
     blocking reads of device values and copies of host data to the
-    device, utils/profile.py::count); with cfg.differentiable, "n_rays",
-    "iterations", "residual_bytes" (trace_regen_diff) and "host_syncs".
+    device, utils/profile.py::count) and "rng_launches" (the item's
+    launches of the sampler kernel, csrc/sampler.cu: 0 on the CPU); with
+    cfg.differentiable, "n_rays", "iterations", "residual_bytes"
+    (trace_regen_diff), "host_syncs" and "rng_launches".
     The item runs in the span "wavefront.item", its splat in
     "film.splat"."""
     w, h = cam["resolution"]
     px = pixel_idx % w
     py = pixel_idx // w
     with profile.span("wavefront.item", new_item=True):
-        syncs = profile.counters().get("host_syncs", 0)
+        c0 = profile.counters()
+        syncs = c0.get("host_syncs", 0)
+        launches = c0.get("rng.launches", 0)
         if cfg.differentiable:
             st = {}
             out = _trace_regen_diff(scene, cam, meta, cfg, pixel_idx, waves,
@@ -103,8 +107,11 @@ def render_tile_regen(scene, cam, meta, cfg: RenderConfig, film, pixel_idx,
                 film = _splat(film, cfg, cam, pixel_idx, p,
                               out[s_w * k:(s_w + 1) * k], rows, row0)
         if stats is not None:
+            c1 = profile.counters()
             stats["host_syncs"] = stats.get("host_syncs", 0) \
-                + profile.counters().get("host_syncs", 0) - syncs
+                + c1.get("host_syncs", 0) - syncs
+            stats["rng_launches"] = stats.get("rng_launches", 0) \
+                + c1.get("rng.launches", 0) - launches
     return film
 
 

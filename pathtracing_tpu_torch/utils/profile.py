@@ -21,7 +21,8 @@ pathtracing_tpu/utils/profile.py, plus the spans and counters).
     the render path makes the host wait for the device, blocking reads of
     device values and copies of host data to the device; "build.*_s": the
     seconds of the last scene build's stages; "kernels.<name>_s": a CUDA
-    kernel library's build and load), read by `counters()`.
+    kernel library's build and load; "rng.launches": launches of the
+    sampler kernel, core/rng.py), read by `counters()`.
 """
 from __future__ import annotations
 
