@@ -7,7 +7,8 @@ produced, stage by stage, at the captured lanes (rtbench/capture.py):
 - closest: each closest-hit answer of the traversal is a hit of the named
   primitive at the named distance, and no surface the ray meets is nearer
   except alpha-cutout surfaces that are transparent where the ray meets
-  them (the reference's own scan, rtbench/reference/scan.py);
+  them (the reference's own scan, rtbench/reference/scan.py, and over
+  run-time instances rtbench/reference/iscan.py);
 - shadow: each shadow-predicate answer against the scan's, where the scan
   is unambiguous (no surface within a relative 1e-4 of the ray's end);
 - shade: each captured bounce replayed by the frozen bounce math from
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from .scan import Scan, BIG
+from .iscan import InstScan
 from .snap.integrators.path import RenderConfig, _make_bounce
 from .snap.core.rng import SamplerConfig
 from .snap.core.filters import mitchell
@@ -48,7 +50,7 @@ from . import sensor
 from .snap.scene.builder import SceneBuilder
 from .snap.scene.textures import texture_alpha
 from .snap.scene.types import ALPHA_MASK, ALPHA_OPAQUE, SHAPE_TRI, \
-    SHAPE_SPH, SHAPE_QUAD
+    SHAPE_SPH, SHAPE_QUAD, SHAPE_ITRI
 
 # relative distance tolerance of a traversal answer
 T_TOL = 1e-4
@@ -93,11 +95,20 @@ def render_config(traffic, seed):
                         regenerate=True)
 
 
-def _solid(scene, tri, u, v):
-    """Does the surface stop a ray at barycentrics (u, v) of triangle tri:
-    opaque materials always, alpha-mask ones where the texture's alpha
-    exceeds the cutoff.  Blended alpha is stochastic: never counted."""
-    mat = scene["tri_prop"][tri, 0].long()
+def make_scan(scene, meta, dtype=torch.float32):
+    """The reference's traversal of the scene: world triangles, spheres and
+    quads (scan.py) and, where the scene has them, run-time instances
+    (iscan.py, as `.inst`)."""
+    return Scan(scene, meta.n_tri, meta.n_sph, meta.n_quad, dtype=dtype,
+                inst=InstScan(scene, dtype=dtype) if meta.n_inst else None)
+
+
+def _solid(scene, prop, tri_uv, u, v):
+    """Does the surface stop a ray at barycentrics (u, v) of the triangles
+    with rows prop / tri_uv (world or object-space): opaque materials
+    always, alpha-mask ones where the texture's alpha exceeds the cutoff.
+    Blended alpha is stochastic: never counted."""
+    mat = prop[:, 0].long()
     mat_c = mat.clamp(0, scene["mat_type"].shape[0] - 1)
     mode = torch.where(mat >= 0, scene["mat_alpha_mode"][mat_c].long(),
                        ALPHA_OPAQUE)
@@ -105,7 +116,7 @@ def _solid(scene, tri, u, v):
     is_mask = mode == ALPHA_MASK
     if bool(is_mask.any()):
         m = mat_c[is_mask]
-        uv3 = scene["tri_uv"][tri[is_mask]]
+        uv3 = tri_uv[is_mask]
         uu, vv = u[is_mask, None], v[is_mask, None]
         uv = (1 - uu - vv) * uv3[:, 0] + uu * uv3[:, 1] + vv * uv3[:, 2]
         atex = scene["mat_tex"][m, 4]
@@ -122,8 +133,14 @@ def nearest_solid(scene, scan, o, d, t_max):
     best = torch.full((n,), BIG, dtype=torch.float32, device=o.device)
     ray, tri, t, u, v = scan.tri_hits(o, d, t_max)
     if ray.numel():
-        ok = _solid(scene, tri, u, v)
+        ok = _solid(scene, scene["tri_prop"][tri], scene["tri_uv"][tri], u, v)
         best.scatter_reduce_(0, ray[ok], t[ok], reduce="amin")
+    if scan.inst is not None:
+        ray, _, otri, t, u, v = scan.inst.hits(o, d, t_max)
+        if ray.numel():
+            ok = _solid(scene, scene["otri_prop"][otri],
+                        scene["otri_uv"][otri], u, v)
+            best.scatter_reduce_(0, ray[ok], t[ok], reduce="amin")
     (ts, vs), (tq, vq) = scan.analytic_hits(o, d, t_max)
     for tt, vv in ((ts, vs), (tq, vq)):
         if tt.numel():
@@ -135,12 +152,16 @@ def prim_distance(scan, scene, o, d, kind, idx):
     """The distance at which each ray meets its named primitive (BIG if it
     does not)."""
     t = torch.full(kind.shape, BIG, dtype=torch.float32, device=o.device)
-    for k in (SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD):
+    for k in (SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD, SHAPE_ITRI):
         m = kind == k
         if not bool(m.any()):
             continue
         i = idx[m].long()
-        if k == SHAPE_TRI:
+        if k == SHAPE_ITRI:
+            if scan.inst is None:       # no instance to name: no hit
+                continue
+            tt, ok = scan.inst.named_hit(o[m], d[m], i)
+        elif k == SHAPE_TRI:
             tt, ok, _, _ = scan.tri_hit(o[m], d[m],
                                         scene["tri_v"][i].to(scan.dtype))
         elif k == SHAPE_SPH:
@@ -234,7 +255,7 @@ def run_checks(desc, traffic, seed, cap, films, device, control=None,
         # nothing of the timed path was captured: nothing could be judged
         return {k: (1.0 if isinstance(v, float) else 1)
                 for k, v in LIMITS.items()}
-    scan = Scan(scene, meta.n_tri, meta.n_sph, meta.n_quad)
+    scan = make_scan(scene, meta)
     ref = replay_bounces(scene, meta, cfg, g)
     items = [(o, p, off, w) for _, o, p, off, w in cap.items]
     if control == "bf16":
@@ -250,6 +271,7 @@ def run_checks(desc, traffic, seed, cap, films, device, control=None,
     res["ends_missing"] = int(abs(q_total - counts[1]))
     res["bounces_checked"] = int(g["in_alive"].sum())
     res["shadow_rays_checked"] = int((g["sh_tmax"] > 0).sum())
+    res["instanced_hits_checked"] = _instanced_checked(scan, g)
     if grad is not None:
         out, pix, off, _ = items[grad["item"]]
         recs = cap.drains[grad["item"]]
@@ -264,6 +286,19 @@ def run_checks(desc, traffic, seed, cap, films, device, control=None,
             loss_p, grads_p = grad["loss"], grad["grads"]
         res.update(grad_numbers(loss_p, grads_p, loss_r, grads_r))
     return res
+
+
+def _instanced_checked(scan, g):
+    """The closest-hit answers of kind SHAPE_ITRI judged, and the shadow
+    rays judged whose scan entered an instance's box."""
+    if scan.inst is None:
+        return 0
+    alive = g["in_alive"] & g["hit_valid"]
+    sh = g["sh_tmax"] > 0
+    tol = T_TOL * torch.clamp(g["sh_tmax"][sh], min=1.0)
+    return int((alive & (g["hit_kind"] == SHAPE_ITRI)).sum()) + int(
+        scan.inst.entered_any(g["sh_o"][sh], g["sh_d"][sh],
+                              g["sh_tmax"][sh] + tol).sum())
 
 
 def _bf16(x):
@@ -316,11 +351,11 @@ def _numbers(scene, cam, sampler, cfg, scan, g, ref, items, films, device,
 def _bf16_program(scene, meta, cfg, g, items, films):
     """The control: what a program computing in bfloat16 would hand over
     at the same lanes (traversal on tables and rays rounded to bfloat16,
-    the bounce, the camera and the splat on inputs rounded to it).
+    the bounce, the camera and the splat on inputs rounded to it; the
+    instanced scan too: object triangles, inverse maps and rays).
     Returns (g, items, films) for _numbers: the float32 replay stays the
     reference."""
-    lo = Scan(scene, meta.n_tri, meta.n_sph, meta.n_quad,
-              dtype=torch.bfloat16)
+    lo = make_scan(scene, meta, dtype=torch.bfloat16)
     g = dict(g)
     near = nearest_solid(scene, lo, g["ray_o"], g["ray_d"],
                          torch.full_like(g["hit_t"], BIG))

@@ -16,6 +16,23 @@ SHADOW_EPS = 1e-5
 BIG = 3.0e38
 
 
+def inv_dir(d):
+    """1 / d, a zero component taken as 1e-30."""
+    return 1.0 / torch.where(d.abs() < 1e-30, torch.full_like(d, 1e-30), d)
+
+
+def entered(lo, hi, o, inv, t_max):
+    """[R, B]: ray r (origin o, inverse direction inv) enters box b within
+    t_max, every test with a relative slack: a box test only skips what
+    the ray cannot hit."""
+    t0 = (lo[None] - o[:, None]) * inv[:, None]
+    t1 = (hi[None] - o[:, None]) * inv[:, None]
+    tn = torch.minimum(t0, t1).amax(-1)
+    tf = torch.maximum(t0, t1).amin(-1)
+    return (tn <= tf * (1 + 1e-5) + 1e-5) & (tf >= 0) \
+        & (tn <= t_max[:, None] * (1 + 1e-5) + 1e-5)
+
+
 def _morton(c, lo, hi):
     q = ((c - lo) / torch.clamp(hi - lo, min=1e-20) * 1023.0).clamp(0, 1023)
     q = q.to(torch.int64)
@@ -32,10 +49,13 @@ def _morton(c, lo, hi):
 class Scan:
     """tri_v [T,3,3]; sph_c [S,3], sph_r [S]; quads as the scene tables
     hold them (q, u, v and the plane's n / d / w).  n_tri, n_sph, n_quad
-    give the live rows (the tables are padded to one row)."""
+    give the live rows (the tables are padded to one row).  inst: the
+    scan of the run-time instances (iscan.InstScan), None without."""
 
-    def __init__(self, scene, n_tri, n_sph, n_quad, dtype=torch.float32):
+    def __init__(self, scene, n_tri, n_sph, n_quad, dtype=torch.float32,
+                 inst=None):
         self.dtype = dtype
+        self.inst = inst
         tv = scene["tri_v"][:n_tri].to(dtype)
         cen = tv.float().mean(1)
         lo, hi = cen.min(0).values, cen.max(0).values
@@ -111,19 +131,12 @@ class Scan:
         o, d = o.to(self.dtype), d.to(self.dtype)
         t_max = t_max.to(self.dtype)
         out = [[], [], [], [], []]
-        inv = 1.0 / torch.where(d.abs() < 1e-30, torch.full_like(d, 1e-30),
-                                d)
+        inv = inv_dir(d)
         for r0 in range(0, o.shape[0], rays_per_batch):
             ob, ib = o[r0:r0 + rays_per_batch].float(), \
                 inv[r0:r0 + rays_per_batch].float()
             tm = t_max[r0:r0 + rays_per_batch].float()
-            t0 = (self.box_lo[None] - ob[:, None]) * ib[:, None]
-            t1 = (self.box_hi[None] - ob[:, None]) * ib[:, None]
-            tn = torch.minimum(t0, t1).amax(-1)
-            tf = torch.maximum(t0, t1).amin(-1)
-            # boxes widened by a relative margin: never cut a real hit
-            hit = (tn <= tf * (1 + 1e-5) + 1e-5) & (tf >= 0) \
-                & (tn <= tm[:, None] * (1 + 1e-5) + 1e-5)
+            hit = entered(self.box_lo, self.box_hi, ob, ib, tm)
             ri, ci = torch.nonzero(hit, as_tuple=True)
             for p0 in range(0, ri.shape[0], pairs_per_batch):
                 rr = ri[p0:p0 + pairs_per_batch] + r0

@@ -308,6 +308,8 @@ def run_cell(cell_name, seed, seconds, trace=False, device="cuda",
                           bounces_checked=checks.get("bounces_checked"),
                           shadow_rays_checked=checks.get(
                               "shadow_rays_checked"),
+                          instanced_hits_checked=checks.get(
+                              "instanced_hits_checked"),
                           drains_kept=sorted(cap.drains),
                           stats={k: int(v) for k, v in stats.items()})
     if control is not None:

@@ -50,11 +50,15 @@ def _run(cell="faithful-fwd-d64", seed=2 ** 31 + 77, **kw):
                     traffic_over=MIX, **kw)
 
 
-@pytest.mark.parametrize("cell", ["faithful-fwd-d64", "legacy-fwd-d32"])
+@pytest.mark.parametrize("cell", ["faithful-fwd-d64", "legacy-fwd-d32",
+                                  "instanced-fwd-d32"])
 def test_sound_run_is_correct(cell):
     r = _run(cell)
     assert r["correct"], r["checks"]
     assert r["info"]["bounces_checked"] > 50
+    # the instanced cell's check judges answers on the instances
+    assert (r["info"]["instanced_hits_checked"] > 0) \
+        == (cell == "instanced-fwd-d32")
     assert list(r)[-1] == "checks"
     assert set(r["metrics"]) == {"fwd_samples_per_s", "setup_s"}
 
