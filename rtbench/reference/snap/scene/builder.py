@@ -543,20 +543,33 @@ class SceneBuilder:
             u = np.asarray(self._quad["u"])
             v = np.asarray(self._quad["v"])
             pts += [q, q + u, q + v, q + u + v]
-        for inst in self._inst:
-            ov = np.asarray(self._obj["v"][inst["base"]:
-                                           inst["base"] + inst["count"]])
-            if len(ov):
-                lo_o = ov.reshape(-1, 3).min(0)
-                hi_o = ov.reshape(-1, 3).max(0)
-                corners = np.array([[x, y, z] for x in (lo_o[0], hi_o[0])
-                                    for y in (lo_o[1], hi_o[1])
-                                    for z in (lo_o[2], hi_o[2])])
-                wc = corners @ inst["fwd"][:, :3].T + inst["fwd"][:, 3]
-                pts += [wc]
-                if _moves(inst["vel"]):        # union over the shutter
-                    sh = (self.camera or {}).get("shutter", (0.0, 0.0))
-                    pts += [wc + inst["vel"] * sh[0], wc + inst["vel"] * sh[1]]
+        live = [inst for inst in self._inst if inst["count"]]
+        if live:
+            # each model's object box once; then every instance's box
+            # corners through its transform in one batched product (slice
+            # by slice the product of one instance alone)
+            boxes = {}
+            for inst in live:
+                key = (inst["base"], inst["count"])
+                if key not in boxes:
+                    ov = np.asarray(self._obj["v"][key[0]:key[0] + key[1]])
+                    boxes[key] = (ov.reshape(-1, 3).min(0),
+                                  ov.reshape(-1, 3).max(0))
+            lo, hi = (np.stack([boxes[(i["base"], i["count"])][s]
+                                for i in live]) for s in (0, 1))
+            sel = np.array([[x, y, z] for x in (0, 1) for y in (0, 1)
+                            for z in (0, 1)], bool)
+            corners = np.where(sel[None], hi[:, None], lo[:, None])
+            fwd = np.stack([inst["fwd"] for inst in live])
+            wc = corners @ fwd[:, :, :3].transpose(0, 2, 1) \
+                + fwd[:, None, :, 3]
+            pts.append(wc.reshape(-1, 3))
+            moving = [k for k, inst in enumerate(live) if _moves(inst["vel"])]
+            if moving:                         # union over the shutter
+                sh = (self.camera or {}).get("shutter", (0.0, 0.0))
+                vel = np.stack([live[k]["vel"] for k in moving])[:, None]
+                pts += [(wc[moving] + vel * sh[0]).reshape(-1, 3),
+                        (wc[moving] + vel * sh[1]).reshape(-1, 3)]
         if not pts:
             return np.zeros(3), np.ones(3)
         allp = np.concatenate(pts, 0)
@@ -772,8 +785,10 @@ class SceneBuilder:
             light_type=pad([lt["type"] for lt in lights], (1,), np.int32, -1),
             light_color=pad([lt["color"] for lt in lights], (1, 3)),
             light_vec=pad([lt["vec"] for lt in lights], (1, 3)),
+            # an instanced triangle's id (instance x n_obj_tri + object
+            # triangle) passes 2^31 in a production-scale scene
             light_shape=pad([list(lt["shape"]) for lt in lights], (1, 2),
-                            np.int32, -1),
+                            np.int64, -1),
             light_flags=pad([1 if lt["one_sided"] else 0 for lt in lights],
                             (1,), np.int32),
             light_emtex=pad([lt["emtex"] for lt in lights], (1,), np.int32,

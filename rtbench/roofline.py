@@ -8,7 +8,7 @@ them.  After the window, `measure()` replays each through the same entry
 (CUDA events: a warm launch, then REPS launches) and counts, by a frozen
 copy of the plain two-level walk (accel/trace2.py::_plain_slots at the
 time the benchmark was defined), the work a front-to-back walk with
-perfect pruning needs on those rays and tables:
+perfect pruning needs on those rays and tables.  On plain tables:
 
   operations  20 per slab test: every coarse union of 8 L1 boxes (the
               tables' top-level front, pk_cbox / pk_cmem), the member L1
@@ -22,6 +22,32 @@ perfect pruning needs on those rays and tables:
               child boxes of every L1 some ray opens once (32 B), the
               triangle rows of every child block some ray opens once
               (48 B).
+
+Tables with run-time instances (pk_inst_fwd in them) are counted by the
+instances, whatever the layout of their top level: the count reads only
+INST_TABLES and never pk_cbox, pk_cmem, pk_l1box or pk_blk_lo / hi.  The
+top level is each world L1 (its box: the union of its data child boxes)
+and each instance (its box: its model's object box, the union of the
+model's L1s, through the instance's forward map).  A ray that enters an
+instance goes to object space by its inverse map, the direction left
+unnormalised so that t stays the world t, and meets the model's physical
+L1s and child blocks there:
+
+  operations  20 per slab test of each top-level box the ray enters
+              before its nearest hit; below each, as on plain tables: the
+              G child boxes of each physical L1 it enters before that hit
+              (an instance's model L1 boxes themselves are not charged)
+              and 45 for each of the K triangles of each child block it
+              enters before that hit;
+  bytes       each ray in and each result out once, the box and the 48-B
+              affine map of every instance some ray opens once (the 36-B
+              row of a world L1), the child boxes of every physical L1 and
+              the triangle rows of every child block some ray opens once.
+
+Any top level tests at least the boxes a ray enters before its hit, so
+the instanced count is a lower bound for a flat front and a hierarchy
+alike.  `best` is each ray's nearest hit over world and instanced
+triangles alike.
 
 The bound is the larger of operations / 67 TFLOP/s and bytes / 3.35 TB/s
 (the H100 SXM's fp32 and HBM peaks, at its 700 W limit); the share is the
@@ -38,6 +64,15 @@ SLAB_FLOPS = 20
 MT_FLOPS = 45
 RAY_IN, RAY_OUT = 28, 13
 UNION_ROW, L1_ROW, BOX_ROW, TRI_ROW = 64, 36, 32, 48
+XFORM_ROW = 48
+# what the instanced count reads (PERF.md, section 3): the per-instance
+# affine maps, the physical per-model tables and the instance -> physical
+# L1 map (pk_blk_inst / pk_blk_src: one row per pair, in any order and
+# repeated at will; instance -1 names a world L1)
+INST_TABLES = ("pk_inst_fwd", "pk_inst_inv", "pk_blk_inst", "pk_blk_src",
+               "pk_l1_base", "pk_l2box", "pk_tri")
+# child boxes at or beyond this are the tables' far-point padding
+FAR = 1e37
 EPS = 1e-5
 BIG = 3.0e38
 ITERS = 8
@@ -83,14 +118,17 @@ def _nearest(o, d, tri, t_max):
 def k1_work(tables, o, d, t_max, budget=1 << 24):
     """(flops, bytes) a pruned front-to-back two-level walk needs for the
     rays on the tables (pk_cbox, pk_cmem, pk_l1box, pk_l1_base, pk_l2box,
-    pk_tri)."""
+    pk_tri; with run-time instances INST_TABLES)."""
     w = walk(tables, o, d, t_max, budget)
     return w["flops"], w["bytes"]
 
 
 def walk(tables, o, d, t_max, budget=1 << 24):
     """The frozen plain walk: dict(flops, bytes, best), best the nearest
-    hit t of each live ray (t_max > 0)."""
+    hit t of each live ray (t_max > 0).  Tables with run-time instances
+    go to `walk_instanced`."""
+    if "pk_inst_fwd" in tables:
+        return walk_instanced(tables, o, d, t_max, budget)
     live = t_max > 0
     o, d, t_max = o[live], d[live], t_max[live]
     n = o.shape[0]
@@ -161,6 +199,173 @@ def walk(tables, o, d, t_max, budget=1 << 24):
     nbytes = (n * (RAY_IN + RAY_OUT) + nc * UNION_ROW + l1_rows * L1_ROW
               + torch.unique(l1_e[l1_open]).numel() * g * BOX_ROW
               + torch.unique(ch_c[leaf]).numel() * k2 * TRI_ROW)
+    return dict(flops=float(flops), bytes=float(nbytes), best=best)
+
+
+def _l1_boxes(l2box, base, g):
+    """Each physical L1's box [M1p, 8]: the union of its data child boxes
+    (the far-point padding left out)."""
+    ch = base[:, None] + torch.arange(g, device=base.device)
+    lo, hi = l2box[ch, 0:3], l2box[ch, 4:7]
+    data = (lo < FAR).all(-1, keepdim=True)
+    box = torch.zeros((base.shape[0], 8), dtype=l2box.dtype,
+                      device=l2box.device)
+    box[:, 0:3] = torch.where(data, lo, torch.inf).amin(1)
+    box[:, 4:7] = torch.where(data, hi, -torch.inf).amax(1)
+    return box
+
+
+def _world_boxes(box, fwd):
+    """The boxes [I, 8] through the affine maps fwd [I, 12] (row-major
+    [3, 4]): the box of the eight corners, in float64."""
+    lo, hi = box[:, 0:3].double(), box[:, 4:7].double()
+    bit = torch.arange(3, device=box.device)
+    sel = ((torch.arange(8, device=box.device)[:, None] >> bit) & 1).bool()
+    c = torch.where(sel[None], hi[:, None], lo[:, None])     # [I, 8, 3]
+    m = fwd.double().view(-1, 3, 4)
+    w = c @ m[:, :, :3].transpose(1, 2) + m[:, None, :, 3]
+    out = torch.zeros_like(box)
+    out[:, 0:3] = w.amin(1).to(box.dtype)
+    out[:, 4:7] = w.amax(1).to(box.dtype)
+    return out
+
+
+def _object_rays(inv, inst, o, d):
+    """Rays o, d [P, 3] in the object space of instances inst [P] by the
+    inverse maps inv [I, 12], the direction unnormalised (t stays the
+    world t); inst -1 leaves a ray in world space."""
+    m = inv[inst.clamp(min=0)].view(-1, 3, 4)
+    oo = (m[:, :, :3] @ o[:, :, None])[..., 0] + m[:, :, 3]
+    dd = (m[:, :, :3] @ d[:, :, None])[..., 0]
+    world = (inst < 0)[:, None]
+    return torch.where(world, o, oo), torch.where(world, d, dd)
+
+
+def walk_instanced(tables, o, d, t_max, budget=1 << 24):
+    """`walk` on tables with run-time instances, counted by the instances
+    (module docstring); reads only INST_TABLES."""
+    missing = [k for k in INST_TABLES if k not in tables]
+    if missing:
+        raise KeyError(f"roofline: instanced tables without {missing}: the "
+                       "count binds to INST_TABLES (PERF.md, section 3)")
+    live = t_max > 0
+    o, d, t_max = o[live], d[live], t_max[live]
+    n, dev = o.shape[0], o.device
+    l2box = tables["pk_l2box"]
+    base = tables["pk_l1_base"].long()
+    m2, m1p = l2box.shape[0], base.shape[0]
+    g = m2 // m1p
+    tri = tables["pk_tri"].view(m2, -1, 12)
+    k2 = tri.shape[1]
+    l2lo, l2hi = _padded(l2box)
+    l1box = _l1_boxes(l2box, base, g)
+    l1lo, l1hi = _padded(l1box)
+    # the instance -> physical L1 map as a set, sorted by instance: the
+    # world's L1s (instance -1) first
+    key = torch.unique((tables["pk_blk_inst"].long() + 1) * m1p
+                       + tables["pk_blk_src"].long())
+    rel_inst, rel_src = key // m1p - 1, key % m1p
+    world = rel_inst < 0
+    nw = int(world.sum())
+    insts, per_inst = torch.unique_consecutive(rel_inst[~world],
+                                               return_counts=True)
+    # the top level: each world L1 (one L1 below it), then each instance
+    # (its model's L1s below it); top_first indexes rel_src
+    top_inst = torch.cat([rel_inst[world], insts])
+    top_cnt = torch.cat([torch.ones(nw, dtype=torch.int64, device=dev),
+                         per_inst])
+    top_first = torch.cumsum(top_cnt, 0) - top_cnt
+    seg = torch.repeat_interleave(
+        torch.arange(insts.shape[0], device=dev), per_inst)[:, None]
+    obj = torch.zeros((insts.shape[0], 8), dtype=l1box.dtype, device=dev)
+    src = rel_src[~world]
+    obj[:, 0:3] = torch.full_like(obj[:, 0:3], torch.inf).scatter_reduce(
+        0, seg.expand(-1, 3), l1box[src, 0:3], "amin")
+    obj[:, 4:7] = torch.full_like(obj[:, 4:7], -torch.inf).scatter_reduce(
+        0, seg.expand(-1, 3), l1box[src, 4:7], "amax")
+    tlo, thi = _padded(torch.cat([l1box[rel_src[world]], _world_boxes(
+        obj, tables["pk_inst_fwd"][insts])]))
+    inv = tables["pk_inst_inv"]
+    cg = torch.arange(g, device=dev)
+    # (ray, top) pairs entered, with the ray in the top's space; (pair,
+    # physical L1) pairs entered; (pair, child block) pairs entered
+    t_r, t_j, t_t, t_o, t_d, l_top, l_p, l_t, c_l1, c_c, c_t = (
+        [] for _ in range(11))
+    n_top = n_l1 = 0
+    chunk = max(1, budget // tlo.shape[0])
+    for r0 in range(0, max(n, 1), chunk):
+        ob, db, tm = o[r0:r0 + chunk], d[r0:r0 + chunk], t_max[r0:r0 + chunk]
+        e0 = _entry(tlo[None], thi[None], ob[:, None], db[:, None],
+                    tm[:, None])
+        r, j = torch.nonzero(e0 < BIG, as_tuple=True)
+        oo, dd = _object_rays(inv, top_inst[j], ob[r], db[r])
+        cnt = top_cnt[j]
+        q = torch.repeat_interleave(torch.arange(r.numel(), device=dev), cnt)
+        off = torch.arange(q.numel(), device=dev) \
+            - (torch.cumsum(cnt, 0) - cnt)[q]
+        p = rel_src[top_first[j][q] + off]
+        e1 = _entry(l1lo[p], l1hi[p], oo[q], dd[q], tm[r][q])
+        s = torch.nonzero(e1 < BIG)[:, 0]
+        q, p, e1 = q[s], p[s], e1[s]
+        ch = base[p][:, None] + cg[None]
+        e2 = _entry(l2lo[ch], l2hi[ch], oo[q][:, None], dd[q][:, None],
+                    tm[r][q][:, None])
+        a, k = torch.nonzero(e2 < BIG, as_tuple=True)
+        t_r.append(r + r0)
+        t_j.append(j)
+        t_t.append(e0[r, j])
+        t_o.append(oo)
+        t_d.append(dd)
+        l_top.append(q + n_top)
+        l_p.append(p)
+        l_t.append(e1)
+        c_l1.append(a + n_l1)
+        c_c.append(ch[a, k])
+        c_t.append(e2[a, k])
+        n_top += r.numel()
+        n_l1 += q.numel()
+    t_r, t_j, t_t, t_o, t_d, l_top, l_p, l_t, c_l1, c_c, c_t = (
+        torch.cat(x) for x in (t_r, t_j, t_t, t_o, t_d, l_top, l_p, l_t,
+                               c_l1, c_c, c_t))
+    r_l1 = t_r[l_top]
+    r_ch = r_l1[c_l1]
+    # the nearest hits: each ray's child blocks in order of entry, in
+    # rounds of doubling length; a block entered beyond the ray's nearest
+    # hit so far cannot hold a nearer one
+    best = torch.full((n,), BIG, device=dev)
+    order = torch.argsort(c_t, stable=True)
+    order = order[torch.argsort(r_ch[order], stable=True)]
+    by_ray = r_ch[order]
+    rank = torch.arange(order.numel(), device=dev) \
+        - torch.searchsorted(by_ray, by_ray)
+    last = int(rank.max()) if rank.numel() else -1
+    step = max(1, budget // (16 * k2))
+    lo = 0
+    while lo <= last:
+        idx = order[(rank >= lo) & (rank < 2 * lo + 1)]
+        idx = idx[c_t[idx] <= best[r_ch[idx]]]
+        for s0 in range(0, idx.numel(), step):
+            i = idx[s0:s0 + step]
+            r, tp = r_ch[i], l_top[c_l1[i]]
+            best.scatter_reduce_(0, r, _nearest(t_o[tp], t_d[tp],
+                                                tri[c_c[i]], t_max[r]),
+                                 reduce="amin")
+        lo = 2 * lo + 1
+    # what a front-to-back walk opens: a top-level box entered before the
+    # nearest hit, a physical L1 below it entered before it (its G child
+    # boxes are tested) and a child block of that L1 entered before it
+    # (its K triangles are tested)
+    top_open = t_t <= best[t_r]
+    l1_open = (l_t <= best[r_l1]) & top_open[l_top]
+    leaf = (c_t <= best[r_ch]) & l1_open[c_l1]
+    flops = ((int(top_open.sum()) + int(l1_open.sum()) * g) * SLAB_FLOPS
+             + int(leaf.sum()) * k2 * MT_FLOPS)
+    tops = torch.unique(t_j[top_open])
+    n_world = int((tops < nw).sum())
+    nbytes = (n * (RAY_IN + RAY_OUT) + n_world * L1_ROW
+              + (tops.numel() - n_world) * (BOX_ROW + XFORM_ROW)
+              + torch.unique(l_p[l1_open]).numel() * g * BOX_ROW
+              + torch.unique(c_c[leaf]).numel() * k2 * TRI_ROW)
     return dict(flops=float(flops), bytes=float(nbytes), best=best)
 
 

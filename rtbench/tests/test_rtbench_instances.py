@@ -1,19 +1,28 @@
 """CPU tests of the reference's scan of run-time instances
 (rtbench/reference/iscan.py), of the instanced scene and of the check on
-the instanced cell."""
+the instanced cell; of the frozen builder's batched scene bounds, and of
+instanced hit ids past 32 bits through the capture and the check."""
 from __future__ import annotations
 
+import math
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from rtbench.scenedesc import load_generator, replay
+from rtbench import registry
+from rtbench.capture import Capture
+from rtbench.scenedesc import Recorder, load_generator, replay
 from rtbench.run import run_cell
-from rtbench.reference.check import make_scan, nearest_solid, T_TOL, _solid
+from rtbench.reference.check import (make_scan, nearest_solid, T_TOL, _solid,
+                                     closest_bad, prim_distance)
 from rtbench.reference.iscan import InstScan
 from rtbench.reference.scan import Scan, BIG
-from rtbench.reference.snap.scene.builder import SceneBuilder as RefBuilder
+from rtbench.reference.snap.scene.builder import (SceneBuilder as RefBuilder,
+                                                   _moves)
+from rtbench.reference.snap.scene.intersect import _instance_triangles
+from rtbench.reference.snap.scene.types import SHAPE_ITRI
 
 ROOT = Path(__file__).resolve().parents[2]
 SMALL = dict(resolution=(64, 36), n_tris=20000, foliage=40)
@@ -215,3 +224,191 @@ def test_broken_instanced_answers_are_incorrect(monkeypatch, fault):
     r = _run(params=DENSE)
     assert not r["correct"], r["checks"]
     assert r["checks"]["closest_bad_share"]["value"] > 0.2
+
+
+def _moving_models():
+    """Three models of a few triangles, 60 instances turned, scaled
+    unevenly and moved, a third of them moving over the shutter."""
+    rng = np.random.default_rng(4)
+    desc = Recorder()
+    mat = desc.add_diffuse()
+    desc.add_mesh(rng.random((30, 3)) * 5, np.arange(30).reshape(-1, 3),
+                  material=mat)
+    models = [desc.add_model(rng.normal(size=(3 * n, 3)),
+                             np.arange(3 * n).reshape(-1, 3), material=mat)
+              for n in (7, 40, 3)]
+    for k in range(60):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        tf = np.eye(4)
+        tf[:3, :3] = q * rng.uniform(0.3, 3.0, 3)
+        tf[:3, 3] = rng.normal(size=3) * 50
+        desc.add_model_instance(models[k % 3], transform=tf, runtime=True,
+                                velocity=rng.normal(size=3) if k % 3 == 1
+                                else (0.0, 0.0, 0.0))
+    desc.set_camera((0, 0, -10), (0, 0, 0), 0.8, (32, 18),
+                    shutter=(0.0, 1.0))
+    return desc
+
+
+def bounds_one_by_one(b):
+    """The frozen builder's scene bounds as it took them before they were
+    batched, the oracle of the batched ones: every instance's model
+    triangles read again, its box's corners through its transform one
+    instance at a time."""
+    pts = []
+    if b._tri["v"]:
+        pts.append(np.asarray(b._tri["v"]).reshape(-1, 3))
+    if b._sph["r"]:
+        c = np.asarray(b._sph["c"])
+        r = np.asarray(b._sph["r"])[:, None]
+        pts += [c - r, c + r]
+    if b._quad["q"]:
+        q = np.asarray(b._quad["q"])
+        u = np.asarray(b._quad["u"])
+        v = np.asarray(b._quad["v"])
+        pts += [q, q + u, q + v, q + u + v]
+    for inst in b._inst:
+        ov = np.asarray(b._obj["v"][inst["base"]:
+                                    inst["base"] + inst["count"]])
+        if len(ov):
+            lo_o = ov.reshape(-1, 3).min(0)
+            hi_o = ov.reshape(-1, 3).max(0)
+            corners = np.array([[x, y, z] for x in (lo_o[0], hi_o[0])
+                                for y in (lo_o[1], hi_o[1])
+                                for z in (lo_o[2], hi_o[2])])
+            wc = corners @ inst["fwd"][:, :3].T + inst["fwd"][:, 3]
+            pts += [wc]
+            if _moves(inst["vel"]):        # union over the shutter
+                sh = (b.camera or {}).get("shutter", (0.0, 0.0))
+                pts += [wc + inst["vel"] * sh[0], wc + inst["vel"] * sh[1]]
+    if not pts:
+        return np.zeros(3), np.ones(3)
+    allp = np.concatenate(pts, 0)
+    return allp.min(0), allp.max(0)
+
+
+@pytest.mark.parametrize("config", ["sanmiguel-faithful", "sanmiguel-legacy",
+                                    "sanmiguel-instanced", "moving-models"])
+def test_scene_bounds_are_the_one_by_one_bounds(config):
+    """The frozen builder takes each model's box once and pushes every
+    instance's box corners through its transform in one batched product:
+    the bounds are bit for bit those of one instance at a time, on the
+    configurations' descriptions (their terrain cut to 20,000 triangles;
+    their shrubs all there) and on moving, unevenly scaled instances of
+    three models."""
+    if config == "moving-models":
+        desc = _moving_models()
+    else:
+        conf = registry.config(config)
+        desc = load_generator(ROOT, conf["generator"])(
+            **dict(conf["params"], resolution=(64, 36), n_tris=20000))
+    b = replay(desc, RefBuilder())
+    b._maybe_flatten_instances()
+    n_inst = {"sanmiguel-instanced": 2500, "moving-models": 60}
+    assert len(b._inst) == n_inst.get(config, 0)
+    lo, hi = b._scene_bounds()
+    lo0, hi0 = bounds_one_by_one(b)
+    assert lo.dtype == lo0.dtype and hi.dtype == hi0.dtype
+    assert np.array_equal(lo, lo0) and np.array_equal(hi, hi0)
+
+
+def _wide_ids():
+    """A scene whose instanced hit ids pass 2^31: a 65,520-triangle model
+    instanced once far off, a 16-triangle patch instanced 33,000 times (the
+    last 10 on the rays' path, the rest far off) and a one-triangle
+    emitter instanced last: 33,002 instances x 65,537 object triangles,
+    over one world triangle off the path."""
+    desc = Recorder()
+    mat = desc.add_diffuse()
+    desc.add_mesh(np.array([[0, -50, 0], [1, -50, 0], [0, -50, 1.0]]),
+                  np.array([[0, 1, 2]]), material=mat)
+    rng = np.random.default_rng(6)
+    big = desc.add_model(rng.random((3 * 65520, 3)) * 0.01,
+                         np.arange(3 * 65520).reshape(-1, 3), material=mat)
+    g = np.linspace(-0.5, 0.5, 3)
+    quads = [((g[i], g[j]), (g[i + 1], g[j + 1])) for i in range(2)
+             for j in range(2)]
+    verts = []
+    for (x0, y0), (x1, y1) in quads:       # 4 quads of 4 triangles each
+        xm, ym = (x0 + x1) / 2, (y0 + y1) / 2
+        c = [(x0, y0), (x1, y0), (x1, y1), (x0, y1)]
+        for a in range(4):
+            verts += [c[a], c[(a + 1) % 4], (xm, ym)]
+    patch = np.array([(x, y, 0.0) for x, y in verts])
+    small = desc.add_model(patch, np.arange(48).reshape(-1, 3), material=mat)
+    lamp = desc.add_model(np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0.0]]),
+                          np.array([[0, 1, 2]]), emission=(40.0, 40.0, 40.0))
+
+    def at(x, y, z):
+        tf = np.eye(4)
+        tf[:3, 3] = (x, y, z)
+        return tf
+    desc.add_model_instance(big, transform=at(1e3, 1e3, 1e3), runtime=True)
+    for k in range(33000):
+        on_path = k >= 32990
+        desc.add_model_instance(
+            small, transform=at(3.0 * (k - 32990), 0, 5 + k % 3) if on_path
+            else at(-500.0 - 2 * (k % 200), 300.0 + 2 * (k // 200), 0),
+            runtime=True)
+    desc.add_model_instance(lamp, transform=at(0, 40, 0), runtime=True)
+    desc.set_camera((0, 0, -10), (0, 0, 0), 0.8, (32, 18))
+    return desc
+
+
+def test_instanced_ids_past_32_bits_are_judged():
+    """An instanced answer whose id (instance x n_obj_tri + object
+    triangle) passes 2^31: the capture keeps it whole, the check judges it
+    good when it names the hit and bad when it names a neighbouring
+    triangle or instance; the frozen bounce decodes it; the emitter's
+    light names its id."""
+    scene, _, meta = replay(_wide_ids(), RefBuilder()).build(accel="brute",
+                                                             device="cpu")
+    assert meta.n_inst == 33002 and meta.n_obj_tri == 65537
+    assert meta.n_inst * meta.n_obj_tri > 2 ** 31 - 1
+    lamp = scene["light_shape"][scene["light_shape"][:, 0] == SHAPE_ITRI]
+    assert lamp.tolist() == [[SHAPE_ITRI, 33001 * 65537 + 65536]]
+    scan = make_scan(scene, meta)
+    gen = torch.Generator().manual_seed(3)
+    n = 64
+    target = torch.randint(32990, 33000, (n,), generator=gen)
+    o = torch.stack([3.0 * (target - 32990).float(), torch.zeros(n),
+                     torch.full((n,), -1.0)], 1) \
+        + torch.cat([(torch.rand((n, 2), generator=gen) - 0.5) * 0.6,
+                     torch.zeros((n, 1))], 1)
+    d = torch.nn.functional.normalize(
+        torch.tensor([0.0, 0.0, 1.0]) + 0.005 * torch.randn((n, 3),
+                                                            generator=gen),
+        dim=-1)
+    ray, inst, otri, t, _, _ = scan.inst.hits(o, d, torch.full((n,), BIG))
+    near = torch.full((n,), BIG).scatter_reduce(0, ray, t, reduce="amin")
+    first = t == near[ray]
+    assert torch.equal(torch.sort(ray[first]).values, torch.arange(n))
+    order = torch.argsort(ray[first])
+    hit_t = t[first][order]
+    idx = (inst * meta.n_obj_tri + otri)[first][order]
+    assert idx.dtype == torch.int64 and bool((idx > 2 ** 31).all())
+    # what the program hands the capture, and what the check reads of it
+    cap = Capture(torch.arange(n), 4)
+
+    def intersect(scene_, meta_, origin, direction, t_max, time=None):
+        return dict(t=hit_t, kind=torch.full((n,), SHAPE_ITRI), idx=idx,
+                    valid=torch.ones(n, dtype=torch.bool))
+    cap._cur = {}
+    cap._wrap_intersect(intersect)(scene, meta, o, d, BIG)
+    cap.records.append(dict(item=0, **cap._cur))
+    g = cap.gathered()
+    assert g["hit_idx"].dtype == torch.int64
+    assert torch.equal(g["hit_idx"], idx)
+
+    def bad(ids):
+        return closest_bad(scene, scan, g["ray_o"], g["ray_d"], g["hit_t"],
+                           g["hit_kind"], ids, g["hit_valid"])
+    assert not bool(bad(g["hit_idx"]).any())
+    assert bool(bad(g["hit_idx"] + 1).all())
+    assert bool(bad(g["hit_idx"] + meta.n_obj_tri).all())
+    t_named = prim_distance(scan, scene, o, d, g["hit_kind"], g["hit_idx"])
+    assert torch.equal(t_named, hit_t)
+    # the frozen bounce finds the same instance and object triangle
+    _, iid, oid = _instance_triangles(scene, meta, idx)
+    assert torch.equal(iid, idx // 65537) and torch.equal(oid, idx % 65537)
+    assert bool((iid >= 32990).all()) and bool((oid >= 65520).all())
