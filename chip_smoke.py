@@ -5,10 +5,11 @@
 
 Phases (any failure exits non-zero; the last stdout line is the JSON
 device summary only when every phase passed):
-  1. build the four CUDA sources (csrc/trace2.cu, the two-level traversal
+  1. build the five CUDA sources (csrc/trace2.cu, the two-level traversal
      K1, csrc/trace1.cu, the single-level traversal K2, csrc/leaf.cu,
-     the leaf micro-benchmark K4, and csrc/sampler.cu, the sampler), one
-     nvcc each, started together; print
+     the leaf micro-benchmark K4, csrc/sampler.cu, the sampler, and
+     csrc/sortkey.cu, the dispatch sort key), one nvcc each, started
+     together; print
      each instance's registers, stack frame and spills, and K1's (group
      and window kernels) and K2's blocks per SM
      (cudaOccupancyMaxActiveBlocksPerMultiprocessor) unstaged;
@@ -20,6 +21,12 @@ device summary only when every phase passed):
      the kernel and through the plain sampler: flushed radiance
      bit-identical, the item's launches and host syncs printed
      (_sampler_item);
+  1c. [sort_key] (after phase 5's frame) csrc/sortkey.cu, the dispatch
+     sort key as one launch, on the faithful tables and the rays of the
+     first key calls of one work item's drain: one launch a call, no
+     synchronising call, equal to the plain key on the CPU bit for bit;
+     its device time at 65,280 rays against its operations bound and the
+     plain key's time (chip_smoke._sort_key_phase);
   2. hold every kernel mode against its plain PyTorch version on the card,
      no flip allowed:
      a. K1 and K2 closest hit and any-hit on a 200K-triangle soup (K2: cut
@@ -592,7 +599,8 @@ def _launch_counts():
     """{"trace2[mode]" / "trace1[mode]": launches} of both traversal
     kernels, by mode (the modes partition the launches), and {"sampler":
     launches} of the sampler kernel (core/rng.py's profile counter
-    "rng.launches", all four of its functions)."""
+    "rng.launches", all four of its functions) and {"sortkey": launches}
+    of the sort key's (scene/intersect.py's "sort_key.launches")."""
     from pathtracing_tpu_torch.accel import trace1, trace2
     from pathtracing_tpu_torch.utils import profile
     out = {f"trace2[{k}]": v
@@ -600,12 +608,14 @@ def _launch_counts():
     out.update({f"trace1[{k}]": v
                 for k, v in trace1.tri_intersect1.launches_by_mode.items()})
     out["sampler"] = profile.counters().get("rng.launches", 0)
+    out["sortkey"] = profile.counters().get("sort_key.launches", 0)
     return out
 
 
 def _traversal(counts):
     """The traversal kernels' entries of a _launch_counts() dict."""
-    return {k: v for k, v in counts.items() if k != "sampler"}
+    return {k: v for k, v in counts.items()
+            if k not in ("sampler", "sortkey")}
 
 
 def _schedule_counts():
@@ -624,11 +634,13 @@ def _schedule_counts():
 def _reset_counts():
     from pathtracing_tpu_torch.accel import trace1, trace2
     from pathtracing_tpu_torch.core import rng
+    from pathtracing_tpu_torch.scene import intersect
     from pathtracing_tpu_torch.tools import bench_leaf
     trace1.reset_launches()
     trace2.reset_launches()
     bench_leaf.reset_launches()
     rng.reset_launches()
+    intersect.reset_sort_key_launches()
 
 
 def _card_vs_cpu(render_image, scene, cam, meta, cfg, label, min_frac=0.99,
@@ -1133,6 +1145,154 @@ def _sampler_phase(dev):
           f"{row['issue_ms_spread']:.1%}), plain {row['plain_ms']:.3f} ms, "
           f"bytes bound {bound_ms * 1e3:.3f} us "
           f"({row['roofline_share']:.1%})", flush=True)
+    return row
+
+
+SORT_KEY_CALLS = 6          # [sort_key]: the drain's first key calls kept
+
+
+class _EnoughCalls(Exception):
+    pass
+
+
+def _sort_key_phase(scene, cam, meta, cfg):
+    """[sort_key] csrc/sortkey.cu on the faithful tables and a real drain's
+    rays: one work item (every SAMPLER_ROW_STEP-th row, SAMPLER_LANES
+    lanes) is drained until its first SORT_KEY_CALLS calls of
+    _first_block_key (closest dispatches and shadow predicates) have been
+    kept, then stopped.  On each call's rays the kernel, through
+    _first_block_key, must be one launch (the counter "sort_key.launches")
+    under torch.cuda.set_sync_debug_mode("error") and equal the plain key
+    run on the CPU bit for bit; lanes where it differs from the plain key
+    run on the card are printed.  Then the whole item is drained through
+    the kernel and through the plain key on the card: flushed radiance and
+    stats identical, launches printed.  Then the kernel's time at
+    SAMPLER_LANES rays (the profiler's device time, median of 100
+    launches, at least 90 of them seen, and the median of ROUNDS
+    interleaved rounds beside the plain key's) against its operations
+    bound.  Returns the kernel's row of the summary's kernel table."""
+    import torch
+    import torch.profiler
+    from unittest import mock
+    from pathtracing_tpu_torch.integrators import path
+    from pathtracing_tpu_torch.scene import intersect
+    from pathtracing_tpu_torch.tools.roofline import FP32_PEAK, SLAB_FLOPS
+    from pathtracing_tpu_torch.utils import profile
+    w, h = cam["resolution"]
+    dev = scene["mat_base"].device
+    rows = torch.arange(0, h, SAMPLER_ROW_STEP, device=dev)
+    pix = (rows[:, None] * w + torch.arange(w, device=dev)).reshape(-1)
+    kept = []
+    key = intersect._first_block_key
+
+    def keep(sc, o, d):
+        kept.append((o.clone(), d.clone()))
+        if len(kept) == SORT_KEY_CALLS:
+            raise _EnoughCalls
+        return key(sc, o, d)
+
+    try:
+        with mock.patch.object(intersect, "_first_block_key", keep):
+            path._trace_regen(scene, cam, meta, cfg, pix, 1, 0,
+                              lanes=SAMPLER_LANES)
+    except _EnoughCalls:
+        pass
+    torch.cuda.synchronize()
+    if len(kept) != SORT_KEY_CALLS:
+        raise RuntimeError(f"[sort_key] the drain made {len(kept)} key calls")
+    lo, hi = scene["pk_blk_lo"], scene["pk_blk_hi"]
+    tabs = dict(pk_blk_lo=lo, pk_blk_hi=hi)
+    cpu = {k: v.cpu() for k, v in tabs.items()}
+    m = lo.shape[0]
+    for c, (o, d) in enumerate(kept):
+        launches = profile.counters().get("sort_key.launches", 0)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = intersect._first_block_key(tabs, o, d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if profile.counters().get("sort_key.launches", 0) != launches + 1:
+            raise RuntimeError(f"[sort_key] call {c}: not one launch")
+        ref = intersect._first_block_key_plain(cpu, o.cpu(), d.cpu())
+        if not torch.equal(got.cpu(), ref):
+            raise RuntimeError(f"[sort_key] call {c}: the kernel differs from "
+                               f"the plain key on the CPU in "
+                               f"{int((got.cpu() != ref).sum())} lanes")
+        on_card = int((got != intersect._first_block_key_plain(
+            tabs, o, d)).sum())
+        print(f"[sort_key] call {c}: {o.shape[0]} rays, {m} L1 boxes: the "
+              f"kernel equals the plain key on the CPU bit for bit (one "
+              f"launch, no synchronising call); the plain key on the card "
+              f"differs in {on_card} lanes; live lanes "
+              f"{int((got != 0x7FFFFFFE).sum())}", flush=True)
+    # the whole item through the kernel and through the plain key on the
+    # card (the key before csrc/sortkey.cu): the same permutations, so the
+    # same counts and the same flushed radiance, bit for bit
+    res = {}
+    for side, fn in (("kernel", key),
+                     ("plain", intersect._first_block_key_plain)):
+        with mock.patch.object(intersect, "_first_block_key", fn):
+            torch.cuda.synchronize()
+            c0 = profile.counters()
+            t0 = time.perf_counter()
+            out, st = path._trace_regen(scene, cam, meta, cfg, pix, 1, 0,
+                                        lanes=SAMPLER_LANES, with_stats=True)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            c1 = profile.counters()
+        st = {k: int(v) for k, v in st.items()}
+        st["host_syncs"] = c1.get("host_syncs", 0) - c0.get("host_syncs", 0)
+        res[side] = (out, st, c1.get("sort_key.launches", 0)
+                     - c0.get("sort_key.launches", 0), sec)
+        print(f"[sort_key] item ({len(rows)} rows x {w} px, {SAMPLER_LANES} "
+              f"lanes) through the {side} key: {sec:.2f}s, "
+              f"{res[side][2]} kernel launches, stats {st}", flush=True)
+    (ko, kst, kl, _), (po, pst, pl, _) = res["kernel"], res["plain"]
+    if not torch.equal(ko.view(torch.int32), po.view(torch.int32)) \
+            or kst != pst or pl != 0 or kl <= 0:
+        raise RuntimeError(f"[sort_key] the item differs between the kernel "
+                           f"and the plain key, or the kernel did not run: "
+                           f"{kst} / {pst}, {kl} / {pl} launches")
+    print(f"[sort_key] the item's flushed radiance and stats are identical "
+          f"through the kernel and the plain key; {kl} launches, "
+          f"{kl / kst['iterations']:.2f} an iteration", flush=True)
+    o, d = next((o, d) for o, d in kept if o.shape[0] == SAMPLER_LANES)
+    n = o.shape[0]
+    t = _time_rounds({
+        "kernel": lambda: intersect._first_block_key(tabs, o, d),
+        "plain": lambda: intersect._first_block_key_plain(tabs, o, d)})
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            intersect._first_block_key(tabs, o, d)
+        torch.cuda.synchronize()
+    dev_us = sorted(e.duration_ns() / 1e3
+                    for e in prof.profiler.kineto_results.events()
+                    if "sortkey_kernel" in e.name())
+    # the profiler may drop a launch at the start of its trace
+    if len(dev_us) < 90:
+        raise RuntimeError(f"[sort_key] the profiler saw {len(dev_us)} of "
+                           f"100 kernel launches")
+    ms = dev_us[len(dev_us) // 2] / 1e3
+    mp = -(-m // 512) * 512
+    bound_ms = n * mp * SLAB_FLOPS / FP32_PEAK * 1e3
+    row = dict(timed=f"faithful tables ({m} L1 boxes, {mp} padded), "
+               f"{n} rays of a drain", lanes=n, ms=ms,
+               ms_p10_p90=(dev_us[len(dev_us) // 10] / 1e3,
+                           dev_us[len(dev_us) * 9 // 10] / 1e3),
+               issue_ms=t["kernel"][0], issue_ms_spread=t["kernel"][1],
+               plain_ms=t["plain"][0], plain_ms_spread=t["plain"][1],
+               bound_ms=bound_ms, bound_by="operations",
+               roofline_share=bound_ms / ms, library_ms=None,
+               library="none: no single PyTorch call finds each ray's first "
+               "two entered boxes")
+    p10, p90 = row["ms_p10_p90"]
+    print(f"[sort_key] {n} rays x {mp} boxes: kernel {ms:.4f} ms on the "
+          f"device (median of the {len(dev_us)} launches the profiler saw of "
+          f"100; 10-90%: {p10:.4f}-{p90:.4f} ms), {t['kernel'][0]:.4f} ms a "
+          f"call back to back (spread {t['kernel'][1]:.1%}); plain "
+          f"{t['plain'][0]:.3f} ms (spread {t['plain'][1]:.1%}); operations "
+          f"bound {bound_ms:.4f} ms ({row['roofline_share']:.1%})", flush=True)
     return row
 
 
@@ -2510,6 +2670,7 @@ def main() -> int:
     from pathtracing_tpu_torch.native.loader import native_available
     from pathtracing_tpu_torch.scene.intersect import _subset_scene
     from pathtracing_tpu_torch.scene.intersect import _multipass_visits
+    from pathtracing_tpu_torch.scene.intersect import build_sort_key
     from pathtracing_tpu_torch.scenes import (cornell_box, sanmiguel_analog,
                                               spheres_medium, textured_quad)
     from pathtracing_tpu_torch.tools import bench_leaf
@@ -2537,19 +2698,21 @@ def main() -> int:
     # ---- 1. build (one nvcc per source, started together; K4 also in
     # the scalar modes' other lane counts, for its lanes A/B)
     t0 = time.perf_counter()
-    cubuild.build_all(("trace2", "trace1", "leaf", "sampler") + tuple(
-        ("leaf", bench_leaf.build_defines(lanes=w)) for w in bench_leaf.LANES
-        if w != bench_leaf.DEFAULT_LANES))
+    cubuild.build_all(("trace2", "trace1", "leaf", "sampler", "sortkey")
+                      + tuple(("leaf", bench_leaf.build_defines(lanes=w))
+                              for w in bench_leaf.LANES
+                              if w != bench_leaf.DEFAULT_LANES))
     trace2.build_kernel()
     trace1.build_kernel()
     bench_leaf.build_kernel()
     rng.build_kernel()
-    print(f"[build] trace2.cu + trace1.cu + leaf.cu + sampler.cu built+loaded "
-          f"in "
+    build_sort_key()
+    print(f"[build] trace2.cu + trace1.cu + leaf.cu + sampler.cu + sortkey.cu "
+          f"built+loaded in "
           f"{time.perf_counter() - t0:.2f}s ("
           f"{ {k: v for k, v in profile.counters().items() if k.startswith('kernels.')} })",
           flush=True)
-    for stem in ("trace2", "trace1", "leaf", "sampler"):
+    for stem in ("trace2", "trace1", "leaf", "sampler", "sortkey"):
         for name, line in cubuild.kernel_resources(stem):
             print(f"[build] {stem} {name}: {line}", flush=True)
     for mode in trace2.MODES:
@@ -2853,6 +3016,7 @@ def main() -> int:
                                               "amask2")],
           "the faithful render")
     _sampler_item(scene, cam, meta, cfg)
+    kern["sortkey"] = _sort_key_phase(scene, cam, meta, cfg)
     if args.sections or args.profile:
         _trace_item(scene, cam, meta, cfg, args.sections, args.profile)
 
@@ -3029,7 +3193,8 @@ def main() -> int:
     replaces = {"trace2": "pathtracing_tpu/accel/pallas_trace2.py:438",
                 "trace1": "pathtracing_tpu/accel/pallas_trace.py:289",
                 "leaf": "tools/bench_mxu_leaf.py:63",
-                "sampler": "pathtracing_tpu/core/rng.py:44"}
+                "sampler": "pathtracing_tpu/core/rng.py:44",
+                "sortkey": "pathtracing_tpu/scene/intersect.py:216"}
     # rows of a schedule no entry point runs on those tables
     no_entry = {"trace2[pair]": (
         "none: no entry point passes pair=True (the reference package's "

@@ -125,7 +125,8 @@ def load(stem: str, defines=None):
         return _libs[name]
 
 
-def build_all(builds=("trace2", "trace1", "leaf", "sampler")) -> float:
+def build_all(builds=("trace2", "trace1", "leaf", "sampler", "sortkey")
+              ) -> float:
     """Build (if needed) and load every source, one nvcc each, all started
     together.  A build is a stem or a (stem, defines) pair.  Returns the
     seconds spent."""

@@ -67,10 +67,12 @@ def render_tile_regen(scene, cam, meta, cfg: RenderConfig, film, pixel_idx,
     whose closest hit lies nearer than 1e-4: both only while spans record,
     utils/profile.py), "host_syncs" (the item's waits for the device:
     blocking reads of device values and copies of host data to the
-    device, utils/profile.py::count) and "rng_launches" (the item's
-    launches of the sampler kernel, csrc/sampler.cu: 0 on the CPU); with
-    cfg.differentiable, "n_rays", "iterations", "residual_bytes"
-    (trace_regen_diff), "host_syncs" and "rng_launches".
+    device, utils/profile.py::count), "rng_launches" (the item's
+    launches of the sampler kernel, csrc/sampler.cu: 0 on the CPU) and
+    "sort_key_launches" (its launches of the dispatch sort key's kernel,
+    csrc/sortkey.cu: 0 on the CPU); with cfg.differentiable, "n_rays",
+    "iterations", "residual_bytes" (trace_regen_diff), "host_syncs",
+    "rng_launches" and "sort_key_launches".
     The item runs in the span "wavefront.item", its splat in
     "film.splat"."""
     w, h = cam["resolution"]
@@ -80,6 +82,7 @@ def render_tile_regen(scene, cam, meta, cfg: RenderConfig, film, pixel_idx,
         c0 = profile.counters()
         syncs = c0.get("host_syncs", 0)
         launches = c0.get("rng.launches", 0)
+        key_launches = c0.get("sort_key.launches", 0)
         if cfg.differentiable:
             st = {}
             out = _trace_regen_diff(scene, cam, meta, cfg, pixel_idx, waves,
@@ -112,6 +115,8 @@ def render_tile_regen(scene, cam, meta, cfg: RenderConfig, film, pixel_idx,
                 + c1.get("host_syncs", 0) - syncs
             stats["rng_launches"] = stats.get("rng_launches", 0) \
                 + c1.get("rng.launches", 0) - launches
+            stats["sort_key_launches"] = stats.get("sort_key_launches", 0) \
+                + c1.get("sort_key.launches", 0) - key_launches
     return film
 
 

@@ -25,6 +25,7 @@ relies on XLA clamping out-of-range gathers, a CUDA gather faults.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 
@@ -36,7 +37,7 @@ from ..core.math import (fma, fsqrt, SHADOW_EPS, BIG_F32, vdot, vdot_k,
                          pack3, sdot, scross, sdot_f, scross_f, sbary_mix,
                          ssafe_normalize, sonb_from_normal)
 from ..core.rng import hash_u32, uniform_from_u32
-from ..utils.profile import count, host_any, span, spanned
+from ..utils.profile import count, host_any, set_count, span, spanned
 from .textures import texture_alpha, texture_eval
 from .types import (SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD, SHAPE_ITRI,
                     ALPHA_BLEND, ALPHA_MASK)
@@ -257,18 +258,33 @@ def _first_block_key(scene, origin, direction):
     entering nothing sort after every live ray.  Keys order work only,
     they never change results.
 
-    PT_HIER_KEY=1 (tables with coarse unions and more than 64 blocks):
-    the reference's hierarchical key.  The top-2 coarse groups
-    (pk_sblk_lo/hi, unions of SORT_COARSE_G blocks) are found first and
-    their members refined jointly; a ray that enters a group but none of
-    its members is keyed by the group's first block.  Off by default, as
-    in the reference, which measured it slower on its kernel."""
+    On the card one launch of csrc/sortkey.cu (`sort_key_launch`), which
+    equals the plain version (`_first_block_key_plain`) bit for bit; on
+    the CPU the plain version.  PT_HIER_KEY=1 (tables with coarse unions
+    and more than 64 blocks): the reference's hierarchical key, plain
+    code on either device.  The top-2 coarse groups (pk_sblk_lo/hi,
+    unions of SORT_COARSE_G blocks) are found first and their members
+    refined jointly; a ray that enters a group but none of its members is
+    keyed by the group's first block.  Off by default, as in the
+    reference, which measured it slower on its kernel."""
+    bl = scene["pk_blk_lo"]
+    if origin.is_cuda and not _hier_key(scene, bl.shape[0]):
+        return sort_key_launch(bl, scene["pk_blk_hi"], origin, direction)
+    return _first_block_key_plain(scene, origin, direction)
+
+
+def _hier_key(scene, m):
+    return ("pk_sblk_lo" in scene and m > 64
+            and os.environ.get("PT_HIER_KEY") == "1")
+
+
+def _first_block_key_plain(scene, origin, direction):
+    """_first_block_key in plain PyTorch (chunked [N, 512] slab passes)."""
     bl = scene["pk_blk_lo"]
     bh = scene["pk_blk_hi"]
     m = bl.shape[0]
     inv = _inv_guard(direction)
-    if ("pk_sblk_lo" in scene and m > 64
-            and os.environ.get("PT_HIER_KEY") == "1"):
+    if _hier_key(scene, m):
         be, bi, be2, bi2 = _hier_top2(scene, bl, bh, origin, inv)
     else:
         be, bi, be2, bi2 = _slab_top2(bl, bh, origin, inv)
@@ -281,6 +297,76 @@ def _first_block_key(scene, origin, direction):
     else:                      # huge block counts: first block only
         key = (bi << 3) | octant
     return torch.where(be >= BIG_F32 * 0.5, 0x7FFFFFFE, key)
+
+
+# CUDA kernel: csrc/sortkey.cu
+_key_lib = None
+
+
+def reset_sort_key_launches():
+    """Set the kernel's launch count, the profile counter
+    "sort_key.launches", to 0."""
+    set_count("sort_key.launches", 0)
+
+
+def build_sort_key():
+    """Compile csrc/sortkey.cu (if not built yet) and load it."""
+    global _key_lib
+    if _key_lib is None:
+        from ..accel import cubuild
+        _key_lib = bind_sort_key(cubuild.load("sortkey"))
+    return _key_lib
+
+
+def bind_sort_key(lib):
+    """Declare sortkey_launch's C signature on a loaded library (the CUDA
+    build, or cubuild.host_library's host build)."""
+    P, L = ctypes.c_void_p, ctypes.c_longlong
+    lib.sortkey_launch.restype = ctypes.c_int
+    lib.sortkey_launch.argtypes = [P, P, L, P, P, L, L, L, P, P]
+    return lib
+
+
+def sort_key_launch(lo, hi, origin, direction, lib=None):
+    """_first_block_key's flat key, one launch of csrc/sortkey.cu: lo, hi
+    [m, 3] float32 box tables (contiguous), origin, direction [n, 3]
+    float32 (rows at any stride).  Returns the [n] int64 key.  On the card
+    it launches on the current stream, reads no device value, copies
+    nothing to the device, and is counted in the profile counter
+    "sort_key.launches"; lib, a cubuild.host_library build, runs it on
+    CPU tensors instead (the tests; not counted)."""
+    dev = torch.device("cpu") if lib is not None else origin.device
+    if lib is None and dev.type != "cuda":
+        raise ValueError(f"sort key kernel: rays on {dev}")
+    for name, x, rows in (("lo", lo, None), ("hi", hi, lo.shape[0]),
+                          ("origin", origin, None),
+                          ("direction", direction, origin.shape[0])):
+        if x.device != dev or x.dtype != torch.float32:
+            raise ValueError(f"sort key kernel: {name} is {x.dtype} on "
+                             f"{x.device}, the call float32 on {dev}")
+        if x.ndim != 2 or x.shape[1] != 3 or (rows is not None
+                                              and x.shape[0] != rows):
+            raise ValueError(f"sort key kernel: {name} has shape "
+                             f"{tuple(x.shape)}")
+        if x.stride(1) != 1 or (name in ("lo", "hi")
+                                and not x.is_contiguous()):
+            raise ValueError(f"sort key kernel: {name} has strides "
+                             f"{x.stride()}")
+    n = origin.shape[0]
+    out = torch.empty((n,), dtype=torch.int64, device=dev)
+    if n == 0:
+        return out
+    stream = None if lib is not None else \
+        torch.cuda.current_stream(dev).cuda_stream
+    rc = (lib or build_sort_key()).sortkey_launch(
+        lo.data_ptr(), hi.data_ptr(), lo.shape[0], origin.data_ptr(),
+        direction.data_ptr(), n, origin.stride(0), direction.stride(0),
+        out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sort key kernel launch failed (cudaError {rc})")
+    if lib is None:
+        count("sort_key.launches")
+    return out
 
 
 # ---------------------------------------------------------------------------

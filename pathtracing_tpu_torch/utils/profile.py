@@ -22,7 +22,8 @@ pathtracing_tpu/utils/profile.py, plus the spans and counters).
     device values and copies of host data to the device; "build.*_s": the
     seconds of the last scene build's stages; "kernels.<name>_s": a CUDA
     kernel library's build and load; "rng.launches": launches of the
-    sampler kernel, core/rng.py), read by `counters()`.
+    sampler kernel, core/rng.py; "sort_key.launches": launches of the
+    dispatch sort key's kernel, scene/intersect.py), read by `counters()`.
 """
 from __future__ import annotations
 
