@@ -102,21 +102,17 @@ device summary only when every phase passed):
      within 2% of phase 5's and of path C's (the same depth);
   7. path B: sanmiguel_analog(n_tris=60,000, foliage=600), depth 32,
      one frame: K2 in its four plain modes;
-     h. (after phase 5's frame) K1's new modes on the faithful scene's
-        10.5M-triangle opaque tables with 65,280 bounce rays: the schedules
-        (window 2 / 4 with pops = 2 * window, pair, pops 1 / 4) against the
-        window=1, pops=1 walk, the visit caps 1 / 2 / 16 with their
-        frontier outputs against the plain capped walk (the same two
-        checks run on the 200K soup against the brute force, on the
-        instanced and moving soups and on path A's instanced alpha
-        tables), the multipass driver (caps 16, 8, 8 then uncapped) against
-        one pass, the new modes' times and bounds, and K1 closest on the
-        same bounce rays in the order drawn against the dispatch's key
-        order (times, counters, the un-permuted results equal);
+     h. (after phase 5's frame) K1's schedules on the faithful scene's
+        10.5M-triangle opaque tables with 65,280 bounce rays (window 2 / 4
+        with pops = 2 * window, pops 1 / 4) against the window=1, pops=1
+        walk (the same check runs on the 200K soup against the brute
+        force, on the instanced and moving soups and on path A's
+        instanced alpha tables), their times and bounds, and K1 closest
+        on the same bounce rays in the order drawn against the dispatch's
+        key order (times, counters, the un-permuted results equal);
   5b. path C: the faithful frame again, at depth 32 (cut from 64 for
-     the script's time), under PT_MULTIPASS=16,8,8 and PT_WINDOW=4 (the
-     multipass driver on the mask-free opaque passes, the window walk on
-     the alpha passes); its rays per sample and image mean must land
+     the script's time), under PT_WINDOW=4 (the window walk on every
+     two-level pass); its rays per sample and image mean must land
      within 2% of phase 5's, its iterations are printed beside them;
   5c. [grad] gradients through the renderer: (a) on tests/test_regen_diff.py's
      scene with a textured floor at 96x72, depth 5, the mat_base and texel
@@ -197,7 +193,7 @@ Every K1 mode is timed at pops 1 ("ms") and at the main path's pops 4
 ("ms_pops4").  Every K1, K2 and K4 row is timed in ROUNDS interleaved
 rounds, each round timing every mode of the phase in turn: "ms" is the
 median, "ms_spread" (max - min) / median.
-Writes chiprun_out/sanmiguel_{legacy,faithful,multipass,tlas,small}.ppm,
+Writes chiprun_out/sanmiguel_{legacy,faithful,window,tlas,small}.ppm,
 chiprun_out/spheres_medium.ppm, chiprun_out/cli_{legacy,hdr}.ppm,
 chiprun_out/example_1.ppm,
 chiprun_out/bvh/*.ppm and the whole output to chiprun_out/chip_smoke.log,
@@ -242,7 +238,6 @@ TF32_PEAK = 495e12          # H100 SXM dense TF32 tensor-core FLOP/s
 BF16_PEAK = 989e12          # H100 SXM dense bf16 tensor-core FLOP/s
 MXU_POST_FLOPS = 14         # K4: post-processing of one (ray, triangle) pair
 N_SM = 132                  # H100 SXM SMs (K4's one block runs on one)
-MULTIPASS = (16, 8, 8)      # path C's PT_MULTIPASS schedule
 LEAF_K2, LEAF_ITERS = 256, 2000    # K4's defaults (the JAX tool's)
 LIB_CALLS = 10              # K4's library product: x 20 calls per sample
 GRAD_PROBE_RES = (96, 72)   # [grad] a: card against CPU gradients
@@ -256,10 +251,9 @@ BVH_RES = (960, 540)        # [bvh]: the CLI frame's resolution
 CORNELL_SPP = 4             # [bench]: the Cornell frame's samples (the
                             # bench's own run takes 32)
 # K1 schedules held against the window=1, pops=1 walk (results must not
-# change) and the visit caps held against the plain capped walk
-SCHEDULES = (dict(window=2, pops=4), dict(window=4, pops=8),
-             dict(pair=True), dict(pops=1), dict(pops=4))
-CAPS = (1, 2, 16)
+# change)
+SCHEDULES = (dict(window=2, pops=4), dict(window=4, pops=8), dict(pops=1),
+             dict(pops=4))
 ROUNDS = 7                  # interleaved timing rounds of a phase's rows
 ORACLE_FLOOR_CELLS = 16     # [oracle] (b), (c): the floor as 16x16 cells
 ORACLE_LANES = 1 << 16      # [oracle]: lanes in flight, the main path's
@@ -619,9 +613,8 @@ def _traversal(counts):
 
 
 def _schedule_counts():
-    """{"trace2[capped|frontier|window2|window4|pair|pops<p>]": launches}:
-    K1's launches by schedule (a capped launch with frontier outputs
-    counts under both) and {"leaf[mode]": launches} of K4."""
+    """{"trace2[window2|window4|pops<p>]": launches}: K1's launches by
+    schedule, and {"leaf[mode]": launches} of K4."""
     from pathtracing_tpu_torch.accel import trace2
     from pathtracing_tpu_torch.tools import bench_leaf
     out = {f"trace2[{k}]": v
@@ -1358,21 +1351,18 @@ def _sampler_item(scene, cam, meta, cfg):
           flush=True)
 
 
-def _diff_counts(got, ref, closest, amask=0, frontier=False):
+def _diff_counts(got, ref, closest, amask=0):
     """Lanes where two K1 results differ: valid always; t, tri and inst
-    for a closest walk; solid under amask 2; e_next / b_next with a
-    frontier."""
+    for a closest walk; solid under amask 2."""
     keys = ["valid"] + (["t", "tri", "inst"] if closest else [])
     if amask == 2:
         keys.append("solid")
-    if frontier:
-        keys += ["e_next", "b_next"]
     return {k: int((got[k] != ref[k]).sum()) for k in keys}
 
 
 def _compare_schedules(scene, o, d, t_max, label, amasks=(0,), **kw):
-    """K1's schedules (window 2 / 4 with pops = 2 * window, pair, pops 1
-    and 4) against its window=1, pops=1 walk: a schedule changes the order
+    """K1's schedules (window 2 / 4 with pops = 2 * window, pops 1 and 4)
+    against its window=1, pops=1 walk: a schedule changes the order
     of the work, never the result, so no lane may differ (closest: t, tri,
     inst, valid; any-hit: valid; amask 2: also solid)."""
     from pathtracing_tpu_torch.accel import trace2
@@ -1394,38 +1384,12 @@ def _compare_schedules(scene, o, d, t_max, label, amasks=(0,), **kw):
                                        f"result on {label}")
 
 
-def _compare_caps(scene, o, d, t_max, label, prune=True, **kw):
-    """K1's capped walk with frontier outputs (caps 1, 2, 16) against the
-    plain capped walk: t, tri, inst, valid (closest; valid only for
-    any-hit, whose occluder is whichever the walk found first), e_next and
-    b_next must agree on every lane."""
-    from pathtracing_tpu_torch.accel import trace2
-    for any_hit in (False, True):
-        for cap in CAPS:
-            got = trace2.tri_intersect2(scene, o, d, t_max, any_hit=any_hit,
-                                        max_visits=cap, frontier=True, **kw)
-            ref = trace2.tri_intersect2_plain(scene, o, d, t_max,
-                                              any_hit=any_hit, prune=prune,
-                                              max_visits=cap, frontier=True,
-                                              **kw)
-            diff = _diff_counts(got, ref, not any_hit, frontier=True)
-            print(f"[cap] {label} any_hit={any_hit} max_visits={cap} vs "
-                  f"{'culled' if prune else 'brute'} plain capped walk: "
-                  f"hits {int(ref['valid'].sum())} unresolved "
-                  f"{int((ref['e_next'] < 3e38).sum())}, lanes differing "
-                  f"{diff}", flush=True)
-            if any(diff.values()):
-                raise RuntimeError(f"K1 max_visits={cap} disagrees with the "
-                                   f"plain capped walk on {label}")
-
-
 def _measure_schedules(scene, o, d, t_max, label):
-    """Time, bound and plain-version time of K1's new modes on these rays
-    (closest hit): the capped walk (cap 16) without and with its frontier
-    outputs, window 2 / 4 and pair at the main path's pops=4, and pops 4
-    alone.  The plain version of a schedule is the uncapped plain walk
-    (schedules do not change the function); the capped rows' is the plain
-    capped walk.  Returns rows keyed trace2[capped] ... trace2[pops4]."""
+    """Time, bound and plain-version time of K1's schedules on these rays
+    (closest hit): window 2 / 4 at the main path's pops=4, and pops 4
+    alone.  The plain version of a schedule is the plain walk (schedules
+    do not change the function).  Returns rows keyed trace2[window2],
+    trace2[window4] and trace2[pops4]."""
     import torch
     from pathtracing_tpu_torch.accel import trace2
     torch.cuda.synchronize()
@@ -1435,26 +1399,16 @@ def _measure_schedules(scene, o, d, t_max, label):
     plain_ms = (time.perf_counter() - t0) * 1e3
     rows = {}
     smem = trace2.staged_bytes(scene)
-    scheds = (("capped", dict(max_visits=16)),
-              ("frontier", dict(max_visits=16, frontier=True)),
-              ("window2", dict(window=2, pops=4)),
+    scheds = (("window2", dict(window=2, pops=4)),
               ("window4", dict(window=4, pops=4)),
-              ("pair", dict(pair=True, pops=4)),
               ("pops4", dict(pops=4)))
     times = _time_rounds({name: (lambda kw=kw: trace2.tri_intersect2(
         scene, o, d, t_max, **kw)) for name, kw in scheds})
     for name, kw in scheds:
         ms, spread = times[name]
         b_ms, b_by, _ = _bound_ms(trace2, scene, o, d, t_max, **kw)
-        p_ms = plain_ms
-        if "max_visits" in kw:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trace2.tri_intersect2_plain(scene, o, d, t_max, **kw)
-            torch.cuda.synchronize()
-            p_ms = (time.perf_counter() - t0) * 1e3
         rows[f"trace2[{name}]"] = dict(max_abs_err=0.0, ms=ms,
-                                       ms_spread=spread, plain_ms=p_ms,
+                                       ms_spread=spread, plain_ms=plain_ms,
                                        bound_ms=b_ms, bound_by=b_by,
                                        schedule=str(kw))
         occ = (f", window kernel {trace2.occupancy('closest', window=True,
@@ -1462,7 +1416,7 @@ def _measure_schedules(scene, o, d, t_max, label):
                f"of 128 per SM" if "window" in kw else "")
         print(f"[kernel] {label} {name} {kw}: {ms:.3f} ms (median of "
               f"{ROUNDS} interleaved rounds, spread {spread:.1%}){occ}, "
-              f"plain {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})",
+              f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})",
               flush=True)
     return rows
 
@@ -1522,37 +1476,6 @@ def _measure_windows(scene, o, d, t_max, label):
                   f"B staged, plain {plain[a]:.1f} ms, bound {b_ms:.4f} ms "
                   f"({b_by})", flush=True)
     return rows
-
-
-def _multipass_check(scene, o, d, t_max, label):
-    """The multipass driver (scene/intersect.py::_multipass2, caps
-    MULTIPASS then an uncapped pass) against one uncapped K1 pass: valid
-    and t equal on every ray; tri may differ only between two triangles
-    at the same t (the driver keeps a pass's hit only when strictly
-    closer).  Closest and any-hit (valid only)."""
-    import torch
-    from pathtracing_tpu_torch.accel import trace2
-    from pathtracing_tpu_torch.scene.intersect import _multipass2
-    for any_hit in (False, True):
-        one = trace2.tri_intersect2(scene, o, d, t_max, any_hit=any_hit)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mp = _multipass2(scene, o, d, t_max, any_hit, None, MULTIPASS)
-        torch.cuda.synchronize()
-        mp_ms = (time.perf_counter() - t0) * 1e3
-        one_ms = _sync_time(lambda: trace2.tri_intersect2(
-            scene, o, d, t_max, any_hit=any_hit), reps=5)
-        v_diff = int((mp["valid"] != one["valid"]).sum())
-        t_diff = 0 if any_hit else int((mp["t"] != one["t"]).sum())
-        tri_diff = 0 if any_hit else int((mp["tri"] != one["tri"]).sum())
-        print(f"[multipass] {label} any_hit={any_hit} visits={MULTIPASS}: "
-              f"{mp_ms:.1f} ms (host clock, 4 passes + re-sorts) vs one pass "
-              f"{one_ms:.3f} ms; hits {int(one['valid'].sum())}, valid "
-              f"differing {v_diff}, t differing {t_diff}, tri differing "
-              f"{tri_diff} (only where two triangles tie in t)", flush=True)
-        if v_diff or t_diff:
-            raise RuntimeError(f"the multipass driver disagrees with one "
-                               f"pass on {label}")
 
 
 def _leaf_phase():
@@ -2669,7 +2592,6 @@ def main() -> int:
     from pathtracing_tpu_torch.core import rng
     from pathtracing_tpu_torch.native.loader import native_available
     from pathtracing_tpu_torch.scene.intersect import _subset_scene
-    from pathtracing_tpu_torch.scene.intersect import _multipass_visits
     from pathtracing_tpu_torch.scene.intersect import build_sort_key
     from pathtracing_tpu_torch.scenes import (cornell_box, sanmiguel_analog,
                                               spheres_medium, textured_quad)
@@ -2742,11 +2664,9 @@ def main() -> int:
     soup["tri_v"] = torch.from_numpy(tri_v).to(dev)
     _compare(trace2, soup, o, d, big, "K1 soup 200K tris x 64K rays",
              prune=False)
-    # K1's new modes: schedules against the window=1 walk (itself held to
-    # the brute force just above), caps against the brute capped walk
+    # K1's schedules against the window=1 walk (itself held to the brute
+    # force just above)
     _compare_schedules(soup, o, d, big, "K1 soup 200K tris x 64K rays")
-    _compare_caps(soup, o, d, big, "K1 soup 200K tris x 64K rays",
-                  prune=False)
     soup = on_card(trace1.build_tri_blocks(tri_v[:65536])[0])
     soup["tri_v"] = torch.from_numpy(tri_v[:65536]).to(dev)
     _compare(trace1, soup, o, d, big, "K2 soup 65,536 tris x 64K rays",
@@ -2784,7 +2704,6 @@ def main() -> int:
     r = _measure(trace2, tabs, o, d, big, "K1 instanced soup (300 instances "
                  "+ 20K world tris)", ("closest", "any_hit"), brute_rays=8192)
     _compare_schedules(tabs, o, d, big, "K1 instanced soup")
-    _compare_caps(tabs, o, d, big, "K1 instanced soup")
     kern["trace2[inst_closest]"] = r["closest"]
     kern["trace2[inst_any_hit]"] = r["any_hit"]
     tabs = on_card(trace2.build_tri_blocks2_inst(
@@ -2793,7 +2712,6 @@ def main() -> int:
                  ("closest", "any_hit"), brute_rays=8192, time=times)
     _compare_schedules(tabs, o, d, big, "K1 instanced + motion soup",
                        time=times)
-    _compare_caps(tabs, o, d, big, "K1 instanced + motion soup", time=times)
     kern["trace2[inst_motion_closest]"] = r["closest"]
     kern["trace2[inst_motion_any_hit]"] = r["any_hit"]
     tabs = on_card(trace2.build_tri_blocks2(mv, g=32, tri_vel=mvel,
@@ -2801,7 +2719,6 @@ def main() -> int:
     r = _measure(trace2, tabs, o, d, big, "K1 motion soup 60K tris",
                  ("closest", "any_hit"), brute_rays=8192, time=times)
     _compare_schedules(tabs, o, d, big, "K1 motion soup", time=times)
-    _compare_caps(tabs, o, d, big, "K1 motion soup", time=times)
     kern["trace2[motion_closest]"] = r["closest"]
     kern["trace2[motion_any_hit]"] = r["any_hit"]
     tabs = on_card(trace1.build_tri_blocks_inst(*iargs)[0])
@@ -3020,37 +2937,28 @@ def main() -> int:
     if args.sections or args.profile:
         _trace_item(scene, cam, meta, cfg, args.sections, args.profile)
 
-    # ---- 2h. K1's new modes on the 10.5M-triangle faithful tables
+    # ---- 2h. K1's schedules on the 10.5M-triangle faithful tables
     ob, db = _bounce_rays(scene, nr)
     tb_ = torch.full((nr,), 1e30, device=dev)
     label = (f"K1 faithful {meta.n_tri - n_alpha:,}-tri opaque tables x {nr} "
              f"bounce rays")
     _compare_schedules(scene, ob, db, tb_, label)
-    _compare_caps(scene, ob, db, tb_, label)
-    m1pad = -(-scene["pk_l1box"].shape[0] // 128) * 128
-    print(f"[multipass] opaque tables: {scene['pk_l1box'].shape[0]} L1s, "
-          f"m1pad {m1pad} (the driver runs at <= 8192)", flush=True)
-    _multipass_check(scene, ob, db, tb_, label)
     kern.update(_measure_schedules(scene, ob, db, tb_, label))
     del ob, db, tb_
     _key_order(scene, nr, label)
 
-    # ---- 5b. path C: the same frame under PT_MULTIPASS and PT_WINDOW
-    os.environ["PT_MULTIPASS"] = ",".join(str(v) for v in MULTIPASS)
+    # ---- 5b. path C: the same frame under PT_WINDOW=4
     os.environ["PT_WINDOW"] = "4"
-    if _multipass_visits() != MULTIPASS:
-        raise RuntimeError("PT_MULTIPASS was not read")
     cfg_ac = dataclasses.replace(cfg, max_depth=DEPTH_AC)
     try:
         path_c, mpw = _frame(filmmod, scene, cam, meta, cfg_ac,
                              f"path C d{DEPTH_AC} (flattened foliage, "
-                             f"PT_MULTIPASS={os.environ['PT_MULTIPASS']} "
-                             f"PT_WINDOW=4)", "sanmiguel_multipass.ppm")
+                             f"PT_WINDOW=4)", "sanmiguel_window.ppm")
     finally:
-        del os.environ["PT_MULTIPASS"], os.environ["PT_WINDOW"]
-    _need(path_c, ("trace2[capped]", "trace2[frontier]", "trace2[window4]",
-                   "trace2[window4_amask1]", "trace2[window4_amask2]",
-                   "trace2[amask1]", "trace2[amask2]"), "path C")
+        del os.environ["PT_WINDOW"]
+    _need(path_c, ("trace2[window4]", "trace2[window4_amask1]",
+                   "trace2[window4_amask2]", "trace2[amask1]",
+                   "trace2[amask2]"), "path C")
     # (path C at depth 32 against the faithful frame at 64: bounces past
     # 32 are a small share of its rays; path A is held to path C below,
     # at the same depth)
@@ -3094,7 +3002,6 @@ def main() -> int:
                  f"stored shrub) x {nr} foliage rays", ("amask1", "amask2"))
     _compare_schedules(alpha, of, df, tf_, "K1 path A instanced alpha tables",
                        amasks=(0, 1, 2))
-    _compare_caps(alpha, of, df, tf_, "K1 path A instanced alpha tables")
     kern["trace2[inst_amask1]"] = r["amask1"]
     kern["trace2[inst_amask2]"] = r["amask2"]
     del alpha
@@ -3196,10 +3103,7 @@ def main() -> int:
                 "sampler": "pathtracing_tpu/core/rng.py:44",
                 "sortkey": "pathtracing_tpu/scene/intersect.py:216"}
     # rows of a schedule no entry point runs on those tables
-    no_entry = {"trace2[pair]": (
-        "none: no entry point passes pair=True (the reference package's "
-        "dispatch does not either); timed and held to the window=1 walk "
-        "only")}
+    no_entry = {}
     for a in (1, 2):
         no_entry[f"trace2[window2_amask{a}]"] = (
             "none: path C runs window 4 on the alpha passes, and PT_WINDOW=2 "

@@ -25,8 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.math import BIG_F32, SHADOW_EPS, fma, fsqrt
-from ..scene.intersect import _inv_guard
+from ..core.math import BIG_F32, SHADOW_EPS, _inv_guard, fma, fsqrt
 
 SHAPE_TRI, SHAPE_SPH, SHAPE_QUAD = 0, 1, 2
 BEAM_B = 1        # blocks tested per step

@@ -230,7 +230,8 @@ COARSE_G = SORT_COARSE_G   # top-level entries per coarse union (the front)
 
 def coarse_tables(lo, hi, order=None):
     """The top level's coarse unions: pk_sblk_lo / pk_sblk_hi, the unions
-    of 8 consecutive boxes (sort_key_coarse, the dispatch sort key's), and
+    of 8 consecutive boxes (sort_key_coarse, the reference's hierarchical
+    sort key's), and
     the traversal kernels' front: pk_cbox [nc, 8] f32 (lo xyz, the bits
     of the least member, hi xyz, 0), pk_cmem [nc, 8] i32 (each union's
     members, ascending, -1 padded) and pk_cgrp [m] i32 (the union of each

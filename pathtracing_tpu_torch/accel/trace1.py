@@ -75,8 +75,8 @@ def build_tri_blocks(tri_v: np.ndarray, block_k: int | None = None,
                                   with tri_vel / shutter)
       pk_blkbox   [M, 8] f32     the same, packed for the kernel
       pk_slot2tri [M*K] i32      slot -> triangle id, -1 on padding
-      pk_sblk_lo/hi              coarse unions of 8 blocks (the dispatch
-                                  sort key's)
+      pk_sblk_lo/hi              coarse unions of 8 blocks (the
+                                  reference's hierarchical sort key's)
       pk_cbox / pk_cmem / pk_cgrp  the kernel's coarse front over the
                                   same unions (build.coarse_tables)
       pk_mask     [M*K, 8] i32   only with tri_mask ([T,7] int32 words)

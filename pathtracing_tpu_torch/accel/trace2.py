@@ -51,16 +51,10 @@ the hit's barycentrics.
            Transparent hits are skipped.  The result does not depend on
            visit order, so kernel and plain version agree exactly.
 
-Visit cap and multipass resume state (max_visits, frontier; the
-reference's knobs of the same names): the walk stops after max_visits
-L1 visits of each RAY (the reference counts a 128-ray tile's visits: the
-per-ray walk has no tiles) and frontier=True adds, per ray, "e_next" /
-"b_next": the entry and index of the nearest L1 the capped walk entered
-but did not consume whose entry is below the ray's cull bound (BIG_F32 /
-0 when the ray is resolved).  scene/intersect.py::_multipass2 re-sorts
-unresolved rays by b_next between capped passes and ends with an
-uncapped one.  Schedules (pops, pair, window) change the order of the
-kernel's work, never its result.
+Schedules (pops, window) change the order of the kernel's work, never
+its result.  The reference's visit cap with its multipass resume state,
+its paired visits and its re-cull cadence have no counterpart: none
+changes a result and none won on the card.
 """
 from __future__ import annotations
 
@@ -76,7 +70,6 @@ from ..utils import profile
 
 G_DEFAULT = 16      # child blocks per L1 superblock
 TILE = 128          # dispatch pads ray batches to a multiple of this
-RECULL_EVERY = 8    # the reference kernel's re-cull cadence (accepted, no-op)
 WIDEN = torch.tensor(1.0000005, dtype=torch.float32)   # the kernel's slab widening
 
 _CSRC = cubuild.source("trace2")
@@ -137,8 +130,8 @@ def build_tri_blocks2(tri_v: np.ndarray, k2: int | None = None,
       pk_l1box    [M1, 8] f32      the same, packed for the kernel
       pk_l1_base  [M1] i32         first child block of each L1
       pk_slot2tri [M2*K2] i32      slot -> triangle id, -1 on padding
-      pk_sblk_lo/hi                coarse unions of 8 L1s (the dispatch
-                                    sort key's)
+      pk_sblk_lo/hi                coarse unions of 8 L1s (the
+                                    reference's hierarchical sort key's)
       pk_cbox     [C, 8] f32       the same unions packed for the kernel's
                                     coarse front: lo xyz, the int32 bits of
                                     the least member, hi xyz, 0
@@ -732,62 +725,6 @@ def slab_entries(box, origin, inv, bound):
     return torch.where(tn <= tf * WIDEN, tn, BIG_F32)
 
 
-def _cull_bound(best, t_max):
-    """The kernel's cull bound per ray: the best hit so far (initially
-    t_max); amask 2: the nearer of the best mixed and opaque hits."""
-    bound = torch.minimum(best.t, t_max)
-    if best.amask == 2:
-        bound = torch.minimum(bound, best.t_opq)
-    return bound
-
-
-def _plain_capped(scene, origin, direction, t_max, max_visits, amask, time,
-                  any_hit, prune=True):
-    """The capped walk (module docstring) in plain form: each ray's entered
-    L1s in (entry, index) order with the kernel's entries, consumed while
-    the entry is within the widened cull bound and fewer than max_visits
-    were visited; all the triangles of a visited L1's entered children
-    (every child when prune is False) are tested (ties go to the least
-    key, so the order inside an L1 does not matter).  Returns (t, key,
-    e_next, b_next)."""
-    from ..scene.intersect import _inv_guard
-    n = origin.shape[0]
-    dev = origin.device
-    v = int(max_visits)
-    l1box = scene["pk_l1box"]
-    m1e = l1box.shape[0]
-    inv = _inv_guard(direction)
-    folder = _PairFolder(scene, origin, direction, t_max, time, amask, prune)
-    best = PlainBest(n, dev, amask)
-    # each ray's first v + 1 entered L1s in (entry, index) order: a stable
-    # sort of the entries keeps equal entries in index order
-    oe = torch.full((n, v + 1), BIG_F32, dtype=torch.float32, device=dev)
-    ob = torch.zeros((n, v + 1), dtype=torch.int64, device=dev)
-    keep = min(v + 1, m1e)
-    rchunk = max(1, folder.budget // (4 * max(1, m1e)))
-    for r0 in range(0, n, rchunk):
-        sl = slice(r0, r0 + rchunk)
-        e = slab_entries(l1box, origin[sl], inv[sl], t_max[sl])
-        es, bs = torch.sort(e, dim=1, stable=True)
-        oe[sl, :keep] = es[:, :keep]
-        ob[sl, :keep] = bs[:, :keep]
-    live = t_max > 0
-    for j in range(v):
-        bound = _cull_bound(best, t_max)
-        live = live & (oe[:, j] < BIG_F32) & (oe[:, j] <= bound * WIDEN)
-        profile.count("host_syncs")
-        ray = torch.nonzero(live).flatten()
-        if ray.numel() == 0:
-            break
-        folder.fold(best, ray, ob[ray, j])
-        if any_hit:                      # an occluder resolves the ray
-            live = live & (best.key < 0)
-    nxt = live & (oe[:, v] < _cull_bound(best, t_max))
-    e_next = torch.where(nxt, oe[:, v], BIG_F32)
-    b_next = torch.where(nxt, ob[:, v], 0)
-    return (*best.result(), e_next, b_next)
-
-
 # ---------------------------------------------------------------------------
 # CUDA kernel: build + launch
 # ---------------------------------------------------------------------------
@@ -812,8 +749,8 @@ def bind(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.trace2_launch.restype = I
     lib.trace2_launch.argtypes = [P, P, P, I, P, I, P, I, P, P, P, P, P, P,
-                                  I, I, I, I, P, P, P, P, P, I, I, I, I,
-                                  P, P, P, P, P, P, P, P]
+                                  I, I, I, I, P, P, P, P, P, I, I,
+                                  P, P, P, P, P, P]
     lib.trace2_occupancy.restype = I
     lib.trace2_occupancy.argtypes = [I, I, I, P]
     return lib
@@ -861,36 +798,27 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def schedule_names(max_visits=None, frontier=False, window=1, pair=False,
-                   pops=1, mode=None):
-    """The launch-count keys of a schedule: "capped" and "frontier" for a
-    capped walk and its resume outputs, then one of "window2" /
-    "window4" (and, given the mode, "window<w>_<mode>"), "pair" or
-    "pops<p>" (p > 1) for the walk's order."""
+def schedule_names(window=1, pops=1, mode=None):
+    """The launch-count keys of a schedule: "window2" / "window4" (and,
+    given the mode, "window<w>_<mode>"), or "pops<p>" (p > 1) for the
+    walk's order."""
     names = []
-    if max_visits is not None:
-        names.append("capped")
-    if frontier:
-        names.append("frontier")
     if window > 1:
         names.append(f"window{window}")
         if mode is not None:
             names.append(f"window{window}_{mode}")
-    elif pair:
-        names.append("pair")
     elif pops > 1:
         names.append(f"pops{pops}")
     return names
 
 
 def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
-                   amask, time=None, host_lib=None, max_visits=None,
-                   frontier=False, window=1, pair=False, pops=1):
+                   amask, time=None, host_lib=None, window=1, pops=1):
     """Launch the kernel on CUDA tensors.  host_lib: a cubuild.host_library
     build, run on CPU tensors instead (the kernel's logic where there is
     no GPU; not counted as a launch).
     Returns (t, key, extra): extra is None, or a dict of the counter
-    outputs and / or e_next / b_next."""
+    outputs."""
     if host_lib is None:
         build_kernel()
     dev = origin.device
@@ -954,10 +882,6 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
     out_slot = torch.empty((n,), dtype=torch.int32, device=dev)
     out_blk = (torch.empty((n,), dtype=torch.int32, device=dev) if inst
                else None)
-    out_en = out_bn = None
-    if frontier:
-        out_en = torch.empty((n,), dtype=torch.float32, device=dev)
-        out_bn = torch.empty((n,), dtype=torch.int32, device=dev)
     cnt = touched = None
     if counters:
         cnt = torch.zeros((n, 5), dtype=torch.int32, device=dev)
@@ -972,10 +896,8 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
         cmem.data_ptr(), cgrp.data_ptr(), l1_base.data_ptr(),
         l2box.data_ptr(), tri.data_ptr(), _ptr(mask), k2, g,
         int(bool(any_hit)), int(amask), _ptr(src), _ptr(binst), _ptr(inv),
-        _ptr(velo), _ptr(time), int(max_visits or 0), int(window),
-        int(bool(pair)), int(pops), out_t.data_ptr(), out_slot.data_ptr(),
-        _ptr(out_blk), _ptr(out_en), _ptr(out_bn), _ptr(cnt), _ptr(touched),
-        stream)
+        _ptr(velo), _ptr(time), int(window), int(pops), out_t.data_ptr(),
+        out_slot.data_ptr(), _ptr(out_blk), _ptr(cnt), _ptr(touched), stream)
     if rc != 0:
         raise RuntimeError(f"trace2 kernel launch failed (cudaError {rc})")
     if host_lib is None:
@@ -983,16 +905,12 @@ def _launch_kernel(scene, origin, direction, t_max, any_hit, counters,
         mode = mode_name(any_hit, amask, inst, time is not None)
         tri_intersect2.launches_by_mode[mode] += 1
         by_sched = tri_intersect2.launches_by_schedule
-        for k in schedule_names(max_visits, frontier, window, pair, pops,
-                                mode):
+        for k in schedule_names(window, pops, mode):
             by_sched[k] = by_sched.get(k, 0) + 1
     extra = None
     if counters:
         extra = dict(counters=cnt, l1_touched=touched[:m1].bool(),
                      leaf_touched=touched[m1:].bool())
-    if frontier:
-        extra = dict(extra or {}, e_next=out_en,
-                     b_next=out_bn.to(torch.int64))
     slot = out_slot.to(torch.int64)
     if inst:    # (expanded L1, offset) -> the plain version's key
         slot = torch.where(slot >= 0,
@@ -1019,10 +937,7 @@ def _ray_args(origin, direction, t_max, time):
 
 def tri_intersect2(scene, origin, direction, t_max, any_hit: bool = False,
                    counters: bool = False, amask: int = 0, time=None,
-                   max_visits: int | None = None, frontier: bool = False,
-                   window: int | None = None, pair: bool = False,
-                   pops: int = 1, recull_every: int = RECULL_EVERY,
-                   drain_cull: bool = True):
+                   window: int | None = None, pops: int = 1):
     """Closest (or any) hit of a ray batch against the two-level tables.
 
     origin/direction [N,3] f32, t_max [N] f32 (or a scalar), time [N] f32
@@ -1034,33 +949,24 @@ def tri_intersect2(scene, origin, direction, t_max, any_hit: bool = False,
     and "l1_touched" [M1] / "leaf_touched" [M2] bool, the (expanded) L1s
     and the physical child blocks any ray visited.
 
-    max_visits caps each ray's L1 visits; frontier=True adds "e_next" [N]
-    f32 / "b_next" [N] int64, the resume state of the module docstring.
-    window (None = 1, or 2 / 4: the resident-window drain), pair (two L1
-    visits per loop iteration) and pops (children per drain step) are
-    schedules: they change the kernel's order of work, never its result,
-    and the plain version ignores them.  The reference kernel's
-    combinations it asserts against are refused (_check_schedule).
-    recull_every / drain_cull are the reference's names for its per-tile
-    re-cull of the entry table; the per-ray walk re-reads its bound at
-    every step, so they select nothing."""
+    window (None = 1, or 2 / 4: the resident-window drain) and pops
+    (children per drain step) are schedules: they change the kernel's
+    order of work, never its result, and the plain version ignores them.
+    Values outside them are refused (_check_schedule)."""
     _check_mode(scene, any_hit, amask, time)
-    window = _check_schedule(max_visits, frontier, window, pair, pops,
-                             recull_every)
+    window = _check_schedule(window, pops)
     origin, direction, t_max, time = _ray_args(origin, direction, t_max, time)
+    extra = None
     if origin.is_cuda:
         with profile.span("k1.launch"):
             t, slot, extra = _launch_kernel(
                 scene, origin, direction, t_max, any_hit, counters, amask,
-                time, max_visits=max_visits, frontier=frontier,
-                window=window, pair=pair, pops=pops)
+                time, window=window, pops=pops)
     else:
         if counters:
             raise ValueError("counters come from the CUDA kernel only")
-        t, slot, e_next, b_next = _plain_walk(
-            scene, origin, direction, t_max, True, amask, time, any_hit,
-            max_visits, frontier)
-        extra = dict(e_next=e_next, b_next=b_next) if frontier else None
+        t, slot = _plain_slots(scene, origin, direction, t_max, True, amask,
+                               time)
     res = _result(scene, t, slot, amask)
     if extra is not None:
         res.update(extra)
@@ -1098,77 +1004,31 @@ def _check_mode(scene, any_hit, amask, time=None):
         raise ValueError("alpha masks and motion exclude each other")
 
 
-def _check_schedule(max_visits, frontier, window, pair, pops, recull_every):
-    """Refuse what the reference kernel asserts against
-    (pallas_trace2.py:1332-1356); returns the window (None -> 1).  Its
-    condition for the frontier outputs, the per-tile entry table that VMEM
-    holds only up to RECULL_MAX_M1PAD L1s, has no size limit here (the
-    per-ray walk needs no table): what stays of it is the caller switching
-    the table off with the sentinel cadence recull_every >= 2**29."""
+def _check_schedule(window, pops):
+    """Refuse a window outside {1, 2, 4} or pops < 1; returns the window
+    (None -> 1)."""
     window = 1 if window is None else int(window)
     if window not in (1, 2, 4):
         raise ValueError(f"window must be 1, 2 or 4, got {window!r}")
-    if max_visits is not None and int(max_visits) < 1:
-        raise ValueError(f"max_visits must be >= 1, got {max_visits!r}")
     if int(pops) < 1:
         raise ValueError(f"pops must be >= 1, got {pops!r}")
-    if pair and (max_visits is not None or frontier):
-        raise ValueError("pair visits are incompatible with a visit cap or "
-                         "frontier outputs")
-    if window > 1 and (pair or frontier or max_visits is not None):
-        raise ValueError("the window walk is incompatible with pair, a visit "
-                         "cap or frontier outputs")
-    if frontier and recull_every >= (1 << 29):
-        raise ValueError("frontier outputs need the entry table, which "
-                         "recull_every >= 2**29 switches off")
     return window
-
-
-def _plain_walk(scene, origin, direction, t_max, prune, amask, time, any_hit,
-                max_visits, frontier):
-    """(t, key, e_next, b_next) of the plain version; e_next / b_next are
-    None without frontier, BIG_F32 / 0 on an uncapped walk (every ray is
-    resolved)."""
-    if max_visits is not None:
-        t, key, e_next, b_next = _plain_capped(
-            scene, origin, direction, t_max, max_visits, amask, time,
-            any_hit, prune)
-        return (t, key) + ((e_next, b_next) if frontier else (None, None))
-    t, key = _plain_slots(scene, origin, direction, t_max, prune, amask, time)
-    if not frontier:
-        return t, key, None, None
-    n = origin.shape[0]
-    return (t, key,
-            torch.full((n,), BIG_F32, dtype=torch.float32,
-                       device=origin.device),
-            torch.zeros((n,), dtype=torch.int64, device=origin.device))
 
 
 def tri_intersect2_plain(scene, origin, direction, t_max,
                          any_hit: bool = False, prune: bool = True,
                          amask: int = 0, time=None,
-                         max_visits: int | None = None,
-                         frontier: bool = False, window: int | None = None,
-                         pair: bool = False, pops: int = 1,
-                         recull_every: int = RECULL_EVERY,
-                         drain_cull: bool = True):
+                         window: int | None = None, pops: int = 1):
     """The plain version on any device (the kernel's oracle on the card;
     never called on the render path).  prune=False tests every slot of
-    the table instead of the triangles of the entered child blocks (in a
-    capped walk: every child of a visited L1).  Uncapped, any_hit changes nothing
-    here: the nearest hit is also an occluder; capped, an any-hit ray
-    stops after the visit that found an occluder, as the kernel's does.
-    window, pair and pops are checked and otherwise no-ops."""
+    the table instead of the triangles of the entered child blocks.
+    any_hit changes nothing here: the nearest hit is also an occluder.
+    window and pops are checked and otherwise no-ops."""
     _check_mode(scene, any_hit, amask, time)
-    _check_schedule(max_visits, frontier, window, pair, pops, recull_every)
+    _check_schedule(window, pops)
     origin, direction, t_max, time = _ray_args(origin, direction, t_max, time)
-    t, key, e_next, b_next = _plain_walk(scene, origin, direction, t_max,
-                                         prune, amask, time, any_hit,
-                                         max_visits, frontier)
-    res = _result(scene, t, key, amask)
-    if frontier:
-        res.update(e_next=e_next, b_next=b_next)
-    return res
+    t, key = _plain_slots(scene, origin, direction, t_max, prune, amask, time)
+    return _result(scene, t, key, amask)
 
 
 def child_boxes_hold_triangles(scene, tri_v) -> bool:

@@ -107,6 +107,14 @@ def safe_denom(x, eps):
     return torch.where(x < 0, -mag, mag)
 
 
+def _inv_guard(direction):
+    """1 / direction with components of magnitude below 1e-32 replaced by
+    +-1e-32 (the sign of the component): the slab tests' reciprocals."""
+    small = torch.abs(direction) < 1e-32
+    return 1.0 / torch.where(small, torch.where(direction < 0, -1e-32, 1e-32),
+                             direction)
+
+
 def cross(a, b):
     return torch.cross(a, b, dim=-1)
 

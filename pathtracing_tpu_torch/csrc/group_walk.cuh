@@ -14,8 +14,8 @@
 // each primitive, so the same walk runs on the CPU.
 //
 // The coarse front.  The top-level order of the walk is the flat (entry,
-// index) order over the L1 entries, the order of the one-thread walk and of
-// the plain capped walk (accel/trace2.py::_plain_capped).  It is produced
+// index) order over the L1 entries, the order of the one-thread walk
+// (entries as accel/trace2.py::slab_entries computes them).  It is produced
 // from unions of up to COARSE_G L1 entries (the wrapper's pk_cbox with its
 // member lists pk_cmem: consecutive entries of world tables, entries near
 // each other in SAH order for instanced ones): a union enters the front

@@ -3,8 +3,9 @@
 // Replaces the TPU kernel `_kernel2` of pathtracing_tpu/accel/pallas_trace2.py
 // (called through `pallas_tri_intersect2`): closest hit, any-hit, the alpha
 // micro-mask modes amask=1 and amask=2, run-time instances, linear motion,
-// the visit cap with its multipass resume state (max_visits, frontier) and
-// the pops / pair / window schedules.
+// and the pops / window schedules.  The TPU kernel's visit cap with its
+// multipass resume state and its paired visits are not ported: neither
+// changes a result and neither won on the card.
 // The device functions it shares with the single-level kernel (trace1.cu)
 // live in trace_common.cuh.  It computes the same function: per ray the hit
 // with the least t in [SHADOW_EPS, t_max) over the SAH block tables built by
@@ -111,8 +112,6 @@
 //            reads the bound for every child whatever pops is (splitting
 //            the lanes over `pops` children measured slower, PERF.md
 //            section 6); the window walk takes pops;
-//   pair     two L1 visits per loop iteration, the second gated by the
-//            first's still-live test (pallas_trace2.py:876-916);
 //   window   2 or 4: the resident-window drain (pallas_trace2.py:918-1160):
 //            take the `window` nearest L1 entries that can still beat the
 //            bound, slab-test all their children (each in its own space),
@@ -121,19 +120,6 @@
 //            then least index), then the least child.  The TPU's VMEM
 //            double buffering has no counterpart: children are read
 //            through the cache.
-//
-// Visit cap and multipass resume state (max_visits > 0, frontier outputs):
-// the walk stops after max_visits L1 visits.  On the TPU the cap counts a
-// 128-ray TILE's L1 visits (pallas_trace2.py:848-851); here it counts EACH
-// RAY's L1 visits.  The frontier (e_next, b_next) is, per ray, the entry
-// and index of the nearest L1 the capped walk entered but did not consume
-// whose entry is below the ray's cull bound (ties to the least index): the
-// head of the front once the unions before it are expanded.  A ray that
-// is fully resolved (walk ended, or an any-hit ray that found an occluder)
-// gets BIG_F32 / 0.  Only the frontier of a capped pass differs from the
-// TPU's (it is per ray, not per tile); the multipass driver's final result
-// (scene/intersect.py::_multipass2) does not, since its last pass is
-// uncapped.
 //
 // Built with --fmad=false: FMA contraction would change Moller-Trumbore's
 // rounding and flip edge hits against the plain version.
@@ -392,20 +378,19 @@ __device__ __forceinline__ void store_result(
 // The group walk (window 1): one ray per W lanes.  The coarse table is
 // staged in shared memory when `stage` (every thread of the block takes
 // part before any group leaves).  At least 4 blocks per SM lets ptxas use
-// up to 128 registers: it keeps the walk in 80-94 of them with no stack
+// up to 128 registers: it keeps the walk in 76-89 of them with no stack
 // frame and no spills, where by its own choice it stops at 72-80 and
-// spills (PERF.md, section 6).
+// spills (PERF.md, section 6).  At 80 or fewer (closest, amask 1 / 2) 6
+// blocks fit an SM, above 80 only 5.
 template <int AMASK, bool INST, bool MOTION, int W>
 __global__ void __launch_bounds__(128, 4)
 trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
               const float* __restrict__ tmax, int n, Tabs tb,
               const float4* __restrict__ coarse, int nc,
               const int4* __restrict__ members,
-              const int* __restrict__ union_of, int stage,
-              int any_hit, int max_visits, int pair,
+              const int* __restrict__ union_of, int stage, int any_hit,
               const float* __restrict__ times, float* __restrict__ out_t,
               int* __restrict__ out_slot, int* __restrict__ out_blk,
-              float* __restrict__ out_en, int* __restrict__ out_bn,
               int* __restrict__ counters) {
   const Top top{tb.l1box, stage_rows(coarse, 2 * nc, stage != 0), nc,
                 members, union_of};
@@ -417,36 +402,23 @@ trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
   const float time = MOTION ? times[i] : 0.0f;
   Best best{tmax0, NO_SLOT, tmax0, NO_SLOT};
   int n_pass = 0, n_l1 = 0, n_leaf = 0, n_mask = 0, n_top = 0;
-  float e_next = BIG_F32;
-  int b_next = 0;
-
   if (tmax0 > 0.0f) {
     Front2<LaneFrontSize<W>::value> f;
     front_start(f);
-    const int per_iter = pair ? 2 : 1;
-    bool live = true;
     float he;
     int ho;
-    while (live) {
-      for (int j = 0; j < per_iter && live; ++j) {
-        const float cb = cull_bound<AMASK>(best);
-        if (max_visits > 0 && n_l1 >= max_visits) {   // capped: resume state
-          if (out_en && front_head(g, f, top, r, cb, he, ho, n_pass, n_top) &&
-              (ho & 1) && he < cb) {
-            e_next = he;
-            b_next = ho >> 1;
-          }
-          live = false;
-        } else if (!front_head(g, f, top, r, cb, he, ho, n_pass, n_top) ||
-                   he > cb * WIDEN) {
-          live = false;   // front-to-back: no entry left can help
-        } else {
-          front_take(f, he, ho);
-          ++n_l1;
-          live = !visit_l1_group<AMASK, INST, MOTION, W>(
-              g, tb, ho >> 1, r, time, tmax0, any_hit, best, n_leaf, n_mask);
-        }
-      }
+    while (true) {
+      const float cb = cull_bound<AMASK>(best);
+      // front-to-back: no entry left can help
+      if (!front_head(g, f, top, r, cb, he, ho, n_pass, n_top) ||
+          he > cb * WIDEN)
+        break;
+      front_take(f, he, ho);
+      ++n_l1;
+      if (visit_l1_group<AMASK, INST, MOTION, W>(g, tb, ho >> 1, r, time,
+                                                 tmax0, any_hit, best, n_leaf,
+                                                 n_mask))
+        break;   // an any-hit walk found an occluder
     }
   }
   n_mask = group_sum(g, n_mask);
@@ -454,10 +426,6 @@ trace2_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
   if (g.lane != 0) return;
   store_result<AMASK, INST>(best, i, out_t, out_slot, out_blk, counters,
                             n_pass, n_l1, n_leaf, n_mask, n_top);
-  if (out_en) {
-    out_en[i] = e_next;
-    out_bn[i] = b_next;
-  }
 }
 
 // The resident-window walk (window 2 or 4): one ray per W lanes, on the
@@ -506,13 +474,10 @@ trace2_window_kernel(const float* __restrict__ orig,
   X(3, 0, true, false) X(4, 1, true, false) X(5, 2, true, false) \
   X(6, 0, false, true) X(9, 0, true, true)
 
-// max_visits: 0 = uncapped.  out_en / out_bn: the frontier outputs (both or
-// neither).  coarse / nc: the coarse unions ([nc, 8] f32: lo xyz, the bits
-// of the least member, hi xyz, 0), members ([nc, COARSE_G] i32, ascending,
-// -1 padded), union_of ([m1] i32); every entry in exactly one union.  The
-// combinations the reference
-// kernel asserts against are refused: pair with a cap or a frontier;
-// window > 1 with pair, a frontier or a cap; window outside {1, 2, 4}.
+// coarse / nc: the coarse unions ([nc, 8] f32: lo xyz, the bits of the
+// least member, hi xyz, 0), members ([nc, COARSE_G] i32, ascending, -1
+// padded), union_of ([m1] i32); every entry in exactly one union.  A window
+// outside {1, 2, 4} or pops < 1 is refused.
 extern "C" int trace2_launch(const float* orig, const float* dirs,
                              const float* tmax, int n, const float* l1box,
                              int m1, const float* coarse, int nc,
@@ -522,23 +487,18 @@ extern "C" int trace2_launch(const float* orig, const float* dirs,
                              int any_hit, int amask, const int* blk_src,
                              const int* blk_inst, const float* inst_inv,
                              const float* inst_velo, const float* times,
-                             int max_visits, int window, int pair, int pops,
-                             float* out_t, int* out_slot, int* out_blk,
-                             float* out_en, int* out_bn, int* counters,
+                             int window, int pops, float* out_t,
+                             int* out_slot, int* out_blk, int* counters,
                              unsigned char* touched, void* stream) {
   if (n <= 0) return 0;
   const bool inst = blk_src != nullptr;
   const bool motion = times != nullptr;
-  const bool frontier = out_en != nullptr;
   if (amask < 0 || amask > 2 ||
       (amask && (any_hit || mask == nullptr || motion)) ||
       (inst && (!blk_inst || !inst_inv || !out_blk || (motion && !inst_velo))))
     return (int)cudaErrorInvalidValue;
-  if (g < 1 || g > 64 || max_visits < 0 || pops < 1 ||
-      frontier != (out_bn != nullptr) ||
+  if (g < 1 || g > 64 || pops < 1 ||
       (window != 1 && window != 2 && window != 4) ||
-      (pair && (max_visits || frontier)) ||
-      (window > 1 && (pair || max_visits || frontier)) ||
       !coarse || !members || !union_of || nc < 1 || nc > m1)
     return (int)cudaErrorInvalidValue;
   Tabs tb{(const float4*)l1box, m1, l1_base, (const float4*)l2box,
@@ -558,8 +518,8 @@ extern "C" int trace2_launch(const float* orig, const float* dirs,
     return launch_groups<TRACE2_LANES>(                                      \
         trace2_kernel<AMASK, INST, MOTION, TRACE2_LANES>, n, smem, stream,   \
         orig, dirs, tmax, n, tb, (const float4*)coarse, nc,                  \
-        (const int4*)members, union_of, stage, any_hit, max_visits, pair,    \
-        times, out_t, out_slot, out_blk, out_en, out_bn, counters);
+        (const int4*)members, union_of, stage, any_hit, times, out_t,        \
+        out_slot, out_blk, counters);
     TRACE2_MODES(TRACE2_CASE)
 #undef TRACE2_CASE
     default:

@@ -35,7 +35,7 @@ from ..core.device import resolve_device, to_device
 from ..core.math import (fma, fsqrt, SHADOW_EPS, BIG_F32, vdot, vdot_k,
                          safe_normalize, sphere_uv, offset_ray, unpack3,
                          pack3, sdot, scross, sdot_f, scross_f, sbary_mix,
-                         ssafe_normalize, sonb_from_normal)
+                         ssafe_normalize, sonb_from_normal, _inv_guard)
 from ..core.rng import hash_u32, uniform_from_u32
 from ..utils.profile import count, host_any, set_count, span, spanned
 from .textures import texture_alpha, texture_eval
@@ -150,12 +150,6 @@ def _quad_hits(o, d, q, n, dd, u, v, w, t_min=SHADOW_EPS, vel=None,
 # Dispatch sort key
 # ---------------------------------------------------------------------------
 
-def _inv_guard(direction):
-    small = torch.abs(direction) < 1e-32
-    return 1.0 / torch.where(small, torch.where(direction < 0, -1e-32, 1e-32),
-                             direction)
-
-
 def _slab_top2(bl, bh, origin, inv):
     """Chunked slab over box tables: per ray the two nearest entered boxes
     (entry distance + id), BIG/0 when fewer."""
@@ -209,47 +203,6 @@ def _slab_top2(bl, bh, origin, inv):
     return be, bi, be2, bi2
 
 
-def _hier_top2(scene, bl, bh, origin, inv):
-    """_slab_top2's outputs by the reference's hierarchical pre-pass
-    (pathtracing_tpu/scene/intersect.py, the PT_HIER_KEY branch): the two
-    nearest coarse groups, then the two nearest entered blocks among
-    their 2 * SORT_COARSE_G members."""
-    from ..accel.build import SORT_COARSE_G as gc
-    m = bl.shape[0]
-    ce1, ci1, ce2, ci2 = _slab_top2(scene["pk_sblk_lo"], scene["pk_sblk_hi"],
-                                    origin, inv)
-    have2 = ce2 < BIG_F32 * 0.5
-    ar = torch.arange(gc, device=origin.device)[None, :]
-    fid = torch.cat([ci1[:, None] * gc + ar,
-                     torch.where(have2, ci2, ci1)[:, None] * gc + ar], 1)
-    fidc = torch.clamp(fid, 0, m - 1)
-    flo = bl[fidc]                                          # [N, 2Gc, 3]
-    fhi = bh[fidc]
-    u0 = (flo[:, :, 0] - origin[:, 0:1]) * inv[:, 0:1]
-    u1 = (fhi[:, :, 0] - origin[:, 0:1]) * inv[:, 0:1]
-    tn = torch.minimum(u0, u1)
-    tf = torch.maximum(u0, u1)
-    u0 = (flo[:, :, 1] - origin[:, 1:2]) * inv[:, 1:2]
-    u1 = (fhi[:, :, 1] - origin[:, 1:2]) * inv[:, 1:2]
-    tn = torch.maximum(tn, torch.minimum(u0, u1))
-    tf = torch.minimum(tf, torch.maximum(u0, u1))
-    u0 = (flo[:, :, 2] - origin[:, 2:3]) * inv[:, 2:3]
-    u1 = (fhi[:, :, 2] - origin[:, 2:3]) * inv[:, 2:3]
-    tn = torch.clamp(torch.maximum(tn, torch.minimum(u0, u1)), min=0.0)
-    tf = torch.minimum(tf, torch.maximum(u0, u1))
-    e = torch.where((tn <= tf) & (fid < m), tn, BIG_F32)   # [N, 2Gc]
-    f1 = torch.argmin(e, dim=1)                 # first of equal minima
-    e1 = e.gather(1, f1[:, None])[:, 0]
-    b1f = fid.gather(1, f1[:, None])[:, 0]
-    lane = torch.arange(2 * gc, device=origin.device)[None, :]
-    e2l = torch.where(lane == f1[:, None], BIG_F32, e)
-    f2 = torch.argmin(e2l, dim=1)
-    e2 = e2l.gather(1, f2[:, None])[:, 0]
-    b2f = fid.gather(1, f2[:, None])[:, 0]
-    bi = torch.where(e1 < BIG_F32 * 0.5, b1f, ci1 * gc)
-    return torch.minimum(e1, ce1), bi, e2, b2f
-
-
 @spanned("intersect.sort_key")
 def _first_block_key(scene, origin, direction):
     """Dispatch sort key: the ids of the first two L1 blocks each ray
@@ -260,34 +213,21 @@ def _first_block_key(scene, origin, direction):
 
     On the card one launch of csrc/sortkey.cu (`sort_key_launch`), which
     equals the plain version (`_first_block_key_plain`) bit for bit; on
-    the CPU the plain version.  PT_HIER_KEY=1 (tables with coarse unions
-    and more than 64 blocks): the reference's hierarchical key, plain
-    code on either device.  The top-2 coarse groups (pk_sblk_lo/hi,
-    unions of SORT_COARSE_G blocks) are found first and their members
-    refined jointly; a ray that enters a group but none of its members is
-    keyed by the group's first block.  Off by default, as in the
-    reference, which measured it slower on its kernel."""
-    bl = scene["pk_blk_lo"]
-    if origin.is_cuda and not _hier_key(scene, bl.shape[0]):
-        return sort_key_launch(bl, scene["pk_blk_hi"], origin, direction)
+    the CPU the plain version.  The reference's hierarchical key
+    (PT_HIER_KEY=1 there) is not read: it orders the same work and never
+    won on the card."""
+    if origin.is_cuda:
+        return sort_key_launch(scene["pk_blk_lo"], scene["pk_blk_hi"], origin,
+                               direction)
     return _first_block_key_plain(scene, origin, direction)
-
-
-def _hier_key(scene, m):
-    return ("pk_sblk_lo" in scene and m > 64
-            and os.environ.get("PT_HIER_KEY") == "1")
 
 
 def _first_block_key_plain(scene, origin, direction):
     """_first_block_key in plain PyTorch (chunked [N, 512] slab passes)."""
     bl = scene["pk_blk_lo"]
-    bh = scene["pk_blk_hi"]
     m = bl.shape[0]
-    inv = _inv_guard(direction)
-    if _hier_key(scene, m):
-        be, bi, be2, bi2 = _hier_top2(scene, bl, bh, origin, inv)
-    else:
-        be, bi, be2, bi2 = _slab_top2(bl, bh, origin, inv)
+    be, bi, be2, bi2 = _slab_top2(bl, scene["pk_blk_hi"], origin,
+                                  _inv_guard(direction))
     octant = ((direction[:, 0] > 0).to(torch.int64)
               | ((direction[:, 1] > 0).to(torch.int64) << 1)
               | ((direction[:, 2] > 0).to(torch.int64) << 2))
@@ -386,82 +326,6 @@ def _subset_scene(scene, prefix):
     return sub
 
 
-def _multipass_visits():
-    """Per-pass L1-visit caps of the multipass driver; () disables it.
-    PT_MULTIPASS overrides MULTIPASS_VISITS: "0", "off" or "" off, "a,b,c"
-    a schedule.  Read at every dispatch (the reference package reads it
-    when it traces)."""
-    env = os.environ.get("PT_MULTIPASS")
-    if env is not None:
-        env = env.strip()
-        if env in ("0", "off", ""):
-            return ()
-        return tuple(int(x) for x in env.split(","))
-    return MULTIPASS_VISITS
-
-
-# Off by default, as in the reference package, which measured it as a dead
-# end on its TPU kernel (pathtracing_tpu/scene/intersect.py:331-341).
-MULTIPASS_VISITS = ()
-# The reference takes the multipass driver only when its per-tile entry
-# table fits VMEM (pallas_trace2.RECULL_MAX_M1PAD); the same condition
-# keeps the two packages on the same path under the same switches.
-RECULL_MAX_M1PAD = 8192
-
-
-def _multipass2(sub, o, d, tm, any_hit, time, visits):
-    """Multipass traversal of a two-level table set (the reference's
-    `_multipass2`): capped kernel passes (max_visits = visits[i]) that
-    report each ray's resume state, then one uncapped pass.  Between
-    passes the unresolved rays (resume entry below their running bound;
-    for any-hit, not occluded yet) are re-sorted by (b_next << 3) | octant,
-    so rays that need the same L1 next travel together, and their t_max is
-    tightened to the running best; the resolved ones get t_max = 0.  A
-    pass's hit replaces the running one only when strictly closer, so the
-    result equals one uncapped pass up to which of two triangles at the
-    same t is reported."""
-    from ..accel.trace2 import tri_intersect2
-
-    n = o.shape[0]
-    dev = o.device
-    res = dict(t=torch.full((n,), BIG_F32, dtype=torch.float32, device=dev),
-               tri=torch.full((n,), -1, dtype=torch.int64, device=dev),
-               inst=torch.full((n,), -1, dtype=torch.int64, device=dev),
-               valid=torch.zeros((n,), dtype=torch.bool, device=dev))
-    octant = ((d[:, 0] > 0).to(torch.int64)
-              | ((d[:, 1] > 0).to(torch.int64) << 1)
-              | ((d[:, 2] > 0).to(torch.int64) << 2))
-    o_s, d_s, t_s, time_s = o, d, tm, time
-    ip = None                       # inverse of the current permutation
-    for v in list(visits) + [None]:
-        last = v is None
-        hit = tri_intersect2(sub, o_s, d_s, t_s, any_hit=any_hit,
-                             time=time_s, max_visits=v, frontier=not last)
-        if ip is not None:          # back to the caller's ray order
-            hit = {k: x[ip] for k, x in hit.items()}
-        bound = torch.where(res["valid"], res["t"], tm)
-        closer = hit["valid"] & (hit["t"] < bound)
-        res = dict(t=torch.where(closer, hit["t"], res["t"]),
-                   tri=torch.where(closer, hit["tri"], res["tri"]),
-                   inst=torch.where(closer, hit["inst"], res["inst"]),
-                   valid=res["valid"] | closer)
-        if last:
-            break
-        bound = torch.where(res["valid"], res["t"], tm)
-        unresolved = (hit["e_next"] < bound) & (bound > 0.0)
-        if any_hit:
-            unresolved = unresolved & ~res["valid"]
-        key = torch.where(unresolved, (hit["b_next"] << 3) | octant,
-                          0xFFFFFFFF)
-        perm = torch.argsort(key, stable=True)
-        ip = torch.argsort(perm)
-        o_s = o[perm]
-        d_s = d[perm]
-        t_s = torch.where(unresolved, bound, 0.0)[perm]
-        time_s = time[perm] if time is not None else None
-    return res
-
-
 @spanned("intersect.dispatch")
 def _pallas_dispatch(scene, meta, origin, direction, t_max,
                      any_hit: bool = False, tri_tables: str = "all",
@@ -485,10 +349,10 @@ def _pallas_dispatch(scene, meta, origin, direction, t_max,
     definitely-transparent hits (amask=1; PT_AMASK_CLOSEST=0 turns this
     off); alpha_shadow=True runs the shadow walk (amask=2), whose result
     carries "solid" for lanes a definitely-opaque hit occludes outright.
-    Two-level runs pass pops=meta.block_pops, and the switches the
-    reference package reads at the same point: PT_MULTIPASS (the multipass
-    driver, on mask-free runs whose L1 count pads to at most
-    RECULL_MAX_M1PAD) and PT_WINDOW (the resident-window drain).  A hit on
+    Two-level runs pass pops=meta.block_pops, and PT_WINDOW (the
+    resident-window drain), read where the reference package reads it.
+    The reference's multipass driver (PT_MULTIPASS there) is not read: it
+    changes no result and its capped walk lost on the card.  A hit on
     a run-time instance comes back as kind SHAPE_ITRI, idx = inst *
     n_obj_tri + object triangle.  time [N]: the rays' shutter times on a
     moving scene."""
@@ -522,10 +386,6 @@ def _pallas_dispatch(scene, meta, origin, direction, t_max,
     def run(prefix, tmr, amask):
         sub = _subset_scene(scene, prefix)
         if "pk_l1_base" in sub:
-            m1pad = -(-sub["pk_l1box"].shape[0] // 128) * 128
-            visits = _multipass_visits()
-            if visits and m1pad <= RECULL_MAX_M1PAD and not amask:
-                return _multipass2(sub, o, d, tmr, any_hit, tme, visits)
             wdw = os.environ.get("PT_WINDOW")
             return tri_intersect2(sub, o, d, tmr, any_hit=any_hit,
                                   amask=amask, time=tme,

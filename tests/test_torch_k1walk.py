@@ -15,7 +15,7 @@ import torch
 from pathtracing_tpu.accel.pallas_trace2 import build_tri_blocks2 as j_build
 from pathtracing_tpu.core.math import BIG_F32
 from pathtracing_tpu_torch.accel import cubuild, trace2
-from pathtracing_tpu_torch.scene.intersect import _inv_guard
+from pathtracing_tpu_torch.core.math import _inv_guard
 from test_torch_trace1 import (_T, _alpha_cards, _card_masks, _inst_args,
                                _soup)
 from test_torch_native import jax_native_builder
@@ -164,32 +164,6 @@ def test_torch_k1walk_union_entry_bounds_members(kind):
     assert (eu < BIG_F32).sum() > entered.sum()
 
 
-@pytest.mark.parametrize("w", LANES)
-def test_torch_k1walk_capped_frontier(host_libs, w):
-    """The capped walk at caps 1 ... 8 with frontier outputs equals the
-    plain capped walk (t, slot, e_next, b_next; any-hit: the occlusion flag
-    and the resume state) on tables of more than 9 coarse unions: the
-    front visits the L1 entries in the flat (entry, index) order."""
-    tabs = _plain_tables()
-    assert tabs["pk_cbox"].shape[0] >= 9
-    o, d, t_max = _rays(26, 300, 8.0, 12.0)
-    for any_hit in (False, True):
-        for cap in range(1, 9):
-            t, k, ex = trace2._launch_kernel(
-                tabs, o, d, t_max, any_hit, False, 0, host_lib=host_libs[w],
-                max_visits=cap, frontier=True)
-            pt, pk, pe, pb = trace2._plain_capped(tabs, o, d, t_max, cap, 0,
-                                                  None, any_hit)
-            if any_hit:
-                assert torch.equal(k >= 0, pk >= 0), cap
-            else:
-                assert torch.equal(t, pt) and torch.equal(k, pk), cap
-            assert torch.equal(ex["e_next"], pe), cap
-            assert torch.equal(ex["b_next"], pb), cap
-            if cap == 1:
-                assert (pe < BIG_F32).sum() > 50
-
-
 @pytest.mark.parametrize("kind", ["plain", "masked", "instanced",
                                   "instanced_masked", "motion",
                                   "instanced_motion"])
@@ -198,7 +172,7 @@ def test_torch_k1walk_modes_match_plain(host_libs, w, kind):
     """Every mode of the group walk (closest, any-hit, amask 1 / 2; plain,
     instanced, moving, instanced + moving tables) at W lanes per ray equals
     the plain version: the same keys (-2 = solid), bit-equal t, and the
-    same occlusion flags; pops 4 and pair change nothing."""
+    same occlusion flags; pops 4 changes nothing."""
     tabs, time, amasks = _tables(kind)
     spread = 6.0 if "masked" in kind else 8.0
     o, d, t_max = _rays(27, 400, spread, 1.5 * spread)
@@ -208,7 +182,7 @@ def test_torch_k1walk_modes_match_plain(host_libs, w, kind):
         assert (pk >= 0).sum() > 50
         if amask == 2:
             assert (pk == -2).sum() > 20
-        for kw in (dict(), dict(pops=4), dict(pair=True)):
+        for kw in (dict(), dict(pops=4)):
             t, k, _ = trace2._launch_kernel(tabs, o, d, t_max, False, False,
                                             amask, time,
                                             host_lib=host_libs[w], **kw)

@@ -1,5 +1,5 @@
-"""K1's visit cap, frontier outputs and schedules (accel/trace2.py), the
-multipass driver (scene/intersect.py::_multipass2) and the environment
+"""K1's schedules (accel/trace2.py), the dispatch's one schedule under the
+JAX package's multipass and hierarchical-key switches, and the environment
 switches the port reads at the JAX package's points, each against the JAX
 package."""
 import dataclasses
@@ -70,18 +70,18 @@ def bvh_soup():
 
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_torch_multipass_matches_jax(bvh_soup, any_hit):
-    """The port's _multipass2 (per-ray caps on the plain capped walk)
-    against the JAX package's (per-tile caps in the Pallas kernel) with
-    visits=(2, 1, 2): the capped passes' frontiers differ, the final
-    result does not (valid and tri exact, t to rtol 1e-6)."""
+    """The JAX package's _multipass2 (per-tile caps in the Pallas kernel)
+    with visits=(2, 1, 2) against the port's single uncapped walk
+    (tri_intersect2_plain): valid and tri exact, t to rtol 1e-6."""
     _, ja, k2, tabs, o, d, t_max = bvh_soup
     jscene = {k: jnp.asarray(v) for k, v in ja.items()}
     want = jisect._multipass2(jscene, jnp.asarray(o), jnp.asarray(d),
                               jnp.asarray(t_max), k2, any_hit, None,
                               visits=(2, 1, 2), g=4)
-    got = tisect._multipass2(tabs, torch.from_numpy(o), torch.from_numpy(d),
-                             torch.from_numpy(t_max), any_hit, None,
-                             (2, 1, 2))
+    got = trace2.tri_intersect2_plain(tabs, torch.from_numpy(o),
+                                      torch.from_numpy(d),
+                                      torch.from_numpy(t_max),
+                                      any_hit=any_hit)
     v = np.asarray(want["valid"])
     assert 20 < v.sum() < 256
     np.testing.assert_array_equal(got["valid"].numpy(), v)
@@ -96,60 +96,6 @@ def test_torch_multipass_matches_jax(bvh_soup, any_hit):
     np.testing.assert_array_equal(np.asarray(one["valid"]), v)
 
 
-@pytest.mark.parametrize("cap", [1, 2, 5])
-def test_torch_capped_frontier_is_sound(bvh_soup, cap):
-    """The plain capped walk's frontier against brute force: every ray's
-    true nearest hit is either found by the capped walk or lies in an L1
-    that the walk did not consume, whose entry is >= e_next (the frontier
-    is the nearest unconsumed L1 that can still beat the bound); a ray
-    reported resolved (e_next = BIG_F32) has found its nearest hit."""
-    _, _, _, tabs, o, d, t_max = bvh_soup
-    o, d, tm = torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(t_max)
-    brute = trace2.tri_intersect2_plain(tabs, o, d, tm, prune=False)
-    cap_r = trace2.tri_intersect2_plain(tabs, o, d, tm, max_visits=cap,
-                                        frontier=True)
-    found = ~brute["valid"] | (cap_r["valid"] & (cap_r["t"] == brute["t"]))
-    missed = ~found
-    assert missed.any() and found.any()
-    # the L1 of each missed nearest hit, and that L1's kernel entry
-    slot = torch.nonzero(tabs["pk_slot2tri"][None, :]
-                         == brute["tri"][missed][:, None])[:, 1]
-    per_l1 = tabs["pk_slot2tri"].shape[0] // tabs["pk_l1_base"].shape[0]
-    l1 = slot // per_l1
-    inv = tisect._inv_guard(d[missed])
-    e = trace2.slab_entries(tabs["pk_l1box"], o[missed], inv, tm[missed])
-    e_l1 = e[torch.arange(l1.shape[0]), l1]
-    assert (cap_r["e_next"][missed] < BIG_F32).all()
-    assert (e_l1 >= cap_r["e_next"][missed]).all()
-    resolved = cap_r["e_next"] >= BIG_F32
-    assert found[resolved].all()
-    # without a cap the walk resolves every ray
-    full = trace2.tri_intersect2_plain(tabs, o, d, tm, frontier=True)
-    assert (full["e_next"] >= BIG_F32).all() and (full["b_next"] == 0).all()
-
-
-def test_torch_schedule_refusals(bvh_soup):
-    """The combinations the reference kernel asserts against are refused,
-    by the wrapper and by the kernel's C entry."""
-    _, _, _, tabs, o, d, t_max = bvh_soup
-    o, d = torch.from_numpy(o), torch.from_numpy(d)
-    bad = (dict(pair=True, max_visits=2), dict(pair=True, frontier=True),
-           dict(window=2, pair=True), dict(window=4, max_visits=2),
-           dict(window=2, frontier=True), dict(window=3),
-           dict(max_visits=0), dict(pops=0),
-           dict(frontier=True, recull_every=1 << 29))
-    for kw in bad:
-        for fn in (trace2.tri_intersect2, trace2.tri_intersect2_plain):
-            with pytest.raises(ValueError):
-                fn(tabs, o, d, BIG_F32, **kw)
-    # recull_every / drain_cull select nothing
-    a = trace2.tri_intersect2(tabs, o, d, BIG_F32, recull_every=1,
-                              drain_cull=False)
-    b = trace2.tri_intersect2(tabs, o, d, BIG_F32)
-    for k in ("t", "tri", "valid"):
-        assert torch.equal(a[k], b[k])
-
-
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     """csrc/trace2.cu compiled as plain C++ (one loop iteration per CUDA
@@ -158,6 +104,28 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs g++ to build the kernel source as host code")
     return trace2.bind(cubuild.host_library(
         "trace2", tmp_path_factory.mktemp("trace2_mp")))
+
+
+def test_torch_schedule_refusals(bvh_soup, host_lib):
+    """A window outside {1, 2, 4} and pops < 1 are refused by the wrapper
+    and by the kernel's C entry; the reference's visit cap, frontier
+    outputs, paired visits and re-cull cadence are no parameters."""
+    _, _, _, tabs, o, d, t_max = bvh_soup
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    tm = torch.full((o.shape[0],), BIG_F32)
+    for kw in (dict(window=3), dict(window=0), dict(pops=0)):
+        for fn in (trace2.tri_intersect2, trace2.tri_intersect2_plain):
+            with pytest.raises(ValueError):
+                fn(tabs, o, d, BIG_F32, **kw)
+        with pytest.raises(RuntimeError):
+            trace2._launch_kernel(tabs, o, d, tm, False, False, 0,
+                                  host_lib=host_lib,
+                                  **{"window": 1, "pops": 1, **kw})
+    for kw in (dict(max_visits=2), dict(frontier=True), dict(pair=True),
+               dict(recull_every=1), dict(drain_cull=False)):
+        for fn in (trace2.tri_intersect2, trace2.tri_intersect2_plain):
+            with pytest.raises(TypeError):
+                fn(tabs, o, d, BIG_F32, **kw)
 
 
 def _inst_tables(rng, motion):
@@ -185,11 +153,10 @@ def _inst_tables(rng, motion):
 @pytest.mark.parametrize("kind", ["plain", "instanced", "motion",
                                   "instanced_motion"])
 def test_torch_trace2_kernel_source_new_modes(host_lib, kind):
-    """The CUDA kernel's new modes (compiled as host C++) against the
-    plain version: caps 1 / 2 / 16 with frontier outputs against the plain
-    capped walk (t, slot, e_next, b_next; any-hit: the occlusion flag),
-    and windows 2 / 4 (pops = 2 * window), pair and pops 1 / 4 against the
-    window=1, pops=1 walk: 0 flips, t bit-equal."""
+    """The CUDA kernel's new modes (compiled as host C++): windows 2 / 4
+    (pops = 2 * window) and pops 1 / 4 against the window=1, pops=1 walk,
+    and that walk against the plain version: 0 flips, t bit-equal
+    (any-hit: the occlusion flag)."""
     rng = np.random.default_rng(41)
     time = None
     if kind == "plain":
@@ -214,23 +181,16 @@ def test_torch_trace2_kernel_source_new_modes(host_lib, kind):
         return trace2._launch_kernel(tabs, o, d, tm, any_hit, False, 0, time,
                                      host_lib=host_lib, **kw)
 
+    pt, pk = trace2._plain_slots(tabs, o, d, tm, time=time)
     for any_hit in (False, True):
         bt, bk, _ = kern(any_hit)
         assert (bk >= 0).sum() > 10
-        for cap in (1, 2, 16):
-            t, k, ex = kern(any_hit, max_visits=cap, frontier=True)
-            pt, pk, pe, pb = trace2._plain_capped(tabs, o, d, tm, cap, 0,
-                                                  time, any_hit)
-            if any_hit:
-                assert torch.equal(k >= 0, pk >= 0), cap
-            else:
-                assert torch.equal(t, pt) and torch.equal(k, pk), cap
-            assert torch.equal(ex["e_next"], pe), cap
-            assert torch.equal(ex["b_next"], pb), cap
-            if cap == 1:
-                assert (pe < BIG_F32).sum() > 10
+        if any_hit:
+            assert torch.equal(bk >= 0, pk >= 0)
+        else:
+            assert torch.equal(bt, pt) and torch.equal(bk, pk)
         for kw in (dict(window=2, pops=4), dict(window=4, pops=8),
-                   dict(pair=True), dict(pops=1), dict(pops=4)):
+                   dict(pops=1), dict(pops=4)):
             t, k, _ = kern(any_hit, **kw)
             if any_hit:
                 assert torch.equal(k >= 0, bk >= 0), kw
@@ -242,21 +202,16 @@ def test_torch_trace2_kernel_source_new_modes(host_lib, kind):
 # Environment switches: the same setting, both packages, the same path
 # ---------------------------------------------------------------------------
 
-def test_torch_multipass_visits_parsing(monkeypatch):
-    for env, want in (("0", ()), ("off", ()), ("", ()), (" 16,8,8 ",
-                                                        (16, 8, 8))):
-        monkeypatch.setenv("PT_MULTIPASS", env)
-        assert tisect._multipass_visits() == jisect._multipass_visits() \
-            == want
-    monkeypatch.delenv("PT_MULTIPASS")
-    assert tisect._multipass_visits() == jisect._multipass_visits() == ()
+def _two_level_args(monkeypatch, **kw):
+    """sanmiguel_analog's arguments on the two-level tables
+    (PT_TWOLEVEL_MIN=0 for both builders), tiny."""
+    monkeypatch.setenv("PT_TWOLEVEL_MIN", "0")
+    return dict(dict(resolution=(8, 8), n_tris=3_000, accel="pallas"), **kw)
 
 
 def _two_level_pair(monkeypatch, **kw):
-    """sanmiguel_analog built by both packages on the two-level tables
-    (PT_TWOLEVEL_MIN=0 for both builders), tiny."""
-    monkeypatch.setenv("PT_TWOLEVEL_MIN", "0")
-    args = dict(resolution=(8, 8), n_tris=3_000, accel="pallas", **kw)
+    """sanmiguel_analog built by both packages on the two-level tables."""
+    args = _two_level_args(monkeypatch, **kw)
     js = jscenes.sanmiguel_analog(**args)
     ts = tscenes.sanmiguel_analog(device="cpu", **args)
     assert "pk_l1_base" in js[0] and "pk_l1_base" in ts[0]
@@ -301,14 +256,16 @@ def _spy(monkeypatch):
 
 @pytest.mark.parametrize("switch", ["multipass", "window"])
 def test_torch_env_switch_dispatch_matches_jax(monkeypatch, switch):
-    """PT_MULTIPASS=2,1,2 (the multipass driver) and PT_WINDOW=4 (the
-    window walk), set the same way for both packages: each takes the path
-    the switch names (the port's calls are recorded), and the closest and
-    any-hit results equal the JAX package's."""
+    """PT_MULTIPASS=2,1,2 and PT_WINDOW=4, set the same way for both
+    packages: the JAX package takes its multipass driver, the port its one
+    uncapped walk (no call carries a cap); PT_WINDOW=4 makes both take the
+    window walk (the port's calls are recorded).  The closest and any-hit
+    results equal the JAX package's."""
     js, ts = _two_level_pair(monkeypatch, faithful=False)
     o, d, t_max = _scene_rays(ts[0], 256, 3)
     if switch == "multipass":
         monkeypatch.setenv("PT_MULTIPASS", "2,1,2")
+        assert jisect._multipass_visits() == (2, 1, 2)
     else:
         monkeypatch.setenv("PT_WINDOW", "4")
     calls = _spy(monkeypatch)
@@ -324,10 +281,42 @@ def test_torch_env_switch_dispatch_matches_jax(monkeypatch, switch):
             np.testing.assert_allclose(got["t"].numpy()[v],
                                        np.asarray(want["t"])[v], rtol=1e-5)
     if switch == "multipass":
-        assert [c.get("max_visits") for c in calls[:4]] == [2, 1, 2, None]
+        assert calls and all(
+            set(c) == {"any_hit", "amask", "time", "pops", "window"}
+            and c["window"] is None and c["pops"] == 4 for c in calls)
     else:
         assert calls and all(c["window"] == 4 and c["pops"] == 4
                              for c in calls)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("env", ["PT_MULTIPASS=2,1,2", "PT_HIER_KEY=1"])
+def test_torch_dispatch_takes_one_schedule(monkeypatch, env, any_hit):
+    """The JAX package's multipass driver and hierarchical sort key have no
+    counterpart in the port: on two-level tables of more than 64 L1s with
+    the coarse unions (where the JAX package takes both), either switch
+    leaves the dispatch's output bit for bit the unset run's, every
+    tri_intersect2 call carries pops = meta.block_pops and no other
+    schedule, and the sort key is the flat key."""
+    monkeypatch.setenv("PT_BLOCK_G", "2")
+    scene, _, meta = tscenes.sanmiguel_analog(
+        device="cpu", **_two_level_args(monkeypatch, n_tris=20_000,
+                                        faithful=False))
+    assert scene["pk_l1box"].shape[0] > 64 and "pk_sblk_lo" in scene
+    o, d, t_max = (torch.from_numpy(x) for x in _scene_rays(scene, 256, 4))
+    flat = tisect._first_block_key(scene, o, d)
+    want = tisect._pallas_dispatch(scene, meta, o, d, t_max, any_hit=any_hit)
+    assert want["valid"].sum() > 30
+    monkeypatch.setenv(*env.split("="))
+    calls = _spy(monkeypatch)
+    got = tisect._pallas_dispatch(scene, meta, o, d, t_max, any_hit=any_hit)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert calls and all(c == dict(any_hit=any_hit, amask=0, time=None,
+                                   pops=meta.block_pops, window=None)
+                         for c in calls)
+    assert torch.equal(tisect._first_block_key(scene, o, d), flat)
 
 
 @pytest.mark.parametrize("closest", ["1", "0"])

@@ -416,7 +416,7 @@ def test_torch_trace1_union_entry_bounds_members(kind):
     entry of each member block that is entered, and an entered block has
     its union entered, for every ray and bound."""
     from pathtracing_tpu_torch.accel.trace2 import slab_entries
-    from pathtracing_tpu_torch.scene.intersect import _inv_guard
+    from pathtracing_tpu_torch.core.math import _inv_guard
     if kind == "plain":
         tabs = _T(trace1.build_tri_blocks(_soup(23, 20000, 6.0, 0.6))[0])
     else:

@@ -381,9 +381,11 @@ def test_torch_first_block_key_matches_jax():
 
 @pytest.mark.parametrize("m", [300, 700])
 def test_torch_first_block_key_hier_matches_jax(monkeypatch, m):
-    """PT_HIER_KEY=1: the hierarchical key (top-2 coarse groups refined
-    jointly) equals the JAX package's bit for bit on tables of more than
-    64 top-level boxes, and differs from the flat key on some rays."""
+    """PT_HIER_KEY=1, the JAX package's hierarchical key (top-2 coarse
+    groups refined jointly), is not read by the port: on tables of more
+    than 64 top-level boxes with the coarse unions its key equals the JAX
+    package's flat key bit for bit, and the JAX package's hierarchical
+    key differs from that on some rays."""
     from pathtracing_tpu_torch.accel.build import sort_key_coarse
     rng = np.random.default_rng(m)
     lo = np.sort(rng.uniform(-50, 50, (m, 3)).astype(np.float32), axis=0)
@@ -395,13 +397,14 @@ def test_torch_first_block_key_hier_matches_jax(monkeypatch, m):
     tabs = dict(pk_blk_lo=lo, pk_blk_hi=hi, **sort_key_coarse(lo, hi))
     jt = {k: jnp.asarray(v) for k, v in tabs.items()}
     tt = {k: torch.from_numpy(v) for k, v in tabs.items()}
-    flat = tisect._first_block_key(tt, torch.from_numpy(o),
-                                   torch.from_numpy(d))
+    flat = np.asarray(jisect._first_block_key(jt, jnp.asarray(o),
+                                              jnp.asarray(d))).astype(np.int64)
     monkeypatch.setenv("PT_HIER_KEY", "1")
-    kj = jisect._first_block_key(jt, jnp.asarray(o), jnp.asarray(d))
+    hier = np.asarray(jisect._first_block_key(jt, jnp.asarray(o),
+                                              jnp.asarray(d))).astype(np.int64)
     kt = tisect._first_block_key(tt, torch.from_numpy(o), torch.from_numpy(d))
-    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj).astype(np.int64))
-    assert (kt != flat).any() and (kt < 0x7FFFFFFE).sum() > 100
+    np.testing.assert_array_equal(kt.numpy(), flat)
+    assert (hier != flat).any() and (flat < 0x7FFFFFFE).sum() > 100
 
 
 def test_torch_kernel_wrapper_refuses_cpu_counters():
